@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA cores, f32 arithmetic.
+// Flash-attention forward for Hopper (sm_90a), float32 route: CUDA cores,
+// f32 arithmetic. The bf16 route is flash_attention_sm90.cu (wgmma, TMA); the
+// C entry point flash_attention_fwd below picks the route by dtype.
 //
 // Replaces the TPU kernel incubator_mxnet_tpu/ops/attention.py:_flash_kernel
 // (launched by _flash_forward_pallas). It computes the same function:
@@ -6,16 +8,15 @@
 // with an online max/sum rescaling over key tiles, the finite -1e30 sentinel
 // for masked logits (so a query row that sees no key averages V uniformly, as
 // the reference does), the causal diagonal anchored at the END of the key axis
-// (row i sees keys j <= i + Sk - Sq), and o = acc / max(l, 1e-20) in q's dtype.
-// Inputs are float32 or bfloat16; every product and sum is float32, as the TPU
-// kernel's Precision.HIGHEST is (no TF32, no bf16 rounding of P).
+// (row i sees keys j <= i + Sk - Sq), and o = acc / max(l, 1e-20). Every
+// product and sum is float32, as the TPU kernel's Precision.HIGHEST is (no
+// TF32).
 //
 // What bounds it on this card: at the serving shape (8, 32, 1024, 128) causal
-// in bf16 the work needs ~69 GFLOP and ~268 MB of q, k, v and o, so the bound
-// is the 80 us it takes to move the bytes at 3.35 TB/s. This first design runs
-// its float32 FMAs on the CUDA cores, whose 67 TFLOP/s ceiling alone puts it
-// near 1 ms, far from the tensor-core bound; wgmma, TMA and warp
-// specialisation are the later work that closes that gap.
+// the work needs ~69 GFLOP; its float32 FMAs on the CUDA cores have a 67
+// TFLOP/s ceiling, about 1 ms, far above the bytes' bound (0.16 ms for f32
+// q, k, v and o at 3.35 TB/s). An f32-exact tensor-core design (split TF32)
+// is later work; the serving path runs bf16 and does not launch this kernel.
 //
 // Design: one thread block per (query tile of 64 rows, batch*head). The Q tile
 // is staged once in shared memory (pre-scaled); K and V tiles of 64 keys are
@@ -32,8 +33,14 @@
 // the kernel. The kernel allocates nothing; it runs on the caller's stream.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math_constants.h>
+
+// the bf16 route, in flash_attention_sm90.cu
+cudaError_t flash_attention_sm90_bf16(const void* q, const void* k,
+                                      const void* v, void* o,
+                                      int batch_heads, int sq, int sk, int d,
+                                      float scale, int causal,
+                                      cudaStream_t stream);
 
 namespace {
 
@@ -45,13 +52,7 @@ constexpr int kCols = 8;       // keys per thread in one S tile
 constexpr float kSentinel = -1e30f;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Stage a (rows x d) tile of a row-major (*, d) matrix as float32 in shared
 // memory with row stride ld, scaled by mul; rows at or past n_valid read 0.
@@ -232,7 +233,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, o: (batch_heads, sq, d); k, v: (batch_heads, sk, d); all contiguous and
-// of one dtype (0 = float32, 1 = bfloat16); 1 <= d <= 128; sq, sk >= 1;
+// of one dtype, which picks the route: 0 = float32 (this file's CUDA-core
+// kernel), 1 = bfloat16 (flash_attention_sm90.cu, which also needs d a
+// multiple of 8 and 16-byte aligned pointers); 1 <= d <= 128; sq, sk >= 1;
 // ceil(sq / 64) <= 65535. Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int batch_heads, int sq, int sk,
@@ -246,8 +249,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return (int)launch<float>(q, k, v, o, batch_heads, sq, sk, d, scale,
                               causal, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, o, batch_heads, sq, sk, d,
-                                      scale, causal, s);
+    return (int)flash_attention_sm90_bf16(q, k, v, o, batch_heads, sq, sk, d,
+                                          scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

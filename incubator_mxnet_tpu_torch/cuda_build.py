@@ -1,12 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into its own shared library, which Python
-loads with ``ctypes``.  Nothing here runs at import: the first CUDA tensor
-that reaches a kernel's wrapper calls :func:`load`, which builds the
-library if it is missing.  Libraries land in ``build/torch_kernels/`` at
-the root of the checkout, named by a hash of their source and flags, so an
-edited source is rebuilt and an unchanged one is reused.  ``nvcc``'s
+Each kernel's sources under ``csrc/`` (``SOURCES``) expose a plain C
+interface and are compiled by one ``nvcc`` for Hopper (``sm_90a``) into
+the kernel's own shared library, which Python loads with ``ctypes``.
+Nothing here runs at import: the first CUDA tensor that reaches a
+kernel's wrapper calls :func:`load`, which builds the library if it is
+missing.  Libraries land in ``build/torch_kernels/`` at the root of the
+checkout, named by a hash of their sources and flags, so an edited source
+is rebuilt and an unchanged one is reused.  ``nvcc``'s
 resource report (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside each library as ``.log``.
 """
@@ -23,7 +24,8 @@ from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["KERNELS", "BUILD_DIR", "build_all", "load", "build_log"]
+__all__ = ["KERNELS", "SOURCES", "BUILD_DIR", "build_all", "load",
+           "build_log", "lib_path"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -41,6 +43,11 @@ KERNELS = {
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
     },
 }
+# kernel name -> its sources under csrc/: flash attention's f32 route and
+# its bf16 route (wgmma, TMA), one library
+SOURCES = {
+    "flash_attention": ("flash_attention.cu", "flash_attention_sm90.cu"),
+}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -55,15 +62,22 @@ def _nvcc():
                      "needed to build the port's kernels" % cuda_home)
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / (name + ".cu")).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / ("lib%s-%s.so" % (name, digest[:16]))
+def _sources(name: str) -> list:
+    return [CSRC / f for f in SOURCES[name]]
+
+
+def lib_path(name: str) -> Path:
+    """Where kernel ``name``'s library is (or will be) built."""
+    digest = hashlib.sha256()
+    for src in _sources(name):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("lib%s-%s.so" % (name, digest.hexdigest()[:16]))
 
 
 def build_log(name: str) -> str:
     """nvcc's output from building kernel ``name`` (empty if never built)."""
-    log = _lib_path(name).with_suffix(".log")
+    log = lib_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
@@ -78,12 +92,12 @@ def build_all(names=None) -> dict:
     running = {}
     t0 = time.perf_counter()
     for name in names:
-        target = _lib_path(name)
+        target = lib_path(name)
         if target.exists():
             continue
         nvcc = nvcc or _nvcc()
         tmp = target.with_name("%s.tmp-%d" % (target.name, os.getpid()))
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / (name + ".cu"))]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources(name))]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True),
                          tmp, target)
@@ -108,7 +122,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build_all([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name)))
             for fn, (restype, argtypes) in KERNELS[name].items():
                 getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = argtypes

@@ -2,10 +2,14 @@
 
 Counterpart of ``incubator_mxnet_tpu/ops/attention.py``.  The TPU build runs
 the Pallas kernel ``_flash_kernel`` (:56) on the chip and a jnp reference
-elsewhere; the port runs ``csrc/flash_attention.cu`` on a CUDA tensor and
-the plain PyTorch :func:`_attention_reference` on a CPU tensor.  Which path
+elsewhere; the port runs a hand-written kernel on a CUDA tensor and the
+plain PyTorch :func:`_attention_reference` on a CPU tensor.  Which path
 runs follows only from the device of the tensors: for a CUDA tensor the
-wrapper launches the kernel or raises, and never falls back.
+wrapper launches the kernel or raises, and never falls back.  The kernel's
+C entry point picks its route by dtype: bfloat16 runs
+``csrc/flash_attention_sm90.cu`` (wgmma and TMA, P split into two bf16
+halves so the products stay f32-exact), float32 ``csrc/flash_attention.cu``
+(f32 on the CUDA cores).
 
 Registered as op ``_contrib_FlashAttention`` (and its aliases), so the
 eager NDArray surface and Gluon's ``MultiHeadAttention`` reach it.
@@ -23,6 +27,8 @@ from .registry import register
 _NEG_INF = -1e30
 _MAX_HEAD_DIM = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 route loads rows by TMA, whose row stride is a multiple of 16 bytes
+_BF16_COLUMNS = 8
 
 
 def _attention_reference(q, k, v, causal=False, scale=None):
@@ -94,20 +100,31 @@ def _flash_forward_cuda(q, k, v, causal, scale):
     # the split-heads transpose leaves q, k, v strided: one copy each, as
     # XLA's transpose is on the TPU
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    dk = d
+    if q.dtype == torch.bfloat16:
+        # zero columns of q and k add nothing to QKᵀ, and those of v give
+        # output columns that are cut off again
+        dk = -(-d // _BF16_COLUMNS) * _BF16_COLUMNS
+        if dk != d:
+            q, k, v = (torch.nn.functional.pad(t, (0, dk - d))
+                       for t in (q, k, v))
+        # TMA reads from 16-byte aligned bases; a view may start anywhere
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     o = torch.empty_like(q)
     lib = cuda_build.load("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(),
                                       v.data_ptr(), o.data_ptr(), b * h, sq,
-                                      sk, d, float(scale), int(bool(causal)),
+                                      sk, dk, float(scale), int(bool(causal)),
                                       code, stream)
     if err != 0:
         raise MXNetError("flash_attention_fwd launch failed: CUDA error %d "
                          "(%s)" % (err, lib.flash_attention_error_string(err)
                                    .decode()))
     flash_attention.launches += 1
-    return o
+    return o if dk == d else o[..., :d].contiguous()
 
 
 class _FlashAttentionFunction(torch.autograd.Function):

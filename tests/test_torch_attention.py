@@ -4,8 +4,12 @@ hand-written CUDA kernel against the plain version.
 The CPU cases feed the same seeded numpy inputs to the JAX build's
 ``flash_attention`` (on the CPU it takes its own jnp reference,
 ops/attention.py:149-152) and to the port's, which on a CPU tensor takes
-its plain PyTorch version.  The ``cuda`` cases hold the kernel against the
-plain version on the card; they skip without one:
+its plain PyTorch version.  A plain emulation of the bf16 kernel's
+arithmetic (csrc/flash_attention_sm90.cu: S in f32 from bf16 products, P
+split into two bf16 halves) is held against the JAX build under a
+per-element bound, and the same emulation with P rounded to bf16 once must
+break it.  The ``cuda`` cases hold the kernel against the plain version and
+the JAX build on the card; they skip without one:
 
     python -m pytest -m cuda tests/test_torch_attention.py
 """
@@ -31,9 +35,30 @@ CASES = [
     ((1, 3, 40, 40, 24), True),
     ((1, 1, 1024, 1024, 128), True),
 ]
-CARD_CASES = CASES[:-1] + [((8, 32, 1024, 1024, 128), True)]
-IDS = ["%dx%dx%dx%dx%d%s" % (s + ("_causal" if c else "",)) for s, c in CASES]
-CARD_IDS = IDS[:-1] + ["8x32x1024x1024x128_causal"]
+# on the card also the head-dim buckets (D = 32, 96, 128; D = 20 is padded
+# to 24 by the wrapper) and the tile edges (Sk = 1, 65, 200; Sq > Sk)
+EDGE_CASES = [
+    ((2, 3, 192, 192, 32), True),
+    ((1, 2, 200, 200, 96), False),
+    ((1, 2, 64, 1, 128), False),
+    ((1, 2, 64, 1, 128), True),      # 63 rows see no key
+    ((1, 2, 65, 65, 128), True),
+    ((1, 2, 300, 200, 128), True),   # Sq > Sk at D = 128
+    ((1, 2, 77, 77, 20), True),
+]
+CARD_CASES = CASES[:-1] + [((8, 32, 1024, 1024, 128), True)] + EDGE_CASES
+
+
+def _ids(cases):
+    return ["%dx%dx%dx%dx%d%s" % (s + ("_causal" if c else "",))
+            for s, c in cases]
+
+
+IDS = _ids(CASES)
+CARD_IDS = _ids(CARD_CASES)
+# the per-element bound of the bf16 kernel against the f32 result: one bf16
+# rounding (2^-9 relative) plus as much again for the f32 arithmetic
+BF16_REL, BF16_ABS = 2.0 ** -8, 5e-5
 
 
 def _inputs(shape, seed=0):
@@ -47,6 +72,52 @@ def _inputs(shape, seed=0):
 def _jax_flash(q, k, v, causal, dtype="float32"):
     args = [jnp.asarray(x, dtype) for x in (q, k, v)]
     return np.asarray(jax_flash(*args, causal).astype(jnp.float32))
+
+
+def _bf16_values(*arrays):
+    """The numpy arrays rounded to bf16, as float32 numpy arrays."""
+    return [torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+            for x in arrays]
+
+
+def _violations(out, ref):
+    """Elements of ``out`` outside 2^-8·|ref| + 5e-5 of ``ref``."""
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    return int((np.abs(out - ref) > BF16_REL * np.abs(ref) + BF16_ABS).sum())
+
+
+def _bf16_kernel_emulation(q, k, v, causal, split=True, block_n=64):
+    """The bf16 kernel's arithmetic in plain PyTorch (test-only): bf16
+    q, k, v; S = Q·Kᵀ in f32 from exact bf16 products; an online softmax in
+    log2 units over tiles of ``block_n`` keys; O += P_hi·V + P_lo·V with
+    P_hi = bf16(P) and P_lo = bf16(P - P_hi), products in f32 (``split``
+    False: O += bf16(P)·V, the design the split avoids); o rounded to bf16
+    once."""
+    qf, kf, vf = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    sq, sk, d = qf.shape[-2], kf.shape[-2], qf.shape[-1]
+    scale_log2 = (1.0 / np.sqrt(d)) * 1.4426950408889634
+    rows = torch.arange(sq)[:, None]
+    m = torch.full(qf.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for n0 in range(0, sk, block_n):
+        kt, vt = kf[..., n0:n0 + block_n, :], vf[..., n0:n0 + block_n, :]
+        x = torch.matmul(qf, kt.transpose(-1, -2)) * scale_log2
+        if causal:
+            cols = torch.arange(n0, n0 + kt.shape[-2])[None, :]
+            x = x.masked_fill(cols > rows + sk - sq, -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi = p.to(torch.bfloat16).float()
+        if split:
+            p_lo = (p - p_hi).to(torch.bfloat16).float()
+            acc = acc * alpha + (torch.matmul(p_hi, vt) + torch.matmul(p_lo, vt))
+        else:
+            acc = acc * alpha + torch.matmul(p_hi, vt)
+        m = m_new
+    return (acc / l.clamp_min(1e-20)).to(torch.bfloat16)
 
 
 # f32: the two packages sum the same f32 products in other orders
@@ -70,6 +141,29 @@ def test_cpu_bf16_matches_jax(shape, causal):
     got = tatt.flash_attention(tq, tk, tv, causal)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=2e-2)
+
+
+# the split-P arithmetic of the bf16 kernel holds every element to one bf16
+# rounding of the JAX build's f32 result on the same (bf16-valued) inputs
+@pytest.mark.parametrize("shape,causal", CASES, ids=IDS)
+def test_cpu_split_p_emulation_matches_jax(shape, causal):
+    q, k, v = _bf16_values(*_inputs(shape, seed=6))
+    want = _jax_flash(q, k, v, causal)
+    got = _bf16_kernel_emulation(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 causal)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    assert _violations(got.float().numpy(), want) == 0
+
+
+# negative control: P rounded to bf16 once breaks the same bound at >= 1% of
+# elements, so the bound tells the two designs apart
+@pytest.mark.parametrize("shape,causal", CASES, ids=IDS)
+def test_cpu_bf16_p_breaks_the_bound(shape, causal):
+    q, k, v = _bf16_values(*_inputs(shape, seed=6))
+    want = _jax_flash(q, k, v, causal)
+    got = _bf16_kernel_emulation(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 causal, split=False)
+    assert _violations(got.float().numpy(), want) >= 0.01 * want.size
 
 
 def test_rows_without_visible_keys_average_v():
@@ -179,7 +273,7 @@ def card():
 
 # kernel vs plain (f32 from the same inputs): f32 sums in other orders stay
 # far below 1e-4; bf16 output is one rounding of the f32 result, 7.8e-3 at
-# |o| < 4, within 2e-2
+# |o| < 4, within 2e-2, and every bf16 element within 2^-8·|ref| + 5e-5
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)],
@@ -193,8 +287,40 @@ def test_card_kernel_matches_plain(card, shape, causal, dtype, tol):
     torch.cuda.synchronize()
     assert tatt.flash_attention.launches == before + 1
     assert out.dtype == dtype and out.is_cuda
+    assert tuple(out.shape) == tuple(q.shape)
     ref = tatt._attention_reference(q.float(), k.float(), v.float(), causal)
     assert (out.float() - ref).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        assert _violations(out.float().cpu().numpy(), ref.cpu().numpy()) == 0
+
+
+# the bf16 kernel against the JAX build (CPU jax, f32 on the same
+# bf16-valued numpy inputs), element by element
+@pytest.mark.cuda
+def test_card_bf16_kernel_matches_jax(card):
+    shape, causal = (1, 2, 1024, 1024, 128), True
+    q, k, v = _bf16_values(*_inputs(shape, seed=7))
+    want = _jax_flash(q, k, v, causal)
+    got = tatt.flash_attention(*(torch.from_numpy(x).to(card, torch.bfloat16)
+                                 for x in (q, k, v)), causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert _violations(got.float().cpu().numpy(), want) == 0
+
+
+# a contiguous view that starts 2 bytes into its storage: TMA reads from
+# 16-byte aligned bases, so the wrapper copies it first
+@pytest.mark.cuda
+def test_card_bf16_unaligned_view(card):
+    q, k, v = (torch.from_numpy(x).to(card, torch.bfloat16)
+               for x in _inputs((1, 2, 64, 64, 64), seed=8))
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=card)
+    flat[1:] = q.reshape(-1)
+    qv = flat[1:].view(q.shape)
+    assert qv.is_contiguous() and qv.data_ptr() % 16
+    out = tatt.flash_attention(qv, k, v, causal=True)
+    ref = tatt._attention_reference(q.float(), k.float(), v.float(), True)
+    assert _violations(out.float().cpu().numpy(), ref.cpu().numpy()) == 0
 
 
 @pytest.mark.cuda

@@ -20,7 +20,8 @@ if {fail!r}:
 assert args[:2] == ["-gencode", "arch=compute_90a,code=sm_90a"], args
 out = args[args.index("-o") + 1]
 open(out, "wb").write(b"not a real library")
-open({calls!r}, "a").write(args[-1] + "\\n")
+open({calls!r}, "a").write(" ".join(a for a in args if a.endswith(".cu"))
+                          + "\\n")
 print("ptxas info    : Used 42 registers, used 1 barriers")
 """
 
@@ -48,11 +49,13 @@ def test_build_all_compiles_each_source_once(fake_nvcc):
     calls = fake_nvcc()
     built = cuda_build.build_all()
     assert sorted(built) == sorted(cuda_build.KERNELS)
-    lib = cuda_build._lib_path("flash_attention")
+    lib = cuda_build.lib_path("flash_attention")
     assert lib.parent == cuda_build.BUILD_DIR and lib.exists()
     assert "Used 42 registers" in cuda_build.build_log("flash_attention")
     assert cuda_build.build_all() == {}                  # cached by content
-    assert calls.read_text().count("flash_attention.cu") == 1
+    sources = calls.read_text().split()
+    assert sorted(s.rsplit("/", 1)[-1] for s in sources) == [
+        "flash_attention.cu", "flash_attention_sm90.cu"]   # one nvcc, both
     assert not list(cuda_build.BUILD_DIR.glob("*.tmp-*"))
 
 
@@ -60,7 +63,7 @@ def test_build_failure_raises_with_compiler_output(fake_nvcc):
     fake_nvcc(fail=True)
     with pytest.raises(MXNetError, match="fake compile failure"):
         cuda_build.build_all()
-    assert not cuda_build._lib_path("flash_attention").exists()
+    assert not cuda_build.lib_path("flash_attention").exists()
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
@@ -74,8 +77,19 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_library_name_follows_source_and_flags(monkeypatch):
-    a = cuda_build._lib_path("flash_attention")
+    a = cuda_build.lib_path("flash_attention")
     monkeypatch.setattr(cuda_build, "NVCC_FLAGS",
                         cuda_build.NVCC_FLAGS + ("-lineinfo",))
-    b = cuda_build._lib_path("flash_attention")
+    b = cuda_build.lib_path("flash_attention")
     assert a != b and a.name.startswith("libflash_attention-")
+
+
+@pytest.mark.parametrize("source", ["flash_attention.cu",
+                                    "flash_attention_sm90.cu"])
+def test_library_name_follows_every_source(source, tmp_path, monkeypatch):
+    for name in cuda_build.SOURCES["flash_attention"]:
+        (tmp_path / name).write_bytes((cuda_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    a = cuda_build.lib_path("flash_attention")
+    (tmp_path / source).write_text("// edited\n", encoding="utf-8")
+    assert cuda_build.lib_path("flash_attention") != a
