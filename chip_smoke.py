@@ -10,14 +10,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. device  — the card's name and power limit (nvidia-smi), or exit non-zero
              when torch sees no CUDA device;
-2. build   — every hand-written kernel of the port, from ``csrc/`` with nvcc,
-             with ptxas's report (registers, shared memory, spills) and the
-             count of HGMMA (wgmma) instructions in the flash library's SASS,
-             which must not be 0: the bf16 route runs on the tensor cores;
+2. build   — every hand-written kernel of the port, from ``csrc/`` with nvcc
+             (one per source, all at once), with ptxas's report (registers,
+             shared memory, spills) and the count of HGMMA (wgmma)
+             instructions in the flash library's SASS and in the f32 route's
+             kernel, neither of which may be 0: both routes run on the tensor
+             cores;
 3. kernel  — each kernel against its plain PyTorch version on the card, at
              the shapes of its tests and of the serving path, in f32 and bf16;
-             bf16 also element by element (2^-8·|ref| + 5e-5);
-4. serve   — a small LM on the card against the same weights on the CPU, then
+             bf16 also element by element (2^-8·|ref| + 5e-5); the f32
+             route's split pass bit for bit;
+4. serve   — a small LM (f32, so the f32 route, whose launches are counted
+             and must not be 0) on the card against the same weights on the
+             CPU, then
              the LM of bench_transformer.py at its full width (vocab 16384,
              d_model 4096, 32 heads, d_ffn 16384, 4 layers, seq 1024; random
              weights from a seed) answering 4 requests of 8 prompts x 1024
@@ -35,7 +40,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              the head shape; the host cost of one launch;
 5. timing  — the flash kernel at the serving shape: its time, its bound, the
              plain version's time and one PyTorch library call's time, in
-             bf16 (the serving path) and on the f32 route;
+             bf16 (the serving path) and on the f32 route (with the split
+             pass and the attention kernel also timed alone);
 6. one JSON ``kernels`` line, then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -64,6 +70,7 @@ ATTENTION_CASES = [
     ((1, 2, 256, 128, 64), True),    # Sq > Sk: 128 rows see no key at all
     ((1, 3, 40, 40, 24), False),     # ragged: no dimension a multiple of 64
     ((1, 3, 40, 40, 24), True),
+    ((2, 4, 32, 32, 16), True),      # the small LM of phase 4a
     ((8, 32, 1024, 1024, 128), True),
 ]
 # kernel vs plain, max abs error. f32: both sum the same products in f32 in
@@ -82,8 +89,20 @@ FLASH_DESIGN = ("bf16: wgmma m64n64k16 for S = Q·Kᵀ (shared-memory operands) 
                 "and for O += P_hi·V + P_lo·V (P from registers, V "
                 "transposed), S of tile t issued with P·V of tile t-1, TMA "
                 "3-stage K/V ring with mbarriers, 1 producer warp + 2 "
-                "consumer warpgroups, 128 query rows x 64 keys a tile; f32: "
-                "CUDA-core FMAs, 64 x 64 tiles")
+                "consumer warpgroups, 128 query rows x 64 keys a tile")
+F32_DESIGN = ("f32: a split pass writes three bf16 planes (h, m, l) of "
+              "q·scale, k and v from their strides; then wgmma m64n64k16, six "
+              "products (lh, hl, mm, mh, hm, hh) for S = Q·Kᵀ and six for "
+              "O += P·V with P split into three bf16 pieces in registers; Q's "
+              "planes resident, K and V through an 8-slot TMA ring of "
+              "(tile, plane) slots on mbarriers, 1 producer warp + 2 consumer "
+              "warpgroups, 128 query rows x 64 keys a tile, S, softmax and "
+              "P·V in turn in each warpgroup")
+F32_SOURCE = "incubator_mxnet_tpu_torch/csrc/flash_attention_f32_sm90.cu"
+SOFTMAX_DESIGN = ("one block per row; where c % 4 == 0 and the row fits, the "
+                  "row read once as float4 into registers (SOFTMAX_VEC a "
+                  "thread), block max, expf in registers, block sum, float4 "
+                  "stores of e / s; else a three-pass loop in the same kernel")
 
 
 # The rtc phase's user kernels: CUDA C that the port compiles at run time
@@ -93,13 +112,20 @@ FLASH_DESIGN = ("bf16: wgmma m64n64k16 for S = Q·Kᵀ (shared-memory operands) 
 # softmax_bwd are the forward and backward of the custom op "rtc_softmax",
 # a softmax output with the gradient p - onehot(label) (upstream MXNet's
 # example/numpy-ops/custom_softmax_rtc.py).  Each is bound by memory bytes
-# on this card: one pass of reads and writes at 3.35 TB/s.  The design is
-# the simple one: one thread per element for axpy; one block per row for
-# the softmax, with block reductions (warp shuffles, then one value per warp
-# in shared memory) of the row's max and sum, the row read again from L2 for
-# each pass.  Blocks must be a multiple of 32 threads.  noop measures the
+# on this card: one pass of reads and writes at 3.35 TB/s.  axpy and
+# softmax_bwd are the simple design: one thread per element.  softmax_fwd
+# takes one block per row and reads the row from memory once: where c % 4 ==
+# 0, the bases are 16-byte aligned and the row fits the block's registers
+# (SOFTMAX_VEC float4 a thread), each thread loads its slice as float4 into
+# registers, and the block reduces the max (warp shuffles, then one value per
+# warp in shared memory), turns its registers into expf(z - m), reduces the
+# sum and stores e / s as float4.  Every other row width takes the three-pass
+# loop of the same kernel (max, sum, write, each reading the row again from
+# L2).  softmax_geometry(c) picks the block for both.  noop measures the
 # host cost of one launch.
 RTC_SOURCE = r"""
+#define SOFTMAX_VEC 8
+
 extern "C" __global__ void axpy(const float *x, const float *y, float *o,
                                 int n) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -136,11 +162,52 @@ __device__ float block_reduce(float v, bool is_max, float *scratch) {
     return v;
 }
 
+__device__ float max4(float4 v) {
+    return fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
+}
+
 // p = softmax(z) over each row of c columns; one block per row
 extern "C" __global__ void softmax_fwd(const float *z, float *p, int c) {
     __shared__ float scratch[33];
     const float *row = z + (size_t)blockIdx.x * c;
     float *out = p + (size_t)blockIdx.x * c;
+    if ((c & 3) == 0 && c <= 4 * SOFTMAX_VEC * (int)blockDim.x &&
+            (((size_t)z | (size_t)p) & 15) == 0) {
+        // the row in registers: float4 j of the row is x[i] of thread
+        // j % blockDim.x, i = j / blockDim.x
+        const float4 *row4 = (const float4 *)row;
+        float4 *out4 = (float4 *)out;
+        const int n4 = c >> 2;
+        float4 x[SOFTMAX_VEC];
+        float m = -3.402823466e38f;
+#pragma unroll
+        for (int i = 0; i < SOFTMAX_VEC; ++i) {
+            const int j = threadIdx.x + i * blockDim.x;
+            if (j < n4) {
+                x[i] = __ldg(row4 + j);
+                m = fmaxf(m, max4(x[i]));
+            }
+        }
+        m = block_reduce(m, true, scratch);
+        float s = 0.0f;
+#pragma unroll
+        for (int i = 0; i < SOFTMAX_VEC; ++i) {
+            if (threadIdx.x + i * blockDim.x < n4) {
+                x[i] = make_float4(expf(x[i].x - m), expf(x[i].y - m),
+                                   expf(x[i].z - m), expf(x[i].w - m));
+                s += (x[i].x + x[i].y) + (x[i].z + x[i].w);
+            }
+        }
+        s = block_reduce(s, false, scratch);
+#pragma unroll
+        for (int i = 0; i < SOFTMAX_VEC; ++i) {
+            const int j = threadIdx.x + i * blockDim.x;
+            if (j < n4)
+                out4[j] = make_float4(x[i].x / s, x[i].y / s, x[i].z / s,
+                                      x[i].w / s);
+        }
+        return;
+    }
     float m = -3.402823466e38f;
     for (int j = threadIdx.x; j < c; j += blockDim.x) m = fmaxf(m, row[j]);
     m = block_reduce(m, true, scratch);
@@ -170,6 +237,9 @@ RTC_SIGNATURES = {
 }
 RTC_KERNELS = ("axpy", "softmax_fwd", "softmax_bwd")
 SOFTMAX_THREADS = 512
+# float4 a thread holds on softmax_fwd's one-read path (RTC_SOURCE's own)
+SOFTMAX_VEC = int(re.search(r"#define SOFTMAX_VEC (\d+)", RTC_SOURCE).group(1))
+SOFTMAX_MAX_THREADS = 1024
 AXPY_THREADS = 256
 AXPY_N = 2 ** 26
 # the LM's vocabulary head at full width: 8 x 1024 tokens of d_model 4096
@@ -187,6 +257,18 @@ HEAD_LR = 1e-4
 # 8192·|Δp|·max|h| and W by lr times that, far below 1e-6.
 RTC_TOLERANCE = {"softmax_fwd": 1e-6, "softmax_bwd": 0.0, "axpy": 0.0,
                  "head_p": 1e-6, "head_w": 1e-6}
+
+
+def softmax_geometry(c):
+    """softmax_fwd's launch for rows of ``c`` columns: ``(block threads,
+    dynamic shared bytes, whether the row is read once)``.  The one-read path
+    needs c % 4 == 0 (16-byte aligned rows) and c <= 4 * SOFTMAX_VEC * block;
+    its block is the least multiple of 32 threads that holds the row.  Every
+    other width runs the three-pass loop on SOFTMAX_THREADS threads."""
+    if c % 4 == 0 and c <= 4 * SOFTMAX_VEC * SOFTMAX_MAX_THREADS:
+        per_warp = 4 * SOFTMAX_VEC * 32
+        return 32 * -(-c // per_warp), 0, True
+    return SOFTMAX_THREADS, 0, False
 
 
 def rtc_module(mx):
@@ -232,8 +314,10 @@ def register_rtc_softmax(mx, kernels=None):
             raise mx.MXNetError("rtc_softmax on %s needs the rtc kernels: "
                                 "register_rtc_softmax(mx, rtc_module(mx)[1])"
                                 % dst.context)
-        kernels[name].launch(args + [dst, c], dst.context, (rows,),
-                             (SOFTMAX_THREADS,))
+        block, shared = (softmax_geometry(c)[:2] if name == "softmax_fwd"
+                         else (SOFTMAX_THREADS, 0))
+        kernels[name].launch(args + [dst, c], dst.context, (rows,), (block,),
+                             shared)
 
     class RtcSoftmax(mx.operator.CustomOp):
         def forward(self, is_train, req, in_data, out_data, aux):
@@ -330,6 +414,20 @@ def attention_work(b, h, sq, sk, d, causal, itemsize):
     return flops, nbytes
 
 
+def f32_tensor_work(b, h, sq, sk, d, causal):
+    """The tensor work (flop) flash_fwd_f32_sm90_kernel does: its walk over
+    128-row query blocks and 64-key tiles (whole tiles across the causal
+    diagonal), six products in each of S and P·V over the head-dim bucket."""
+    bucket = 64 if d <= 64 else 128
+    tiles = 0
+    for q0 in range(0, sq, 128):
+        n_end = sk
+        if causal and q0 + sk - sq >= 0:
+            n_end = min(sk, q0 + min(128, sq - q0) + sk - sq)
+        tiles += -(-n_end // 64)
+    return b * h * tiles * 2 * 6 * 2.0 * 128 * 64 * bucket
+
+
 GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
 
 
@@ -376,16 +474,22 @@ def profile_device(run, what, kernel_groups, gemm_flops, card):
         print("profile:   %10.1f us  %3d x  %s" % (us, n, name[:110]))
 
 
-def sass_count(lib, opcode):
+def sass_count(lib, opcode, function=""):
     """How many SASS instructions of ``opcode`` the library's device code
-    holds (cuobjdump -sass)."""
+    holds (cuobjdump -sass), in the functions whose (mangled) name contains
+    ``function``."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=120)
     check(out.returncode == 0, "cuobjdump failed: " + out.stderr.strip())
-    return sum(1 for line in out.stdout.splitlines()
-               if re.search(r"\b%s\b" % opcode, line))
+    count, inside = 0, not function
+    for line in out.stdout.splitlines():
+        if line.strip().startswith("Function :"):
+            inside = function in line
+        elif inside and re.search(r"\b%s\b" % opcode, line):
+            count += 1
+    return count
 
 
 def host_us(fn, reps):
@@ -561,7 +665,10 @@ def rtc_phase(mx, dev, card):
     idx = lab._data.long()[:, None]
     fwd, bwd = kernels["softmax_fwd"], kernels["softmax_bwd"]
     grid, block = (rows,), (SOFTMAX_THREADS,)
-    fwd.launch([Z, P, c], ctx, grid, block)
+    fwd_block, fwd_shared, one_read = softmax_geometry(c)
+    check(one_read, "softmax_fwd at c = %d does not take its one-read path"
+          % c)
+    fwd.launch([Z, P, c], ctx, grid, (fwd_block,), fwd_shared)
     bwd.launch([P, lab, DZ, c], ctx, grid, block)
     errs = {"axpy": axpy_err,
             "softmax_fwd": (P._data - softmax_plain(Z._data)).abs().max()
@@ -582,7 +689,8 @@ def rtc_phase(mx, dev, card):
         "axpy": (2.0 * n, 4.0 * 3 * n),
     }
     timed = {
-        "softmax_fwd": (lambda: fwd.launch([Z, P, c], ctx, grid, block),
+        "softmax_fwd": (lambda: fwd.launch([Z, P, c], ctx, grid,
+                                           (fwd_block,), fwd_shared),
                         lambda: softmax_plain(Z._data),
                         lambda: torch.softmax(Z._data, dim=-1),
                         "torch.softmax"),
@@ -617,11 +725,15 @@ def rtc_phase(mx, dev, card):
                   plain_ms, "%.4f (%s)" % (library_ms, library_name),
                   nbytes / kernel_ms / 1e6, card), flush=True)
         entries.append({
-            "name": name, "route": "nvrtc", "source": "chip_smoke.py",
+            "name": name, "route": "cuda", "compiler": "nvrtc",
+            "source": "chip_smoke.py",
             "replaces": "incubator_mxnet_tpu/rtc.py:86",
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms})
+        if name == "softmax_fwd":
+            entries[-1]["design"] = SOFTMAX_DESIGN
+            entries[-1]["block"] = fwd_block
         check(launches[name] > 0, "%s was not launched on its path" % name)
 
     noop = kernels["noop"]
@@ -652,7 +764,8 @@ def main():
              "of a checkout" % exc)
     from incubator_mxnet_tpu_torch import cuda_build
     from incubator_mxnet_tpu_torch.ops.attention import (
-        flash_attention, _attention_reference)
+        flash_attention, _attention_reference, split_f32,
+        _split_f32_reference, _attention_f32_planes)
     from incubator_mxnet_tpu_torch.models import TransformerLM, HostXavier
     from incubator_mxnet_tpu_torch.convert import load_numpy_params
     import numpy as np
@@ -668,11 +781,16 @@ def main():
             if any(t in line for t in ("entry function", "registers",
                                        "spill", "wgmma")):
                 print("  ptxas %s: %s" % (name, line.strip()))
-    hgmma = sass_count(cuda_build.lib_path("flash_attention"), "HGMMA")
-    print("build: %d HGMMA instructions in the flash_attention library's SASS "
-          "(cuobjdump -sass)" % hgmma, flush=True)
-    check(hgmma > 0, "no HGMMA in the flash_attention library: the bf16 route "
-          "does not run on the tensor cores")
+    flash_lib = cuda_build.lib_path("flash_attention")
+    hgmma = sass_count(flash_lib, "HGMMA")
+    hgmma_f32 = sass_count(flash_lib, "HGMMA", "flash_fwd_f32_sm90_kernel")
+    print("build: %d HGMMA instructions in the flash_attention library's "
+          "SASS, %d of them in the f32 route's kernel (cuobjdump -sass)"
+          % (hgmma, hgmma_f32), flush=True)
+    check(hgmma > hgmma_f32, "no HGMMA in the bf16 route's kernel: it does "
+          "not run on the tensor cores")
+    check(hgmma_f32 > 0, "no HGMMA in flash_fwd_f32_sm90_kernel: the f32 "
+          "route does not run on the tensor cores")
 
     # phase 3: each kernel against its plain version on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -714,8 +832,25 @@ def main():
                   "elements break the per-element bf16 bound"
                   % (key, violations.get(key, 0)))
             del q, k, v, out, ref
+    # the f32 route's split pass, bit for bit, on split-heads views at the
+    # small LM's shape and the serving shape
+    split_errs = {}
+    for (b, h, sq, sk, d), causal in ATTENTION_CASES[-2:]:
+        x = torch.randn(b, sq, h, d, generator=gen, device=dev).transpose(1, 2)
+        got = split_f32(x, 1.0 / math.sqrt(d))
+        torch.cuda.synchronize()
+        want = _split_f32_reference(x, 1.0 / math.sqrt(d))
+        key = case_key((b, h, sq, sk, d), causal, "float32")
+        split_errs[key] = (got.float() - want.float()).abs().max().item()
+        print("kernel split_f32 %-32s planes %s, max_abs_err %.3e against "
+              "the plain version (bound 0: bit for bit)"
+              % (key, tuple(got.shape), split_errs[key]), flush=True)
+        check(torch.equal(got, want), "split_f32 %s differs from its plain "
+              "version" % key)
+        del x, got, want
 
-    # phase 4a: a small LM on the card against the same weights on the CPU
+    # phase 4a: a small LM on the card against the same weights on the CPU,
+    # the f32 route's path: its launch counts zeroed just before, read after
     small = dict(vocab=97, d_model=64, n_heads=4, d_ffn=256, n_layers=2,
                  seq_len=32)
     rs = np.random.RandomState(SEED)
@@ -727,11 +862,24 @@ def main():
     gpu_net = TransformerLM(**small)
     load_numpy_params(gpu_net, {n: p.data().asnumpy() for n, p in
                                 cpu_net.collect_params().items()}, mx.gpu(0))
+    small_tokens = mx.nd.array(tokens, ctx=mx.gpu(0))
+    torch.cuda.synchronize()
+    flash_attention.f32_launches = split_f32.launches = 0
     with mx.autograd.predict_mode():
-        gpu_logits = gpu_net(mx.nd.array(tokens, ctx=mx.gpu(0))).asnumpy()
+        gpu_logits = gpu_net(small_tokens).asnumpy()
+    f32_launches = {"flash_attention_fwd_f32": flash_attention.f32_launches,
+                    "split_f32": split_f32.launches}
+    del small_tokens
     small_err = float(np.abs(gpu_logits - cpu_logits).max())
-    print("serve: small LM %s, card vs CPU logits max_abs_err %.3e (bound 1e-4)"
-          % (small, small_err), flush=True)
+    print("serve: small LM %s, card vs CPU logits max_abs_err %.3e (bound "
+          "1e-4); f32 route launches %s" % (small, small_err, f32_launches),
+          flush=True)
+    check(f32_launches["flash_attention_fwd_f32"] > 0,
+          "the small LM did not launch the f32 route")
+    check(f32_launches["split_f32"] == 3 * f32_launches[
+        "flash_attention_fwd_f32"], "split_f32 launched %d times for %d f32 "
+          "attentions" % (f32_launches["split_f32"],
+                          f32_launches["flash_attention_fwd_f32"]))
     check(small_err <= 1e-4, "small LM: card and CPU disagree")
     check(np.array_equal(gpu_logits[:, -1].argmax(-1),
                          cpu_logits[:, -1].argmax(-1)),
@@ -835,27 +983,65 @@ def main():
           % (b, h, sq, d, kernel_ms, bound_ms, bound_by, nbytes, flops,
              plain_ms, library_ms, 1.5 * flops,
              1.5 * flops / H100_BF16_FLOPS * 1e3, tflops, card), flush=True)
-    # the f32 route (CUDA cores) on the same values in f32: bound by its f32
-    # operations at the 67 TFLOP/s of the CUDA cores
+    # the f32 route on the same values in f32: the split pass, then six bf16
+    # products for each f32 product on the tensor cores
     q, k, v = q.float(), k.float(), v.float()
-    f32 = {"ms": cuda_ms(lambda: flash_attention(q, k, v, causal), 5, torch),
+    lib = cuda_build.load("flash_attention")
+    planes = (split_f32(q, scale), split_f32(k), split_f32(v))
+
+    def split3():
+        return split_f32(q, scale), split_f32(k), split_f32(v)
+
+    def split3_plain():
+        return (_split_f32_reference(q, scale), _split_f32_reference(k),
+                _split_f32_reference(v))
+
+    f32 = {"ms": cuda_ms(lambda: flash_attention(q, k, v, causal), 10, torch),
+           "split_ms": cuda_ms(split3, 10, torch),
+           "attention_ms": cuda_ms(lambda: _attention_f32_planes(
+               *planes, q.shape, causal, lib), 10, torch),
            "plain_ms": cuda_ms(lambda: _attention_reference(q, k, v, causal),
                                5, torch),
            "library_ms": cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask,
                                               scale=scale), 5, torch)}
-    del q, k, v
+    split_plain_ms = cuda_ms(split3_plain, 5, torch)
+    del q, k, v, planes
     f32_bytes = attention_work(b, h, sq, sk, d, causal, 4)[1]
-    f32_t = (f32_bytes / H100_BYTES_PER_S * 1e3,
-             flops / H100_F32_CUDA_CORE_FLOPS * 1e3)
-    f32["bound_ms"] = max(f32_t)
-    f32["bound_by"] = "bytes" if f32_t[0] >= f32_t[1] else "operations"
-    print("timing: flash_attention_fwd f32 route at (%d,%d,%d,%d) causal f32: "
-          "kernel_ms %.4f, bound_ms %.4f (%s: %.3e bytes at 3.35 TB/s, %.3e "
-          "flop at 67 TFLOP/s f32), plain_ms %.4f, library_ms %.4f "
-          "(scaled_dot_product_attention, f32, TF32 off) | %s"
-          % (b, h, sq, d, f32["ms"], f32["bound_ms"], f32["bound_by"],
-             f32_bytes, flops, f32["plain_ms"], f32["library_ms"], card),
+    # the least time of f32-exact work: the f32 operations on the CUDA cores,
+    # or the split's six bf16 products on the tensor cores, whichever is less
+    split_flops = 6 * flops
+    f32_t = {"bytes": f32_bytes / H100_BYTES_PER_S * 1e3,
+             "cuda_core": flops / H100_F32_CUDA_CORE_FLOPS * 1e3,
+             "split_tensor": split_flops / H100_BF16_FLOPS * 1e3}
+    ops_ms = min(f32_t["cuda_core"], f32_t["split_tensor"])
+    f32["bound_ms"] = max(f32_t["bytes"], ops_ms)
+    f32["bound_by"] = "bytes" if f32_t["bytes"] >= ops_ms else "operations"
+    done = f32_tensor_work(b, h, sq, sk, d, causal)
+    print("timing: flash_attention_fwd f32 route at (%d,%d,%d,%d) causal f32 "
+          "(%s; %s): kernel_ms %.4f (split pass %.4f, attention kernel %.4f), "
+          "bound_ms %.4f (%s: the split's tensor work %.3e flop at 989 "
+          "TFLOP/s bf16, floor %.4f ms; f32 operations %.3e flop at 67 TFLOP/s, %.4f "
+          "ms; %.3e bytes at 3.35 TB/s, %.4f ms), plain_ms %.4f, library_ms "
+          "%.4f (scaled_dot_product_attention, f32, TF32 off); the kernel "
+          "does %.3e flop of tensor work (64-key tiles across the diagonal), "
+          "%.1f TFLOP/s; %d HGMMA in its SASS | %s"
+          % (b, h, sq, d, F32_DESIGN, F32_SOURCE, f32["ms"], f32["split_ms"],
+             f32["attention_ms"], f32["bound_ms"], f32["bound_by"],
+             split_flops, f32_t["split_tensor"], flops, f32_t["cuda_core"],
+             f32_bytes, f32_t["bytes"], f32["plain_ms"], f32["library_ms"],
+             done, done / f32["attention_ms"] / 1e9, hgmma_f32, card),
           flush=True)
+    dp = -(-d // 8) * 8
+    split_bytes = 4 * b * h * (sq + 2 * sk) * d + 3 * 2 * b * h * (
+        sq + 2 * sk) * dp
+    split_bound = split_bytes / H100_BYTES_PER_S * 1e3
+    print("timing: split_f32 (q, k, v) at (%d,%d,%d,%d) f32: kernel_ms %.4f, "
+          "bound_ms %.4f (bytes: %.3e bytes at 3.35 TB/s), plain_ms %.4f, "
+          "library_ms null (no one PyTorch call splits); %.1f GB/s | %s"
+          % (b, h, sq, d, f32["split_ms"], split_bound, split_bytes,
+             split_plain_ms, split_bytes / f32["split_ms"] / 1e6, card),
+          flush=True)
+    serving_f32 = case_key(*ATTENTION_CASES[-1], "float32")
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
@@ -868,13 +1054,41 @@ def main():
         "max_abs_err_cases": errs,
         "bf16_violations_cases": violations,
         "tflops": tflops,
-        "f32_ms": f32["ms"],
-        "f32_route": f32,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        "name": "flash_attention_fwd_f32",
+        "route": "cuda",
+        "source": F32_SOURCE,
+        "replaces": "incubator_mxnet_tpu/ops/attention.py:56",
+        "design": F32_DESIGN,
+        "launches": f32_launches["flash_attention_fwd_f32"],
+        "max_abs_err": errs[serving_f32],
+        "ms": f32["ms"],
+        "split_ms": f32["split_ms"],
+        "attention_ms": f32["attention_ms"],
+        "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"],
+        "bound_terms_ms": f32_t,
+        "hgmma": hgmma_f32,
+        "library_ms": f32["library_ms"],
+    }, {
+        "name": "split_f32",
+        "route": "cuda",
+        "source": F32_SOURCE,
+        "replaces": "incubator_mxnet_tpu/ops/attention.py:56",
+        "timed": "the f32 route's three calls (q, k, v)",
+        "launches": f32_launches["split_f32"],
+        "max_abs_err": split_errs[serving_f32],
+        "ms": f32["split_ms"],
+        "plain_ms": split_plain_ms,
+        "bound_ms": split_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
     }] + rtc_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

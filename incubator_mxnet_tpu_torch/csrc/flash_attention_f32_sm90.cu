@@ -1,0 +1,421 @@
+// Flash-attention forward for Hopper (sm_90a) on float32 inputs: each f32
+// operand split into three bf16 pieces, six bf16 wgmma products per f32
+// product on the tensor cores, TMA loads into 128-byte-swizzled shared memory.
+//
+// Replaces the TPU kernel incubator_mxnet_tpu/ops/attention.py:_flash_kernel
+// (:56, launched by _flash_forward_pallas :98) on the float32 route; bf16
+// inputs take flash_attention_sm90.cu, and flash_attention.cu holds both
+// routes' C entry points. It computes the reference's function in f32:
+// o = softmax(q·kᵀ·scale)·v with every product at the TPU kernel's
+// Precision.HIGHEST, masked logits at the finite -1e30 sentinel, the causal
+// diagonal anchored at the end of the key axis (row i sees keys
+// j <= i + Sk - Sq), a row that sees no key averaging V uniformly, and
+// o = acc / max(l, 1e-20), written as f32.
+//
+// Exactness on the tensor cores. On the TPU's matrix unit XLA computes
+// HIGHEST as six bf16 passes over a three-way bf16 split of each operand;
+// this kernel does the same on bf16 wgmma. x = x_h + x_m + x_l with
+// x_h = bf16(x), x_m = bf16(x - x_h), x_l = bf16(x - x_h - x_m) carries x to
+// 24 bits. A·B is the sum of the six products whose pieces' ranks add up to
+// at most 2 (hh, hm, mh, mm, hl, lh), each exact in f32, accumulated into one
+// f32 accumulator with the small terms first and hh last. The terms left out
+// are below 2^-24 relative. The split pass (split3_kernel) writes the bf16
+// planes of q (scaled first, as the TPU kernel scales q), k and v from the
+// caller's strides; P is split the same way in registers. The emulation in
+// tests/test_torch_attention.py replays this arithmetic against the JAX build
+// at 2e-5, and one piece instead of three breaks 1e-4 there.
+//
+// What bounds it on this card: at (8, 32, 1024, 128) causal f32 the work the
+// mask lets through is 68.8 GFLOP on 537 MB of q, k, v and o: 0.160 ms for the
+// bytes at 3.35 TB/s, 1.03 ms for the operations on the CUDA cores' 67 TFLOP/s
+// of f32, and 0.417 ms for the split's six bf16 products (413 GFLOP) at
+// 989 TFLOP/s, the least time of f32-exact work on the tensor cores. The
+// split pass moves 403 MB of f32 in and 604 MB of planes out (0.30 ms).
+//
+// Layout. One block per (128 query rows, b·h), the heaviest causal tiles
+// first; 288 threads: two consumer warpgroups of 64 query rows each and one
+// producer warp. Q's three planes stay in shared memory (96 KB at D = 128).
+// K and V pass through a ring of eight slots, each holding one bf16 plane of
+// one 64-key tile (16 KB at D = 128): per tile the producer loads K_h, K_m,
+// K_l, V_h, V_m, V_l in that order, each slot with a full and an empty
+// mbarrier. 96 + 128 KB fits the 227 KB a block may have; whole stages of
+// K and V (96 KB each) would not fit twice beside Q. A warpgroup computes S
+// (six products, 48 wgmma m64n64k16 at D = 128, both operands in shared
+// memory), waits, frees the three K slots, runs the online softmax in log2
+// units, splits P into three bf16x2 fragments in registers, and issues
+// O += P·V (six products, V through the transpose bit), then frees the three
+// V slots. The two warpgroups drift apart, so one's softmax runs while the
+// other's products are on the tensor cores. Keeping S of one tile in flight
+// with P·V of the previous one, as the bf16 kernel does, holds the S
+// accumulator (32 registers), three P pieces (48) and O (64) at once: at the
+// 168-register cap of nine warps ptxas spilled and serialized the wgmmas,
+// and the kernel ran slower (PERF.md). In the sequential order ptxas gives
+// the D = 128 kernel 164 registers and no spills. The wgmma layouts, the swizzle and the ragged edges are those
+// of flash_attention_sm90.cu. The kernels allocate nothing and run on the
+// caller's stream.
+
+#include "flash_sm90_common.cuh"
+
+namespace {
+
+constexpr int kPieces = 3;  // bf16 planes of each f32 operand: h, m, l
+constexpr int kSlots = 8;   // ring of (tile, plane) slots of K and V
+constexpr int kSplitThreads = 256;
+
+// Product i of the split, i = 0..5, in issue order lh, hl, mm, mh, hm, hh:
+// the piece of the A operand and of the B operand (0 = h, 1 = m, 2 = l).
+__device__ __forceinline__ constexpr int a_piece(int i) {
+  return i == 0 ? 2 : (i == 2 || i == 3) ? 1 : 0;
+}
+__device__ __forceinline__ constexpr int b_piece(int i) {
+  return i == 1 ? 2 : (i == 2 || i == 4) ? 1 : 0;
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kPieces][16]) {
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p) fence_regs(r[p]);
+}
+
+// The three bf16 pieces of the pair (x0, x1), packed as bf16x2 into w[0],
+// w[stride], w[2 * stride]: each piece is the rounding of what the earlier
+// ones left, and the subtractions are exact in f32.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t* w,
+                                           int stride) {
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+    w[p * stride] = bf16x2_bits(b);
+    const float2 f = __bfloat1622float2(b);
+    x0 -= f.x;
+    x1 -= f.y;
+  }
+}
+
+// x (b, h, s, d) f32 at element strides st0..st3, times mul, into planes
+// (3, b·h, s, dp) bf16 with zeros in columns d .. dp-1; one thread per
+// 8 columns of a row, one 16-byte store per plane.
+__global__ void __launch_bounds__(kSplitThreads)
+split3_kernel(const float* __restrict__ x, long long st0, long long st1,
+              long long st2, long long st3, int h, int s, int d, int dp,
+              float mul, long long groups, __nv_bfloat16* __restrict__ out) {
+  const long long g = (long long)blockIdx.x * kSplitThreads + threadIdx.x;
+  if (g >= groups) return;
+  const int per_row = dp / 8;
+  const long long row = g / per_row;  // over (b·h, s)
+  const int c0 = (int)(g - row * per_row) * 8;
+  const long long bh = row / s;
+  const long long b = bh / h;
+  const float* src = x + b * st0 + (bh - b * h) * st1 + (row - bh * s) * st2;
+  float v[8];
+  if (st3 == 1 && c0 + 8 <= d &&
+      (reinterpret_cast<uintptr_t>(src + c0) & 15) == 0) {
+    const float4 a = *reinterpret_cast<const float4*>(src + c0);
+    const float4 c = *reinterpret_cast<const float4*>(src + c0 + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = c0 + e < d ? src[(c0 + e) * st3] : 0.f;
+  }
+  uint32_t w[kPieces][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_pair(v[2 * i] * mul, v[2 * i + 1] * mul, &w[0][i], 4);
+  const long long plane = groups * 8;  // elements of one plane
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p)
+    *reinterpret_cast<uint4*>(out + p * plane + row * dp + c0) =
+        make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+}
+
+// S = Σ_i Q_a(i)·K_b(i)ᵀ for this warpgroup's 64 rows and one tile of 64
+// keys: six products of k16 steps of 32 bytes inside each 128-byte panel;
+// q_wg is the warpgroup's rows in Q plane 0 (plane a at + a·NP panels),
+// k_pl[b] the slot of K plane b; one commit group
+template <int NP>
+__device__ __forceinline__ void issue_qk(float (&sacc)[32], uint32_t q_wg,
+                                         const uint32_t (&k_pl)[kPieces]) {
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss(sacc,
+               smem_desc(q_wg + (a_piece(i) * NP + kk / 4) * kQPanel + off,
+                         16, 1024),
+               smem_desc(k_pl[b_piece(i)] + (kk / 4) * kKVPanel + off, 16,
+                         1024),
+               i > 0 || kk > 0);
+    }
+  }
+  wgmma_commit();
+}
+
+// O += Σ_i P_a(i)·V_b(i), one panel of V (64 output columns) at a time, a
+// k16 step being 16 key rows (2048 bytes); registers 4kk .. 4kk+3 of a P
+// piece are the A operand of step kk; one commit group
+template <int NP>
+__device__ __forceinline__ void issue_pv(float (&oacc)[NP][32],
+                                         const uint32_t (&p)[kPieces][16],
+                                         const uint32_t (&v_pl)[kPieces]) {
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(oacc[pn], &p[a_piece(i)][4 * kk],
+                 smem_desc(v_pl[b_piece(i)] + pn * kKVPanel + kk * 2048, 1024,
+                           1024));
+    }
+  }
+  wgmma_commit();
+}
+
+// o[col], o[col + 1] of one row, as far as they lie inside d
+__device__ __forceinline__ void store_pair(float* row, int col, int d,
+                                           float x0, float x1) {
+  if (col + 1 < d && (d & 1) == 0) {
+    *reinterpret_cast<float2*>(row + col) = make_float2(x0, x1);
+  } else {
+    if (col < d) row[col] = x0;
+    if (col + 1 < d) row[col + 1] = x1;
+  }
+}
+
+// NP: 64-column panels of the head-dim bucket, 1 (D <= 64) or 2 (D <= 128)
+template <int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          float* __restrict__ o, int sq, int sk, int d,
+                          int causal) {
+  constexpr int kQPlane = NP * kQPanel;  // bytes of one Q plane, 128 rows
+  constexpr int kSlot = NP * kKVPanel;   // one plane of one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  // barriers: Q; then per slot full, empty
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kSlots];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring = q_s + kPieces * kQPlane;  // slot r at + r * kSlot
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_full = bar_q + 8;  // + 8 * slot
+  const uint32_t bar_empty = bar_full + 8 * kSlots;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  // the heaviest causal tiles (last query rows) are scheduled first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;
+  const int q_rows = min(kBlockM, sq - q0);
+  const int offset = sk - sq;  // row i sees keys j <= i + offset
+  int n_end = sk;
+  if (causal && q0 + offset >= 0) n_end = min(sk, q0 + q_rows + offset);
+  const int n_tiles = (n_end + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int r = 0; r < kSlots; ++r) {
+      mbar_init(bar_full + 8 * r, 1);
+      mbar_init(bar_empty + 8 * r, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // producer: Q's three planes once, then item i = 6t + j of the ring,
+    // j = 0..2 the planes h, m, l of K of tile t, j = 3..5 those of V
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, kPieces * kQPlane);
+      for (int pc = 0; pc < kPieces; ++pc)
+        for (int pn = 0; pn < NP; ++pn)
+          tma_load_4d(q_s + pc * kQPlane + pn * kQPanel, &qmap, pn * kPanel,
+                      q0, bh, pc, bar_q);
+      for (int i = 0; i < 2 * kPieces * n_tiles; ++i) {
+        const int t = i / (2 * kPieces), j = i % (2 * kPieces);
+        const int r = i % kSlots;
+        if (i >= kSlots) mbar_wait(bar_empty + 8 * r, (i / kSlots - 1) & 1);
+        mbar_expect_tx(bar_full + 8 * r, kSlot);
+        for (int pn = 0; pn < NP; ++pn)
+          tma_load_4d(ring + r * kSlot + pn * kKVPanel,
+                      j < kPieces ? &kmap : &vmap, pn * kPanel, t * kBlockN,
+                      bh, j % kPieces, bar_full + 8 * r);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows wg*64 .. wg*64+63 of the block; this
+  // thread holds rows r0 and r0 + 8
+  const int wg = warp / 4;
+  const int t4 = lane % 4;
+  const int r0 = q0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const uint32_t q_wg = q_s + wg * 64 * 128;  // its 64 rows of each Q panel
+  const auto edge = [&](int n0) {  // does the tile need the per-key mask?
+    return n0 + kBlockN > sk || (causal && n0 + kBlockN - 1 > q0 + offset);
+  };
+  // wait for the planes of item 6t + first .. + first + 2, and their slots
+  const auto acquire = [&](int t, int first, uint32_t (&pl)[kPieces]) {
+#pragma unroll
+    for (int pc = 0; pc < kPieces; ++pc) {
+      const int i = 2 * kPieces * t + first + pc;
+      pl[pc] = ring + (i % kSlots) * kSlot;
+      mbar_wait(bar_full + 8 * (i % kSlots), (i / kSlots) & 1);
+    }
+  };
+  const auto release = [&](int t, int first) {
+    __syncwarp();
+    if (lane == 0) {
+#pragma unroll
+      for (int pc = 0; pc < kPieces; ++pc)
+        mbar_arrive(bar_empty + 8 * ((2 * kPieces * t + first + pc) % kSlots));
+    }
+  };
+
+  float oacc[NP][32];
+  float sacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    sacc[i] = 0.f;
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) oacc[pn][i] = 0.f;
+  }
+  uint32_t pp[kPieces][16];
+  RowState rows;
+  float alpha0, alpha1;
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    uint32_t k_pl[kPieces], v_pl[kPieces];
+    acquire(t, 0, k_pl);
+    fence_regs(sacc);
+    wgmma_fence();
+    issue_qk<NP>(sacc, q_wg, k_pl);
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    release(t, 0);
+    // q was scaled in the split pass: log2(e) alone takes S to log2 units
+    softmax_tile(sacc, t * kBlockN, edge(t * kBlockN), sk, r0, offset, causal,
+                 kLog2e, t4, rows, alpha0, alpha1);
+    rescale(oacc, alpha0, alpha1);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      split_pair(sacc[2 * i], sacc[2 * i + 1], &pp[0][i], 16);
+    acquire(t, kPieces, v_pl);
+    fence_regs(oacc);
+    fence_regs(pp);
+    wgmma_fence();
+    issue_pv<NP>(oacc, pp, v_pl);
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    fence_regs(pp);
+    release(t, kPieces);
+  }
+
+  // o = acc / max(l, 1e-20), f32
+  const int r1 = r0 + 8;
+  float l0 = rows.l0, l1 = rows.l1;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float den0 = fmaxf(l0, 1e-20f);
+  const float den1 = fmaxf(l1, 1e-20f);
+  float* og = o + (long long)bh * sq * d;
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = pn * kPanel + 8 * j + 2 * t4;
+      if (r0 < sq)
+        store_pair(og + (long long)r0 * d, col, d, oacc[pn][4 * j] / den0,
+                   oacc[pn][4 * j + 1] / den0);
+      if (r1 < sq)
+        store_pair(og + (long long)r1 * d, col, d, oacc[pn][4 * j + 2] / den1,
+                   oacc[pn][4 * j + 3] / den1);
+    }
+  }
+}
+
+// The planes (3, batch_heads, rows, dp) bf16 as a 4-d TMA map (columns,
+// rows, b·h, plane) whose box is one panel of 64 columns by box_rows rows of
+// one plane of one (batch, head): rows past `rows` and columns past dp read
+// as zeros.
+bool make_planes_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr,
+                     int batch_heads, int rows, int dp, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dp, (cuuint64_t)rows,
+                              (cuuint64_t)batch_heads, (cuuint64_t)kPieces};
+  const cuuint64_t strides[3] = {(cuuint64_t)dp * 2,
+                                 (cuuint64_t)rows * dp * 2,
+                                 (cuuint64_t)batch_heads * rows * dp * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kPanel, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NP>
+cudaError_t launch_np(const CUtensorMap& qm, const CUtensorMap& km,
+                      const CUtensorMap& vm, float* o, int batch_heads,
+                      int sq, int sk, int d, int causal, cudaStream_t stream) {
+  const int smem = NP * (kPieces * kQPanel + kSlots * kKVPanel) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_sm90_kernel<NP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch_heads, (sq + kBlockM - 1) / kBlockM);
+  flash_fwd_f32_sm90_kernel<NP><<<grid, kThreads, smem, stream>>>(
+      qm, km, vm, o, sq, sk, d, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The split pass of the f32 route: x (b, h, s, d) f32 at element strides
+// st0..st3, times mul, into planes (3, b·h, s, dp) bf16, dp = d rounded up
+// to a multiple of 8, 16-byte aligned.
+cudaError_t flash_attention_sm90_f32_split(const float* x, long long st0,
+                                           long long st1, long long st2,
+                                           long long st3, void* planes, int b,
+                                           int h, int s, int d, float mul,
+                                           cudaStream_t stream) {
+  const int dp = (d + 7) / 8 * 8;
+  if (b < 1 || h < 1 || s < 1 || d < 1 || (uintptr_t)planes % 16 != 0)
+    return cudaErrorInvalidValue;
+  const long long groups = (long long)b * h * s * (dp / 8);
+  const long long blocks = (groups + kSplitThreads - 1) / kSplitThreads;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  split3_kernel<<<(unsigned)blocks, kSplitThreads, 0, stream>>>(
+      x, st0, st1, st2, st3, h, s, d, dp, mul, groups,
+      static_cast<__nv_bfloat16*>(planes));
+  return cudaGetLastError();
+}
+
+// The f32 route's attention over the split planes: qp (3, batch_heads, sq,
+// dp) of q already scaled, kp and vp (3, batch_heads, sk, dp), bf16, 16-byte
+// aligned; o (batch_heads, sq, d) f32 contiguous; 1 <= d <= 128.
+cudaError_t flash_attention_sm90_f32(const void* qp, const void* kp,
+                                     const void* vp, float* o,
+                                     int batch_heads, int sq, int sk, int d,
+                                     int causal, cudaStream_t stream) {
+  const int dp = (d + 7) / 8 * 8;
+  if (d < 1 || d > 128 || (sq + kBlockM - 1) / kBlockM > 65535 ||
+      ((uintptr_t)qp | (uintptr_t)kp | (uintptr_t)vp) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap qm, km, vm;
+  if (!make_planes_map(encode, &qm, qp, batch_heads, sq, dp, kBlockM) ||
+      !make_planes_map(encode, &km, kp, batch_heads, sk, dp, kBlockN) ||
+      !make_planes_map(encode, &vm, vp, batch_heads, sk, dp, kBlockN))
+    return cudaErrorInvalidValue;
+  if (d <= 64)
+    return launch_np<1>(qm, km, vm, o, batch_heads, sq, sk, d, causal,
+                        stream);
+  return launch_np<2>(qm, km, vm, o, batch_heads, sq, sk, d, causal, stream);
+}

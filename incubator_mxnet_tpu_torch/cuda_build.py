@@ -1,15 +1,16 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel's sources under ``csrc/`` (``SOURCES``) expose a plain C
-interface and are compiled by one ``nvcc`` for Hopper (``sm_90a``) into
-the kernel's own shared library, which Python loads with ``ctypes``.
-Nothing here runs at import: the first CUDA tensor that reaches a
-kernel's wrapper calls :func:`load`, which builds the library if it is
-missing.  Libraries land in ``build/torch_kernels/`` at the root of the
-checkout, named by a hash of their sources and flags, so an edited source
-is rebuilt and an unchanged one is reused.  ``nvcc``'s
-resource report (``-Xptxas -v``: registers, shared memory, spills) is kept
-beside each library as ``.log``.
+interface.  Every source is compiled for Hopper (``sm_90a``) by an
+``nvcc`` of its own, all of them started together, and each kernel's
+objects are linked into its own shared library, which Python loads with
+``ctypes``.  Nothing here runs at import: the first CUDA tensor that
+reaches a kernel's wrapper calls :func:`load`, which builds the library if
+it is missing.  Libraries land in ``build/torch_kernels/`` at the root of
+the checkout, named by a hash of their sources, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused.  ``nvcc``'s resource report (``-Xptxas -v``:
+registers, shared memory, spills) is kept beside each library as ``.log``.
 """
 from __future__ import annotations
 
@@ -30,23 +31,32 @@ __all__ = ["KERNELS", "SOURCES", "BUILD_DIR", "build_all", "load",
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+# flags of each source's compile; the link adds -shared
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> its C entry points as (restype, argtypes)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 KERNELS = {
     "flash_attention": {
-        # q, k, v, o, batch_heads, sq, sk, d, scale, causal, dtype, stream
-        "flash_attention_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                                     _I, _P]),
+        # q, k, v, o, batch_heads, sq, sk, d, scale, causal, stream
+        "flash_attention_bf16": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                      _P]),
+        # x, its 4 strides, planes, b, h, s, d, mul, stream
+        "flash_attention_f32_split": (_I, [_P, _L, _L, _L, _L, _P, _I, _I,
+                                           _I, _I, _F, _P]),
+        # q, k, v planes, o, batch_heads, sq, sk, d, causal, stream
+        "flash_attention_f32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _P]),
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
     },
 }
-# kernel name -> its sources under csrc/: flash attention's f32 route and
-# its bf16 route (wgmma, TMA), one library
+# kernel name -> its sources under csrc/: flash attention's C entry points,
+# its bf16 route and its f32 route (both wgmma and TMA), one library
 SOURCES = {
-    "flash_attention": ("flash_attention.cu", "flash_attention_sm90.cu"),
+    "flash_attention": ("flash_attention.cu", "flash_attention_sm90.cu",
+                        "flash_attention_f32_sm90.cu"),
 }
 
 _LOCK = threading.Lock()
@@ -69,7 +79,7 @@ def _sources(name: str) -> list:
 def lib_path(name: str) -> Path:
     """Where kernel ``name``'s library is (or will be) built."""
     digest = hashlib.sha256()
-    for src in _sources(name):
+    for src in _sources(name) + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / ("lib%s-%s.so" % (name, digest.hexdigest()[:16]))
@@ -82,33 +92,52 @@ def build_log(name: str) -> str:
 
 
 def build_all(names=None) -> dict:
-    """Build the missing libraries of ``names`` (default: every kernel), one
-    ``nvcc`` per source, all started together.  Returns ``{name: seconds}``
-    of the builds that ran; raises ``MXNetError`` with nvcc's output if one
-    fails."""
+    """Build the missing libraries of ``names`` (default: every kernel): one
+    ``nvcc`` per source, all started together, then one link per library.
+    Returns ``{name: seconds}`` of the builds that ran; raises ``MXNetError``
+    with nvcc's output if one fails."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
-    running = {}
+    compiles = {}
     t0 = time.perf_counter()
     for name in names:
         target = lib_path(name)
         if target.exists():
             continue
         nvcc = nvcc or _nvcc()
-        tmp = target.with_name("%s.tmp-%d" % (target.name, os.getpid()))
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources(name))]
-        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True),
-                         tmp, target)
+        tag = "%s.tmp-%d" % (target.stem, os.getpid())
+        compiles[name] = []
+        for src in _sources(name):
+            obj = target.with_name("%s-%s.o" % (tag, src.stem))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            compiles[name].append((subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), obj))
     seconds, failures = {}, []
-    for name, (proc, tmp, target) in running.items():
-        out, _ = proc.communicate()
+    for name, procs in compiles.items():
+        target = lib_path(name)
+        tmp = target.with_name("%s.tmp-%d" % (target.name, os.getpid()))
+        log, ok = [], True
+        for proc, _ in procs:
+            out, _ = proc.communicate()
+            log.append(out)
+            ok = ok and proc.returncode == 0
+        if ok:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *(str(obj) for _, obj in procs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            log.append(link.stdout)
+            ok = link.returncode == 0
+        for _, obj in procs:
+            obj.unlink(missing_ok=True)
         seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failures.append("%s (exit %d):\n%s" % (name, proc.returncode, out))
+        if not ok:
+            failures.append("%s:\n%s" % (name, "".join(log)))
+            tmp.unlink(missing_ok=True)
             continue
-        target.with_suffix(".log").write_text(out)
+        target.with_suffix(".log").write_text("".join(log))
         os.replace(tmp, target)
     if failures:
         raise MXNetError("nvcc failed for " + "\n".join(failures))

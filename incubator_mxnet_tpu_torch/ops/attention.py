@@ -5,11 +5,15 @@ the Pallas kernel ``_flash_kernel`` (:56) on the chip and a jnp reference
 elsewhere; the port runs a hand-written kernel on a CUDA tensor and the
 plain PyTorch :func:`_attention_reference` on a CPU tensor.  Which path
 runs follows only from the device of the tensors: for a CUDA tensor the
-wrapper launches the kernel or raises, and never falls back.  The kernel's
-C entry point picks its route by dtype: bfloat16 runs
-``csrc/flash_attention_sm90.cu`` (wgmma and TMA, P split into two bf16
-halves so the products stay f32-exact), float32 ``csrc/flash_attention.cu``
-(f32 on the CUDA cores).
+wrapper launches the kernel or raises, and never falls back.  The route
+follows the dtype, and both run on the tensor cores (wgmma and TMA):
+bfloat16 runs ``csrc/flash_attention_sm90.cu`` (P split into two bf16
+halves so the products stay f32-exact); float32 runs the split pass
+:func:`split_f32` (each operand into three bf16 planes, plain version
+:func:`_split_f32_reference`) and then ``csrc/flash_attention_f32_sm90.cu``
+(six bf16 products for each f32 product, as XLA computes
+``Precision.HIGHEST`` on the TPU).  ``csrc/flash_attention.cu`` holds the
+library's C entry points.
 
 Registered as op ``_contrib_FlashAttention`` (and its aliases), so the
 eager NDArray surface and Gluon's ``MultiHeadAttention`` reach it.
@@ -27,8 +31,10 @@ from .registry import register
 _NEG_INF = -1e30
 _MAX_HEAD_DIM = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the bf16 route loads rows by TMA, whose row stride is a multiple of 16 bytes
-_BF16_COLUMNS = 8
+# both routes load rows by TMA, whose row stride is a multiple of 16 bytes:
+# head dims are padded to a multiple of 8 bf16 columns
+_COLUMNS = 8
+_PIECES = 3   # bf16 planes of an f32 operand on the f32 route
 
 
 def _attention_reference(q, k, v, causal=False, scale=None):
@@ -86,45 +92,130 @@ def _kernel_dtype_code(q, k, v):
         raise ValueError("the flash_attention kernel needs B*H, Sq, Sk >= 1, "
                          "got shapes %s, %s" % (tuple(q.shape),
                                                 tuple(k.shape)))
-    if b * h >= 2 ** 31 or -(-sq // 64) > 65535:
+    if b * h >= 2 ** 31 or -(-sq // 128) > 65535:
         raise ValueError("flash_attention: B*H=%d or Sq=%d exceeds the "
                          "kernel's grid" % (b * h, sq))
     return _KERNEL_DTYPES[q.dtype]
 
 
-def _flash_forward_cuda(q, k, v, causal, scale):
-    """Launch ``flash_attention_fwd`` on the current stream of q's device."""
-    code = _kernel_dtype_code(q, k, v)
+def _split_f32_reference(x, mul=1.0):
+    """Plain version of :func:`split_f32`: ``x`` (B, H, S, D) float32 times
+    ``mul`` as planes (3, B*H, S, Dp) bfloat16, Dp = D rounded up to a
+    multiple of 8 with zero columns.  Plane 0 is bf16(x), plane 1 the
+    rounding of what plane 0 left, plane 2 of what both left; the
+    subtractions are exact in f32, so the three carry x to 24 bits."""
+    b, h, s, d = x.shape
+    dp = -(-d // _COLUMNS) * _COLUMNS
+    rest = torch.nn.functional.pad(
+        (x.to(torch.float32) * mul).reshape(b * h, s, d), (0, dp - d))
+    planes = []
+    for _ in range(_PIECES):
+        planes.append(rest.to(torch.bfloat16))
+        rest = rest - planes[-1].float()
+    return torch.stack(planes)
+
+
+def _raise_on(err, lib, entry):
+    if err != 0:
+        raise MXNetError("%s launch failed: CUDA error %d (%s)" % (
+            entry, err, lib.flash_attention_error_string(err).decode()))
+
+
+def split_f32(x, mul=1.0):
+    """The f32 route's split pass: (B, H, S, D) float32 times ``mul`` into
+    three bf16 planes (3, B*H, S, Dp), as :func:`_split_f32_reference`.
+
+    A CUDA tensor goes through the kernel (``split3_kernel`` of
+    ``csrc/flash_attention_f32_sm90.cu``, which reads ``x``'s strides, so a
+    split-heads view needs no copy) and bumps ``split_f32.launches``; a CPU
+    tensor through the plain version."""
+    if x.device.type == "cpu":
+        return _split_f32_reference(x, mul)
+    if x.device.type != "cuda":
+        raise MXNetError("split_f32 runs on CUDA or CPU tensors, got device "
+                         "%s" % x.device)
+    if x.dtype != torch.float32 or x.ndim != 4:
+        raise TypeError("split_f32 takes a (B, H, S, D) float32 tensor, got "
+                        "%s %s" % (x.dtype, tuple(x.shape)))
+    b, h, s, d = x.shape
+    if not 1 <= d <= _MAX_HEAD_DIM or x.numel() == 0:
+        raise ValueError("split_f32 takes head dims 1..%d and a non-empty "
+                         "tensor, got %s" % (_MAX_HEAD_DIM, tuple(x.shape)))
+    dp = -(-d // _COLUMNS) * _COLUMNS
+    planes = torch.empty((_PIECES, b * h, s, dp), dtype=torch.bfloat16,
+                         device=x.device)
+    lib = cuda_build.load("flash_attention")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.flash_attention_f32_split(x.data_ptr(), *x.stride(),
+                                            planes.data_ptr(), b, h, s, d,
+                                            float(mul), stream)
+    _raise_on(err, lib, "flash_attention_f32_split")
+    split_f32.launches += 1
+    return planes
+
+
+split_f32.launches = 0
+
+
+def _attention_f32_planes(qp, kp, vp, shape, causal, lib):
+    """The f32 route's attention kernel over the planes of :func:`split_f32`
+    (q's times its scale); ``shape`` is q's (B, H, Sq, D)."""
+    b, h, sq, d = shape
+    o = torch.empty((b, h, sq, d), dtype=torch.float32, device=qp.device)
+    with torch.cuda.device(qp.device):
+        stream = torch.cuda.current_stream(qp.device).cuda_stream
+        err = lib.flash_attention_f32(qp.data_ptr(), kp.data_ptr(),
+                                      vp.data_ptr(), o.data_ptr(), b * h, sq,
+                                      kp.shape[2], d, int(bool(causal)),
+                                      stream)
+    _raise_on(err, lib, "flash_attention_f32")
+    return o
+
+
+def _flash_forward_f32(q, k, v, causal, scale, lib):
+    """The f32 route: split q (times ``scale``, as the TPU kernel scales q),
+    k and v into bf16 planes, then the six-product attention kernel."""
+    o = _attention_f32_planes(split_f32(q, scale), split_f32(k), split_f32(v),
+                              q.shape, causal, lib)
+    flash_attention.f32_launches += 1
+    return o
+
+
+def _flash_forward_bf16(q, k, v, causal, scale, lib):
+    """The bf16 route, on contiguous, 16-byte aligned copies of q, k, v."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     # the split-heads transpose leaves q, k, v strided: one copy each, as
     # XLA's transpose is on the TPU
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    dk = d
-    if q.dtype == torch.bfloat16:
-        # zero columns of q and k add nothing to QKᵀ, and those of v give
-        # output columns that are cut off again
-        dk = -(-d // _BF16_COLUMNS) * _BF16_COLUMNS
-        if dk != d:
-            q, k, v = (torch.nn.functional.pad(t, (0, dk - d))
-                       for t in (q, k, v))
-        # TMA reads from 16-byte aligned bases; a view may start anywhere
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (q, k, v))
+    # zero columns of q and k add nothing to QKᵀ, and those of v give output
+    # columns that are cut off again
+    dk = -(-d // _COLUMNS) * _COLUMNS
+    if dk != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
+    # TMA reads from 16-byte aligned bases; a view may start anywhere
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     o = torch.empty_like(q)
-    lib = cuda_build.load("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(),
-                                      v.data_ptr(), o.data_ptr(), b * h, sq,
-                                      sk, dk, float(scale), int(bool(causal)),
-                                      code, stream)
-    if err != 0:
-        raise MXNetError("flash_attention_fwd launch failed: CUDA error %d "
-                         "(%s)" % (err, lib.flash_attention_error_string(err)
-                                   .decode()))
-    flash_attention.launches += 1
+        err = lib.flash_attention_bf16(q.data_ptr(), k.data_ptr(),
+                                       v.data_ptr(), o.data_ptr(), b * h, sq,
+                                       sk, dk, float(scale), int(bool(causal)),
+                                       stream)
+    _raise_on(err, lib, "flash_attention_bf16")
     return o if dk == d else o[..., :d].contiguous()
+
+
+def _flash_forward_cuda(q, k, v, causal, scale):
+    """Launch the kernel's route for q's dtype on the current stream of q's
+    device."""
+    code = _kernel_dtype_code(q, k, v)
+    lib = cuda_build.load("flash_attention")
+    route = _flash_forward_f32 if code == 0 else _flash_forward_bf16
+    o = route(q, k, v, causal, scale, lib)
+    flash_attention.launches += 1
+    return o
 
 
 class _FlashAttentionFunction(torch.autograd.Function):
@@ -146,7 +237,9 @@ def flash_attention(q, k, v, causal=False, scale=None):
     """softmax(QKᵀ·scale)·V over (B, H, S, D) tensors.
 
     A CUDA tensor goes through the hand-written kernel (and bumps
-    ``flash_attention.launches``); a CPU tensor through the plain version.
+    ``flash_attention.launches``, and on the f32 route also
+    ``flash_attention.f32_launches``); a CPU tensor through the plain
+    version.
     ``scale`` defaults to 1/sqrt(D); with ``causal`` the diagonal is
     anchored at the end of the key axis.  The output has q's dtype."""
     _check_inputs(q, k, v)
@@ -161,6 +254,7 @@ def flash_attention(q, k, v, causal=False, scale=None):
 
 
 flash_attention.launches = 0
+flash_attention.f32_launches = 0
 
 
 @register("_contrib_FlashAttention", num_inputs=3,

@@ -8,8 +8,11 @@ its plain PyTorch version.  A plain emulation of the bf16 kernel's
 arithmetic (csrc/flash_attention_sm90.cu: S in f32 from bf16 products, P
 split into two bf16 halves) is held against the JAX build under a
 per-element bound, and the same emulation with P rounded to bf16 once must
-break it.  The ``cuda`` cases hold the kernel against the plain version and
-the JAX build on the card; they skip without one:
+break it.  So is the f32 route's (csrc/flash_attention_f32_sm90.cu: every
+f32 operand split into three bf16 pieces, six products for each f32
+product) at the f32 bound 2e-5, and with one piece it must break 1e-4.  The
+``cuda`` cases hold the kernel against the plain version and the JAX build
+on the card; they skip without one:
 
     python -m pytest -m cuda tests/test_torch_attention.py
 """
@@ -120,6 +123,63 @@ def _bf16_kernel_emulation(q, k, v, causal, split=True, block_n=64):
     return (acc / l.clamp_min(1e-20)).to(torch.bfloat16)
 
 
+# The six products of the f32 route's split, in the kernel's issue order
+# (small terms first, hh last): (piece of A, piece of B), 0 = h, 1 = m, 2 = l
+F32_PRODUCTS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+LOG2E = 1.4426950408889634
+
+
+def _pieces(x, n):
+    """``x`` as ``n`` bf16 pieces (float32 tensors): each the rounding of what
+    the earlier ones left."""
+    out, rest = [], x
+    for _ in range(n):
+        out.append(rest.to(torch.bfloat16).float())
+        rest = rest - out[-1]
+    return out
+
+
+def _split_matmul(a, b, pieces):
+    """a @ b as the kernel computes it from ``pieces`` bf16 pieces of each
+    operand: the products of F32_PRODUCTS whose ranks add up to less than
+    ``pieces`` (all six for 3, hh alone for 1), each exact, summed in f32 in
+    the kernel's order."""
+    pa, pb = _pieces(a, pieces), _pieces(b, pieces)
+    acc = None
+    for i, j in F32_PRODUCTS:
+        if i + j < pieces:
+            term = torch.matmul(pa[i], pb[j])
+            acc = term if acc is None else acc + term
+    return acc
+
+
+def _f32_split_kernel_emulation(q, k, v, causal, pieces=3, block_n=64):
+    """The f32 kernel's arithmetic in plain PyTorch (test-only): q scaled in
+    f32 and split, as k and v, into ``pieces`` bf16 pieces; S = Q·Kᵀ from
+    the split products into f32; an online softmax in log2 units over tiles
+    of ``block_n`` keys; O += P·V with P split the same way; o in f32."""
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    sq, sk, d = q.shape[-2], k.shape[-2], q.shape[-1]
+    qs = q * (1.0 / np.sqrt(d))
+    rows = torch.arange(sq)[:, None]
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for n0 in range(0, sk, block_n):
+        kt, vt = k[..., n0:n0 + block_n, :], v[..., n0:n0 + block_n, :]
+        x = _split_matmul(qs, kt.transpose(-1, -2), pieces) * LOG2E
+        if causal:
+            cols = torch.arange(n0, n0 + kt.shape[-2])[None, :]
+            x = x.masked_fill(cols > rows + sk - sq, -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _split_matmul(p, vt, pieces)
+        m = m_new
+    return acc / l.clamp_min(1e-20)
+
+
 # f32: the two packages sum the same f32 products in other orders
 @pytest.mark.parametrize("shape,causal", CASES, ids=IDS)
 def test_cpu_f32_matches_jax(shape, causal):
@@ -164,6 +224,52 @@ def test_cpu_bf16_p_breaks_the_bound(shape, causal):
     got = _bf16_kernel_emulation(*(torch.from_numpy(x) for x in (q, k, v)),
                                  causal, split=False)
     assert _violations(got.float().numpy(), want) >= 0.01 * want.size
+
+
+# the f32 route's arithmetic (three bf16 pieces, six products) holds the f32
+# bound of test_cpu_f32_matches_jax against the JAX build
+@pytest.mark.parametrize("shape,causal", CASES, ids=IDS)
+def test_cpu_f32_split_emulation_matches_jax(shape, causal):
+    q, k, v = _inputs(shape, seed=9)
+    want = _jax_flash(q, k, v, causal)
+    got = _f32_split_kernel_emulation(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+
+
+# negative control: one bf16 piece (a plain bf16 product) breaks 1e-4 at
+# every shape, so the bound tells the designs apart
+@pytest.mark.parametrize("shape,causal", CASES, ids=IDS)
+def test_cpu_f32_one_piece_breaks_the_bound(shape, causal):
+    q, k, v = _inputs(shape, seed=9)
+    want = _jax_flash(q, k, v, causal)
+    got = _f32_split_kernel_emulation(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal, pieces=1)
+    assert np.abs(got.numpy() - want).max() > 1e-4
+
+
+# the split pass's plain version: three bf16 planes that carry x·mul to
+# 2^-24 relative, zero columns up to a multiple of 8, (3, B*H, S, Dp)
+@pytest.mark.parametrize("shape,mul", [((2, 3, 40, 20), 1.0),
+                                       ((1, 2, 64, 128), 0.125),
+                                       ((1, 1, 5, 1), 1.0)],
+                         ids=["d20", "d128_scaled", "d1"])
+def test_cpu_split_f32_planes(shape, mul):
+    rs = np.random.RandomState(10)
+    x = torch.from_numpy((rs.standard_normal(shape) *
+                          10.0 ** rs.uniform(-3, 3, shape)).astype(np.float32))
+    planes = tatt.split_f32(x, mul)
+    b, h, s, d = shape
+    dp = -(-d // 8) * 8
+    assert planes.dtype == torch.bfloat16 and tuple(planes.shape) == (
+        3, b * h, s, dp)
+    assert not planes[..., d:].any()
+    want = (x * mul).reshape(b * h, s, d).double()
+    got = planes[..., :d].double().sum(0)
+    assert ((got - want).abs() <= 2.0 ** -24 * want.abs()).all()
+    assert (planes[1].float().abs() <= 2.0 ** -8 *
+            planes[0].float().abs()).all()
 
 
 def test_rows_without_visible_keys_average_v():
@@ -321,6 +427,59 @@ def test_card_bf16_unaligned_view(card):
     out = tatt.flash_attention(qv, k, v, causal=True)
     ref = tatt._attention_reference(q.float(), k.float(), v.float(), True)
     assert _violations(out.float().cpu().numpy(), ref.cpu().numpy()) == 0
+
+
+# the f32 route against the JAX build (CPU jax, f32 on the same numpy
+# inputs) at the f32 bound of the CPU comparison
+@pytest.mark.cuda
+def test_card_f32_kernel_matches_jax(card):
+    shape, causal = (1, 2, 1024, 1024, 128), True
+    q, k, v = _inputs(shape, seed=7)
+    want = _jax_flash(q, k, v, causal)
+    before = tatt.flash_attention.f32_launches, tatt.split_f32.launches
+    got = tatt.flash_attention(*(torch.from_numpy(x).to(card)
+                                 for x in (q, k, v)), causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert (tatt.flash_attention.f32_launches,
+            tatt.split_f32.launches) == (before[0] + 1, before[1] + 3)
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=2e-5)
+
+
+# the split pass on the card equals its plain version bit for bit (the same
+# roundings and exact subtractions), from a strided view and with padding
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,mul", [(20, 0.125), (128, 1.0)])
+def test_card_split_f32_matches_plain(card, d, mul):
+    rs = np.random.RandomState(11)
+    x = torch.from_numpy(rs.standard_normal((2, 77, 3, d)).astype(
+        np.float32)).to(card).transpose(1, 2)          # (B, H, S, D), strided
+    got = tatt.split_f32(x, mul)
+    torch.cuda.synchronize()
+    want = tatt._split_f32_reference(x, mul)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+# f32 views: a base 4 bytes into its storage (no 16-byte loads there) and
+# the split-heads transpose at D = 20, read through their strides
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["unaligned", "split_heads"])
+def test_card_f32_views(card, view):
+    if view == "unaligned":
+        q, k, v = (torch.from_numpy(x).to(card)
+                   for x in _inputs((1, 2, 64, 64, 64), seed=8))
+        flat = torch.empty(q.numel() + 1, device=card)
+        flat[1:] = q.reshape(-1)
+        q = flat[1:].view(q.shape)
+        assert q.is_contiguous() and q.data_ptr() % 16
+    else:
+        x = torch.randn(2, 150, 3 * 4, 20, device=card)   # (B, S, 3H, D)
+        q, k, v = (t.transpose(1, 2) for t in x.split(4, dim=2))
+        assert not q.is_contiguous()
+    out = tatt.flash_attention(q, k, v, causal=True)
+    ref = tatt._attention_reference(q, k, v, causal=True)
+    assert out.dtype == torch.float32 and out.is_contiguous()
+    assert (out - ref).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda

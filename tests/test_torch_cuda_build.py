@@ -1,8 +1,9 @@
 """The port's kernel build on the CPU, with a stand-in for nvcc.
 
 The real build runs only where the CUDA toolkit is (chip_smoke.py's build
-phase); here a fake ``nvcc`` on PATH checks the command line, the
-content-hashed library names, the cache and the error paths.
+phase); here a fake ``nvcc`` on PATH checks the command lines (one compile
+per source, then a link), the content-hashed library names, the cache and
+the error paths.
 """
 import stat
 
@@ -54,8 +55,11 @@ def test_build_all_compiles_each_source_once(fake_nvcc):
     assert "Used 42 registers" in cuda_build.build_log("flash_attention")
     assert cuda_build.build_all() == {}                  # cached by content
     sources = calls.read_text().split()
-    assert sorted(s.rsplit("/", 1)[-1] for s in sources) == [
-        "flash_attention.cu", "flash_attention_sm90.cu"]   # one nvcc, both
+    assert sorted(s.rsplit("/", 1)[-1] for s in sources) == sorted(
+        cuda_build.SOURCES["flash_attention"])    # one nvcc for each source
+    assert cuda_build.SOURCES["flash_attention"] == (
+        "flash_attention.cu", "flash_attention_sm90.cu",
+        "flash_attention_f32_sm90.cu")
     assert not list(cuda_build.BUILD_DIR.glob("*.tmp-*"))
 
 
@@ -85,9 +89,13 @@ def test_library_name_follows_source_and_flags(monkeypatch):
 
 
 @pytest.mark.parametrize("source", ["flash_attention.cu",
-                                    "flash_attention_sm90.cu"])
+                                    "flash_attention_sm90.cu",
+                                    "flash_attention_f32_sm90.cu",
+                                    "flash_sm90_common.cuh"])
 def test_library_name_follows_every_source(source, tmp_path, monkeypatch):
-    for name in cuda_build.SOURCES["flash_attention"]:
+    headers = [p.name for p in cuda_build.CSRC.glob("*.cuh")]
+    assert "flash_sm90_common.cuh" in headers
+    for name in list(cuda_build.SOURCES["flash_attention"]) + headers:
         (tmp_path / name).write_bytes((cuda_build.CSRC / name).read_bytes())
     monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
     a = cuda_build.lib_path("flash_attention")

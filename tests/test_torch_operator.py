@@ -170,6 +170,41 @@ def test_rtc_softmax_on_card_without_kernels_raises(card_kernels):
                       op_type="rtc_softmax")
 
 
+# softmax_fwd's launch geometry: whole warps; the one-read path exactly when
+# the row is a whole number of float4 and fits the block's registers, on the
+# least block that holds it
+@pytest.mark.parametrize("c", [1, 4, 97, 1000, 1024, 16384, 16385, 32768,
+                               32772, 40000])
+def test_softmax_geometry(c):
+    block, shared, one_read = chip_smoke.softmax_geometry(c)
+    per_thread = 4 * chip_smoke.SOFTMAX_VEC
+    assert block % 32 == 0 and 32 <= block <= 1024 and shared == 0
+    assert one_read == (c % 4 == 0 and c <= per_thread * 1024)
+    if one_read:
+        assert block * per_thread >= c > (block - 32) * per_thread
+    else:
+        assert block == chip_smoke.SOFTMAX_THREADS
+
+
+# softmax_fwd on the card at the geometry of its path, both of its paths
+# (16385: c % 4 != 0; 40000: past the registers), rows of magnitude up to
+# 80, against softmax_plain at the rtc phase's bound
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 1000, 16384, 16385, 40000])
+def test_softmax_fwd_widths_on_card(card_kernels, c):
+    rs = np.random.RandomState(c)
+    z = tmx.nd.array(rs.uniform(-80, 80, (6, c)).astype(np.float32),
+                     ctx=tmx.gpu(0))
+    p = tmx.nd.empty((6, c), ctx=tmx.gpu(0))
+    block, shared, _ = chip_smoke.softmax_geometry(c)
+    card_kernels["softmax_fwd"].launch([z, p, c], tmx.gpu(0), (6,), (block,),
+                                       shared)
+    torch.cuda.synchronize()
+    want = chip_smoke.softmax_plain(z._data)
+    assert (p._data - want).abs().max().item() <= \
+        chip_smoke.RTC_TOLERANCE["softmax_fwd"]
+
+
 class _TwoOut:
     """Outputs (2x, x + 1); input grad 2·g0 + g1.  Written on the NDArray
     surface both packages share."""
