@@ -13,16 +13,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 2. build   — every hand-written kernel of the port, from ``csrc/`` with nvcc
              (one per source, all at once), with ptxas's report (registers,
              shared memory, spills) and the count of HGMMA (wgmma)
-             instructions in the flash library's SASS and in the f32 route's
-             kernel, neither of which may be 0: both routes run on the tensor
-             cores;
+             instructions in the SASS of the bf16, f16 and f32 kernels, none
+             of which may be 0: every route runs on the tensor cores;
 3. kernel  — each kernel against its plain PyTorch version on the card, at
-             the shapes of its tests and of the serving path, in f32 and bf16;
-             bf16 also element by element (2^-8·|ref| + 5e-5); the f32
-             route's split pass bit for bit;
-4. serve   — a small LM (f32, so the f32 route, whose launches are counted
-             and must not be 0) on the card against the same weights on the
-             CPU, then
+             the shapes of its tests and of the serving path and at head dims
+             160, 192 and 256, in f32, bf16 and f16; bf16 and f16 also
+             element by element (2^-8·|ref| + 5e-5, 2^-11·|ref| + 5e-5); the
+             f32 route's split pass bit for bit; mixes of dtypes (the f32
+             route, q's dtype out);
+4. serve   — small LMs on the card against the same weights on the CPU, with
+             the same greedy tokens: f32 at D = 16 (the f32 route), f16 at
+             D = 128 (the f16 route), bf16 and f32 at D = 256 (two output
+             slices a block on the 16-bit and the f32 route), each route's
+             launch count zeroed just before and read just after, none 0;
+             then
              the LM of bench_transformer.py at its full width (vocab 16384,
              d_model 4096, 32 heads, d_ffn 16384, 4 layers, seq 1024; random
              weights from a seed) answering 4 requests of 8 prompts x 1024
@@ -40,13 +44,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              the head shape; the host cost of one launch;
 5. timing  — the flash kernel at the serving shape: its time, its bound, the
              plain version's time and one PyTorch library call's time, in
-             bf16 (the serving path) and on the f32 route (with the split
-             pass and the attention kernel also timed alone);
+             bf16 (the serving path), f16, and on the f32 route (with the
+             split pass and the attention kernel also timed alone); and at
+             (8, 16, 1024, 256) causal on the bf16 and f32 routes;
 6. one JSON ``kernels`` line, then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
+import gc
 import json
 import math
 import os
@@ -73,18 +79,44 @@ ATTENTION_CASES = [
     ((2, 4, 32, 32, 16), True),      # the small LM of phase 4a
     ((8, 32, 1024, 1024, 128), True),
 ]
+# head dims past 128: two output slices a block column on every route
+WIDE_CASES = [
+    ((1, 2, 200, 200, 160), True),
+    ((2, 2, 130, 130, 192), False),
+    ((2, 4, 512, 512, 256), True),
+]
+# mixes of dtypes (q, k, v): the f32 route, q's dtype out
+MIXED_CASES = [(("bfloat16", "float32", "float16"), (2, 3, 256, 320, 96)),
+               (("float32", "bfloat16", "bfloat16"), (1, 2, 200, 200, 256))]
 # kernel vs plain, max abs error. f32: both sum the same products in f32 in
-# other orders (|o| <= ~4, D <= 128, Sk <= 1024), a few ulp of 4, far below
-# 1e-4. bf16: the plain result is computed in f32 from the same bf16 inputs,
-# and the kernel rounds its f32 result to bf16 once: half an ulp of bf16 at
-# |o| < 4 is 7.8e-3, within 2e-2.
-TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
+# other orders (|o| <= ~4, D <= 256, Sk <= 1024), a few ulp of 4, far below
+# 1e-4. bf16 (f16): the plain result is computed in f32 from the same
+# 16-bit inputs, and the kernel rounds its f32 result once: half an ulp at
+# |o| < 4 is 7.8e-3 (9.8e-4), within 2e-2 (2e-3).
+TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-3}
 # bf16, element by element against the f32 plain result: one bf16 rounding
-# (2^-9 relative) and as much again for the f32 arithmetic. P rounded to
-# bf16 once before P·V breaks it at several percent of the elements (the
-# negative control of tests/test_torch_attention.py); the kernel's split
+# (2^-9 relative) and as much again for the f32 arithmetic (f16: 2^-11). P
+# rounded to the type once before P·V breaks it at many elements (the
+# negative controls of tests/test_torch_attention.py); the kernel's split
 # P_hi + P_lo must break it nowhere.
 BF16_REL, BF16_ABS = 2.0 ** -8, 5e-5
+HALF_REL = {"bfloat16": BF16_REL, "float16": 2.0 ** -11}
+# small LMs on the card against the CPU (phase 4a): (name, dtype, widths,
+# the launch counter of their route, max abs error bound as ulps of the
+# dtype at max |CPU logits| (f32: absolute))
+SMALL_LMS = [
+    ("f32_d16", "float32", dict(vocab=97, d_model=64, n_heads=4, d_ffn=256,
+                                n_layers=2, seq_len=32), "f32_launches", None),
+    ("f16_d128", "float16", dict(vocab=97, d_model=256, n_heads=2, d_ffn=512,
+                                 n_layers=2, seq_len=32), "f16_launches", 16),
+    ("bf16_d256", "bfloat16", dict(vocab=97, d_model=512, n_heads=2,
+                                   d_ffn=1024, n_layers=2, seq_len=32),
+     "launches", 8),
+    ("f32_d256", "float32", dict(vocab=97, d_model=512, n_heads=2, d_ffn=1024,
+                                 n_layers=2, seq_len=32), "f32_launches",
+     None),
+]
+MANTISSA = {"bfloat16": 7, "float16": 10}
 FLASH_DESIGN = ("bf16: wgmma m64n64k16 for S = Q·Kᵀ (shared-memory operands) "
                 "and for O += P_hi·V + P_lo·V (P from registers, V "
                 "transposed), S of tile t issued with P·V of tile t-1, TMA "
@@ -98,11 +130,41 @@ F32_DESIGN = ("f32: a split pass writes three bf16 planes (h, m, l) of "
               "(tile, plane) slots on mbarriers, 1 producer warp + 2 consumer "
               "warpgroups, 128 query rows x 64 keys a tile, S, softmax and "
               "P·V in turn in each warpgroup")
+F16_DESIGN = ("f16: the bf16 kernel's template instantiated for __half: "
+              "wgmma m64n64k16 .f16, TMA maps of FLOAT16, P split into two "
+              "f16 halves (f16 x f16 products exact in f32)")
+WIDE_DESIGN = ("bf16 at head dims 129-256: Q and K in four 64-column panels "
+               "(three up to 192), one block per 128 output columns (grid "
+               "z): S over the full D, O over the block's slice, 64 f32 "
+               "registers of O a thread as at D = 128; 208 KB of shared "
+               "memory at D = 256")
+F32_WIDE_DESIGN = ("f32 at head dims 129-256: 64 query rows and one consumer "
+                   "warpgroup a block (Q's three planes 96 KB at D = 256), "
+                   "one block per 128 output columns, a four-slot ring of "
+                   "32 KB (K plane) slots, 224 KB of shared memory")
+BF16_SOURCE = "incubator_mxnet_tpu_torch/csrc/flash_attention_sm90.cu"
 F32_SOURCE = "incubator_mxnet_tpu_torch/csrc/flash_attention_f32_sm90.cu"
-SOFTMAX_DESIGN = ("one block per row; where c % 4 == 0 and the row fits, the "
-                  "row read once as float4 into registers (SOFTMAX_VEC a "
-                  "thread), block max, expf in registers, block sum, float4 "
-                  "stores of e / s; else a three-pass loop in the same kernel")
+# the (mangled) kernel names cuobjdump lists, by route
+HGMMA_FUNCTIONS = {"bf16": "flash_fwd_sm90_kernelI13__nv_bfloat16",
+                   "f16": "flash_fwd_sm90_kernelI6__half",
+                   "f32": "flash_fwd_f32_sm90_kernel"}
+# the head dim 256 timing shape (B, H, Sq, Sk, D), causal
+WIDE_TIMING = ((8, 16, 1024, 1024, 256), True)
+RTC_DESIGNS = {
+    "softmax_fwd": ("one block per row; where c % 4 == 0 and the row fits, "
+                    "the row read once as float4 into registers (SOFTMAX_VEC "
+                    "a thread), block max, expf in registers, block sum, "
+                    "float4 stores of e / s; else a three-pass loop in the "
+                    "same kernel"),
+    "softmax_bwd": ("a wide row a block of up to 1024 threads, narrow rows "
+                    "several (softmax_bwd_geometry), copied as float4 with "
+                    "BWD_VEC loads a thread in flight, then one fix-up a row "
+                    "by the thread that stored column label: p - 1.0; a "
+                    "scalar loop where c % 4 != 0 or a base is unaligned"),
+    "axpy": ("float4 loads and stores, AXPY_VEC float4 of x and y a thread "
+             "in flight, grid-stride; a scalar tail for n % 4 and for "
+             "unaligned bases"),
+}
 
 
 # The rtc phase's user kernels: CUDA C that the port compiles at run time
@@ -112,9 +174,20 @@ SOFTMAX_DESIGN = ("one block per row; where c % 4 == 0 and the row fits, the "
 # softmax_bwd are the forward and backward of the custom op "rtc_softmax",
 # a softmax output with the gradient p - onehot(label) (upstream MXNet's
 # example/numpy-ops/custom_softmax_rtc.py).  Each is bound by memory bytes
-# on this card: one pass of reads and writes at 3.35 TB/s.  axpy and
-# softmax_bwd are the simple design: one thread per element.  softmax_fwd
-# takes one block per row and reads the row from memory once: where c % 4 ==
+# on this card: one pass of reads and writes at 3.35 TB/s, the head's 1.07
+# GB far past the 50 MB L2, so all three stream.  axpy reads x and y and
+# writes o as float4, AXPY_VEC float4 of each input in flight a thread
+# before its stores; n % 4 elements, and every element when a base is not
+# 16-byte aligned, take a scalar loop; axpy_geometry(n) picks its grid.
+# softmax_bwd copies p into dz the same way, a wide row by a block of up to
+# 1024 threads with BWD_VEC float4 each in flight (narrow rows several to
+# a block; softmax_bwd_geometry(c)), and applies the one-hot as one fix-up
+# a row: the thread that stored column label[row] stores p - 1.0 there
+# after its own float4 store, so no element is compared; rows with
+# c % 4 != 0 or unaligned bases take a scalar loop in the same kernel.
+# Plain loads and stores: streaming cache hints (__ldcs, __stcs) and
+# blocks of 256 threads over several wide rows were slower on the card.  softmax_fwd takes
+# one block per row and reads the row from memory once: where c % 4 ==
 # 0, the bases are 16-byte aligned and the row fits the block's registers
 # (SOFTMAX_VEC float4 a thread), each thread loads its slice as float4 into
 # registers, and the block reduces the max (warp shuffles, then one value per
@@ -125,11 +198,40 @@ SOFTMAX_DESIGN = ("one block per row; where c % 4 == 0 and the row fits, the "
 # host cost of one launch.
 RTC_SOURCE = r"""
 #define SOFTMAX_VEC 8
+#define AXPY_VEC 4
+#define BWD_VEC 2
 
+// o = 2x + y over n elements as float4, AXPY_VEC float4 of x and of y a
+// thread in flight before its stores, over a grid-stride loop; the last
+// n % 4 elements (all n when a base is unaligned) by a scalar loop
 extern "C" __global__ void axpy(const float *x, const float *y, float *o,
                                 int n) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) o[i] = 2.0f * x[i] + y[i];
+    const bool vec = (((size_t)x | (size_t)y | (size_t)o) & 15) == 0;
+    const long long n4 = vec ? n / 4 : 0;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long j0 = (long long)blockIdx.x * blockDim.x * AXPY_VEC +
+                        threadIdx.x; j0 < n4; j0 += stride * AXPY_VEC) {
+        float4 a[AXPY_VEC], b[AXPY_VEC];
+#pragma unroll
+        for (int u = 0; u < AXPY_VEC; ++u) {
+            const long long j = j0 + (long long)u * blockDim.x;
+            if (j < n4) {
+                a[u] = ((const float4 *)x)[j];
+                b[u] = ((const float4 *)y)[j];
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < AXPY_VEC; ++u) {
+            const long long j = j0 + (long long)u * blockDim.x;
+            if (j < n4)
+                ((float4 *)o)[j] = make_float4(
+                    2.0f * a[u].x + b[u].x, 2.0f * a[u].y + b[u].y,
+                    2.0f * a[u].z + b[u].z, 2.0f * a[u].w + b[u].w);
+        }
+    }
+    for (long long i = 4 * n4 + (long long)blockIdx.x * blockDim.x +
+                       threadIdx.x; i < n; i += stride)
+        o[i] = 2.0f * x[i] + y[i];
 }
 
 __device__ float warp_max(float v) {
@@ -218,13 +320,44 @@ extern "C" __global__ void softmax_fwd(const float *z, float *p, int c) {
         out[j] = expf(row[j] - m) / s;
 }
 
-// dz = p - onehot(label) over each row of c columns; one block per row
+// dz = p - onehot(label) over rows of c columns, ceil(rows / gridDim.x)
+// rows a block: each row copied as float4, BWD_VEC float4 a thread in
+// flight before its stores (a scalar loop where c % 4 != 0 or a base is
+// unaligned); then the thread that stored column label[row] stores
+// p - 1.0f there, after its own store of that element
 extern "C" __global__ void softmax_bwd(const float *p, const float *label,
-                                       float *dz, int c) {
-    const size_t base = (size_t)blockIdx.x * c;
-    const int l = (int)label[blockIdx.x];
-    for (int j = threadIdx.x; j < c; j += blockDim.x)
-        dz[base + j] = p[base + j] - (j == l ? 1.0f : 0.0f);
+                                       float *dz, int rows, int c) {
+    const bool vec = (c & 3) == 0 && (((size_t)p | (size_t)dz) & 15) == 0;
+    const int per = (rows + gridDim.x - 1) / gridDim.x;
+    const int r_end = min(rows, (int)(blockIdx.x + 1) * per);
+    for (int r = blockIdx.x * per; r < r_end; ++r) {
+        const size_t base = (size_t)r * c;
+        if (vec) {
+            const float4 *src = (const float4 *)(p + base);
+            float4 *dst = (float4 *)(dz + base);
+            const int n4 = c >> 2;
+            for (int j0 = threadIdx.x; j0 < n4; j0 += BWD_VEC * blockDim.x) {
+                float4 v[BWD_VEC];
+#pragma unroll
+                for (int u = 0; u < BWD_VEC; ++u)
+                    if (j0 + u * (int)blockDim.x < n4)
+                        v[u] = src[j0 + u * blockDim.x];
+#pragma unroll
+                for (int u = 0; u < BWD_VEC; ++u)
+                    if (j0 + u * (int)blockDim.x < n4)
+                        dst[j0 + u * blockDim.x] = v[u];
+            }
+        } else {
+            for (int j = threadIdx.x; j < c; j += blockDim.x)
+                dz[base + j] = p[base + j];
+        }
+        // the owner of column l: float4 l / 4 (element l) went to thread
+        // (l / 4) % blockDim.x (l % blockDim.x) of the loops above
+        const int l = (int)label[r];
+        if (l >= 0 && l < c &&
+                threadIdx.x == (vec ? (l >> 2) : l) % blockDim.x)
+            dz[base + l] = p[base + l] - 1.0f;
+    }
 }
 
 extern "C" __global__ void noop() {}
@@ -232,15 +365,27 @@ extern "C" __global__ void noop() {}
 RTC_SIGNATURES = {
     "axpy": "const float *x, const float *y, float *o, int n",
     "softmax_fwd": "const float *z, float *p, int c",
-    "softmax_bwd": "const float *p, const float *label, float *dz, int c",
+    "softmax_bwd": ("const float *p, const float *label, float *dz, "
+                    "int rows, int c"),
     "noop": "",
 }
 RTC_KERNELS = ("axpy", "softmax_fwd", "softmax_bwd")
 SOFTMAX_THREADS = 512
-# float4 a thread holds on softmax_fwd's one-read path (RTC_SOURCE's own)
-SOFTMAX_VEC = int(re.search(r"#define SOFTMAX_VEC (\d+)", RTC_SOURCE).group(1))
+
+
+def _define(name):
+    return int(re.search(r"#define %s (\d+)" % name, RTC_SOURCE).group(1))
+
+
+# float4 a thread holds on softmax_fwd's one-read path, and keeps in flight
+# in axpy and softmax_bwd (RTC_SOURCE's own)
+SOFTMAX_VEC, AXPY_VEC, BWD_VEC = (_define(n) for n in
+                                  ("SOFTMAX_VEC", "AXPY_VEC", "BWD_VEC"))
 SOFTMAX_MAX_THREADS = 1024
 AXPY_THREADS = 256
+BWD_THREADS = 1024
+# about this many elements of p a softmax_bwd block copies (rows x c)
+BWD_BLOCK_ELEMENTS = 1 << 14
 AXPY_N = 2 ** 26
 # the LM's vocabulary head at full width: 8 x 1024 tokens of d_model 4096
 # into vocab 16384 (bench_transformer.py's LM), f32
@@ -269,6 +414,27 @@ def softmax_geometry(c):
         per_warp = 4 * SOFTMAX_VEC * 32
         return 32 * -(-c // per_warp), 0, True
     return SOFTMAX_THREADS, 0, False
+
+
+def softmax_bwd_geometry(c):
+    """softmax_bwd's launch for rows of ``c`` columns: ``(block threads, rows
+    a block, whether rows are copied as float4)``; the grid is
+    ceil(rows / rows a block).  A block has the least multiple of 32 threads
+    that gives each thread at most BWD_VEC float4 (or elements) of a row,
+    at most BWD_THREADS, and as many rows as make about BWD_BLOCK_ELEMENTS
+    elements.  The float4 path needs c % 4 == 0 (and 16-byte aligned bases,
+    which the kernel checks)."""
+    vec = c % 4 == 0
+    units = c // 4 if vec else c
+    block = min(BWD_THREADS, 32 * -(-units // (32 * BWD_VEC)))
+    return max(block, 32), max(1, BWD_BLOCK_ELEMENTS // c), vec
+
+
+def axpy_geometry(n):
+    """axpy's launch for ``n`` elements: ``(grid blocks, block threads)``,
+    one block per AXPY_THREADS x AXPY_VEC float4 (its loop strides over the
+    grid, so any grid is right)."""
+    return max(1, -(-n // (4 * AXPY_VEC * AXPY_THREADS))), AXPY_THREADS
 
 
 def rtc_module(mx):
@@ -314,10 +480,14 @@ def register_rtc_softmax(mx, kernels=None):
             raise mx.MXNetError("rtc_softmax on %s needs the rtc kernels: "
                                 "register_rtc_softmax(mx, rtc_module(mx)[1])"
                                 % dst.context)
-        block, shared = (softmax_geometry(c)[:2] if name == "softmax_fwd"
-                         else (SOFTMAX_THREADS, 0))
-        kernels[name].launch(args + [dst, c], dst.context, (rows,), (block,),
-                             shared)
+        if name == "softmax_fwd":
+            block, shared, _ = softmax_geometry(c)
+            kernels[name].launch(args + [dst, c], dst.context, (rows,),
+                                 (block,), shared)
+        else:
+            block, per, _ = softmax_bwd_geometry(c)
+            kernels[name].launch(args + [dst, rows, c], dst.context,
+                                 (-(-rows // per),), (block,))
 
     class RtcSoftmax(mx.operator.CustomOp):
         def forward(self, is_train, req, in_data, out_data, aux):
@@ -426,6 +596,53 @@ def f32_tensor_work(b, h, sq, sk, d, causal):
             n_end = min(sk, q0 + min(128, sq - q0) + sk - sq)
         tiles += -(-n_end // 64)
     return b * h * tiles * 2 * 6 * 2.0 * 128 * 64 * bucket
+
+
+def time_flash(q, k, v, causal, card, torch):
+    """flash_attention on q, k, v (one dtype) by CUDA events, beside its
+    plain version and scaled_dot_product_attention with the bottom-right
+    bool mask (the yardstick; the port never calls it), and its bound: the
+    larger of the bytes at 3.35 TB/s and the operations, f32 on the CUDA
+    cores or the split's six bf16 products on the tensor cores, whichever is
+    less, for f32; 16-bit on the tensor cores otherwise."""
+    from incubator_mxnet_tpu_torch.ops.attention import (
+        flash_attention, _attention_reference)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = 1.0 / math.sqrt(d)
+    t = {"ms": cuda_ms(lambda: flash_attention(q, k, v, causal), 20, torch),
+         "plain_ms": cuda_ms(lambda: _attention_reference(q, k, v, causal), 5,
+                             torch),
+         "library_ms": cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                            scale=scale), 10, torch)}
+    flops, nbytes = attention_work(b, h, sq, sk, d, causal, q.element_size())
+    terms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3}
+    if q.dtype == torch.float32:
+        terms["cuda_core"] = flops / H100_F32_CUDA_CORE_FLOPS * 1e3
+        terms["split_tensor"] = 6 * flops / H100_BF16_FLOPS * 1e3
+        ops_ms = min(terms["cuda_core"], terms["split_tensor"])
+    else:
+        terms["tensor"] = flops / H100_BF16_FLOPS * 1e3
+        ops_ms = terms["tensor"]
+    t["bound_ms"] = max(terms["bytes"], ops_ms)
+    t["bound_by"] = "bytes" if terms["bytes"] >= ops_ms else "operations"
+    t["bound_terms_ms"] = terms
+    t["tflops"] = flops / t["ms"] / 1e9
+    t["shape"] = "(%d,%d,%d,%d,%d)%s %s" % (
+        b, h, sq, sk, d, " causal" if causal else "",
+        str(q.dtype).replace("torch.", ""))
+    print("timing: flash_attention_fwd at %s: kernel_ms %.4f, bound_ms %.4f "
+          "(%s; terms ms %s; %.3e flop, %.3e bytes), plain_ms %.4f, "
+          "library_ms %.4f (scaled_dot_product_attention with a bottom-right "
+          "bool mask%s); kernel at %.1f TFLOP/s of the needed work | %s"
+          % (t["shape"], t["ms"], t["bound_ms"], t["bound_by"],
+             json.dumps({k_: round(v_, 4) for k_, v_ in terms.items()}),
+             flops, nbytes, t["plain_ms"], t["library_ms"],
+             ", TF32 off" if q.dtype == torch.float32 else "", t["tflops"],
+             card), flush=True)
+    return t
 
 
 GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
@@ -634,8 +851,8 @@ def rtc_phase(mx, dev, card):
 
     def run_axpy(x, y):
         o = mx.nd.empty(x.shape, ctx=ctx)
-        axpy.launch([x, y, o, x.size], ctx, (-(-x.size // AXPY_THREADS),),
-                    (AXPY_THREADS,))
+        grid, block = axpy_geometry(x.size)
+        axpy.launch([x, y, o, x.size], ctx, (grid,), (block,))
         return o
 
     axpy.launches = 0
@@ -664,12 +881,16 @@ def rtc_phase(mx, dev, card):
                                       device=dev).to(torch.float32))
     idx = lab._data.long()[:, None]
     fwd, bwd = kernels["softmax_fwd"], kernels["softmax_bwd"]
-    grid, block = (rows,), (SOFTMAX_THREADS,)
+    grid = (rows,)
     fwd_block, fwd_shared, one_read = softmax_geometry(c)
     check(one_read, "softmax_fwd at c = %d does not take its one-read path"
           % c)
+    bwd_block, bwd_rows, bwd_vec = softmax_bwd_geometry(c)
+    check(bwd_vec, "softmax_bwd at c = %d does not take its float4 path" % c)
+    bwd_grid = (-(-rows // bwd_rows),)
+    axpy_grid, axpy_block = axpy_geometry(n)
     fwd.launch([Z, P, c], ctx, grid, (fwd_block,), fwd_shared)
-    bwd.launch([P, lab, DZ, c], ctx, grid, block)
+    bwd.launch([P, lab, DZ, rows, c], ctx, bwd_grid, (bwd_block,))
     errs = {"axpy": axpy_err,
             "softmax_fwd": (P._data - softmax_plain(Z._data)).abs().max()
             .item(),
@@ -694,24 +915,32 @@ def rtc_phase(mx, dev, card):
                         lambda: softmax_plain(Z._data),
                         lambda: torch.softmax(Z._data, dim=-1),
                         "torch.softmax"),
-        "softmax_bwd": (lambda: bwd.launch([P, lab, DZ, c], ctx, grid, block),
+        "softmax_bwd": (lambda: bwd.launch([P, lab, DZ, rows, c], ctx,
+                                           bwd_grid, (bwd_block,)),
                         lambda: softmax_bwd_plain(P._data, lab._data),
                         lambda: torch.scatter(P._data, 1, idx, -1.0,
                                               reduce="add"),
                         "torch.scatter(p, 1, label, -1.0, reduce='add')"),
-        "axpy": (lambda: axpy.launch([x, y, o, n], ctx,
-                                     (-(-n // AXPY_THREADS),),
-                                     (AXPY_THREADS,)),
+        "axpy": (lambda: axpy.launch([x, y, o, n], ctx, (axpy_grid,),
+                                     (axpy_block,)),
                  lambda: 2 * xs + ys,
                  lambda: torch.add(ys, xs, alpha=2),
                  "torch.add(y, x, alpha=2)"),
     }
+    geometry = {"softmax_fwd": {"grid": rows, "block": fwd_block},
+                "softmax_bwd": {"grid": bwd_grid[0], "block": bwd_block,
+                                "rows_a_block": bwd_rows},
+                "axpy": {"grid": axpy_grid, "block": axpy_block}}
     entries = []
     for name in RTC_KERNELS:
         kern, plain, library, library_name = timed[name]
-        kernel_ms = cuda_ms(kern, 20, torch)
+        # the kernel and its library call in turns (kernel, library,
+        # library, kernel), each the mean of its two turns
+        turns = [cuda_ms(f, 50, torch) for f in (kern, library, library,
+                                                  kern)]
+        kernel_ms, library_ms = (turns[0] + turns[3]) / 2, \
+            (turns[1] + turns[2]) / 2
         plain_ms = cuda_ms(plain, 20, torch)
-        library_ms = cuda_ms(library, 20, torch)
         flops, nbytes = work[name]
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = flops / H100_F32_CUDA_CORE_FLOPS * 1e3
@@ -720,10 +949,12 @@ def rtc_phase(mx, dev, card):
         shape = "(%d,)" % n if name == "axpy" else "(%d, %d)" % (rows, c)
         print("timing: rtc %s at %s f32: kernel_ms %.4f, bound_ms %.4f (%s: "
               "%.3e bytes at 3.35 TB/s, %.3e flop at 67 TFLOP/s f32), plain_ms "
-              "%.4f, library_ms %s; %.1f GB/s | %s" % (
+              "%.4f, library_ms %s; %.1f GB/s; turns kernel, library, "
+              "library, kernel %s | %s" % (
                   name, shape, kernel_ms, bound_ms, bound_by, nbytes, flops,
                   plain_ms, "%.4f (%s)" % (library_ms, library_name),
-                  nbytes / kernel_ms / 1e6, card), flush=True)
+                  nbytes / kernel_ms / 1e6,
+                  " ".join("%.4f" % t for t in turns), card), flush=True)
         entries.append({
             "name": name, "route": "cuda", "compiler": "nvrtc",
             "source": "chip_smoke.py",
@@ -731,9 +962,8 @@ def rtc_phase(mx, dev, card):
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms})
-        if name == "softmax_fwd":
-            entries[-1]["design"] = SOFTMAX_DESIGN
-            entries[-1]["block"] = fwd_block
+        entries[-1]["design"] = RTC_DESIGNS[name]
+        entries[-1]["geometry"] = geometry[name]
         check(launches[name] > 0, "%s was not launched on its path" % name)
 
     noop = kernels["noop"]
@@ -779,18 +1009,16 @@ def main():
     for name in cuda_build.KERNELS:
         for line in cuda_build.build_log(name).splitlines():
             if any(t in line for t in ("entry function", "registers",
-                                       "spill", "wgmma")):
+                                       "spill", "C7515")):
                 print("  ptxas %s: %s" % (name, line.strip()))
     flash_lib = cuda_build.lib_path("flash_attention")
-    hgmma = sass_count(flash_lib, "HGMMA")
-    hgmma_f32 = sass_count(flash_lib, "HGMMA", "flash_fwd_f32_sm90_kernel")
-    print("build: %d HGMMA instructions in the flash_attention library's "
-          "SASS, %d of them in the f32 route's kernel (cuobjdump -sass)"
-          % (hgmma, hgmma_f32), flush=True)
-    check(hgmma > hgmma_f32, "no HGMMA in the bf16 route's kernel: it does "
-          "not run on the tensor cores")
-    check(hgmma_f32 > 0, "no HGMMA in flash_fwd_f32_sm90_kernel: the f32 "
-          "route does not run on the tensor cores")
+    hgmma = {route: sass_count(flash_lib, "HGMMA", function)
+             for route, function in HGMMA_FUNCTIONS.items()}
+    print("build: HGMMA instructions in the flash_attention library's SASS "
+          "by route (cuobjdump -sass): %s" % hgmma, flush=True)
+    for route, count in hgmma.items():
+        check(count > 0, "no HGMMA in the %s route's kernel: it does not run "
+              "on the tensor cores" % route)
 
     # phase 3: each kernel against its plain version on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -801,8 +1029,8 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     errs, violations = {}, {}
-    for (b, h, sq, sk, d), causal in ATTENTION_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for (b, h, sq, sk, d), causal in ATTENTION_CASES + WIDE_CASES:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             q = torch.randn(b, h, sq, d, generator=gen, device=dev).to(dtype)
             k = torch.randn(b, h, sk, d, generator=gen, device=dev).to(dtype)
             v = torch.randn(b, h, sk, d, generator=gen, device=dev).to(dtype)
@@ -818,20 +1046,43 @@ def main():
             key = case_key((b, h, sq, sk, d), causal, dname)
             errs[key] = err
             extra = ""
-            if dtype == torch.bfloat16:
+            if dtype != torch.float32:
+                rel = HALF_REL[dname]
                 bad = int(((out.float() - ref).abs() >
-                           BF16_REL * ref.abs() + BF16_ABS).sum().item())
+                           rel * ref.abs() + BF16_ABS).sum().item())
                 violations[key] = bad
-                extra = ", %d of %d elements outside 2^-8·|ref| + 5e-5" % (
-                    bad, ref.numel())
-            print("kernel flash_attention_fwd %-32s max_abs_err %.3e "
+                extra = ", %d of %d elements outside 2^%d·|ref| + 5e-5" % (
+                    bad, ref.numel(), round(math.log2(rel)))
+            print("kernel flash_attention_fwd %-34s max_abs_err %.3e "
                   "(bound %.0e)%s" % (key, err, tol, extra), flush=True)
             check(err <= tol, "flash_attention_fwd %s: max_abs_err %.3e > %.0e"
                   % (key, err, tol))
             check(not violations.get(key), "flash_attention_fwd %s: %d "
-                  "elements break the per-element bf16 bound"
+                  "elements break the per-element bound"
                   % (key, violations.get(key, 0)))
             del q, k, v, out, ref
+    # mixes of dtypes: the f32 route reads each input at its own dtype
+    for dtypes, (b, h, sq, sk, d) in MIXED_CASES:
+        q, k, v = (torch.randn(b, h, s_, d, generator=gen, device=dev).to(
+            getattr(torch, t)) for t, s_ in zip(dtypes, (sq, sk, sk)))
+        before = flash_attention.mixed_launches, split_f32.launches
+        out = flash_attention(q, k, v, True)
+        torch.cuda.synchronize()
+        ref = _attention_reference(q, k, v, True)
+        check(out.dtype == q.dtype and ref.dtype == q.dtype,
+              "mixed %s: output %s" % (dtypes, out.dtype))
+        check((flash_attention.mixed_launches, split_f32.launches) ==
+              (before[0] + 1, before[1] + 3), "mixed %s did not take the f32 "
+              "route's kernels" % (dtypes,))
+        err = (out.float() - ref.float()).abs().max().item()
+        key = case_key((b, h, sq, sk, d), True, "+".join(dtypes))
+        errs[key] = err
+        print("kernel flash_attention_fwd mixed %-42s max_abs_err %.3e (bound "
+              "%.0e, q's dtype out)" % (key, err, TOLERANCE[dtypes[0]]),
+              flush=True)
+        check(err <= TOLERANCE[dtypes[0]], "mixed %s: max_abs_err %.3e"
+              % (dtypes, err))
+        del q, k, v, out, ref
     # the f32 route's split pass, bit for bit, on split-heads views at the
     # small LM's shape and the serving shape
     split_errs = {}
@@ -849,41 +1100,60 @@ def main():
               "version" % key)
         del x, got, want
 
-    # phase 4a: a small LM on the card against the same weights on the CPU,
-    # the f32 route's path: its launch counts zeroed just before, read after
-    small = dict(vocab=97, d_model=64, n_heads=4, d_ffn=256, n_layers=2,
-                 seq_len=32)
+    # phase 4a: small LMs on the card against the same weights on the CPU,
+    # each route's path: its launch count zeroed just before, read after
+    small_launches = {}
     rs = np.random.RandomState(SEED)
-    tokens = rs.randint(0, small["vocab"], (2, small["seq_len"]))
-    with mx.cpu():
-        cpu_net = TransformerLM(**small)
-        cpu_net.initialize(HostXavier(SEED))
-        cpu_logits = cpu_net(mx.nd.array(tokens)).asnumpy()
-    gpu_net = TransformerLM(**small)
-    load_numpy_params(gpu_net, {n: p.data().asnumpy() for n, p in
-                                cpu_net.collect_params().items()}, mx.gpu(0))
-    small_tokens = mx.nd.array(tokens, ctx=mx.gpu(0))
-    torch.cuda.synchronize()
-    flash_attention.f32_launches = split_f32.launches = 0
-    with mx.autograd.predict_mode():
-        gpu_logits = gpu_net(small_tokens).asnumpy()
-    f32_launches = {"flash_attention_fwd_f32": flash_attention.f32_launches,
-                    "split_f32": split_f32.launches}
-    del small_tokens
-    small_err = float(np.abs(gpu_logits - cpu_logits).max())
-    print("serve: small LM %s, card vs CPU logits max_abs_err %.3e (bound "
-          "1e-4); f32 route launches %s" % (small, small_err, f32_launches),
-          flush=True)
-    check(f32_launches["flash_attention_fwd_f32"] > 0,
-          "the small LM did not launch the f32 route")
-    check(f32_launches["split_f32"] == 3 * f32_launches[
-        "flash_attention_fwd_f32"], "split_f32 launched %d times for %d f32 "
-          "attentions" % (f32_launches["split_f32"],
-                          f32_launches["flash_attention_fwd_f32"]))
-    check(small_err <= 1e-4, "small LM: card and CPU disagree")
-    check(np.array_equal(gpu_logits[:, -1].argmax(-1),
-                         cpu_logits[:, -1].argmax(-1)),
-          "small LM: greedy tokens differ between card and CPU")
+    for name, dtype, small, counter, ulps in SMALL_LMS:
+        tokens = rs.randint(0, small["vocab"], (2, small["seq_len"]))
+        with mx.cpu():
+            cpu_net = TransformerLM(**small)
+            cpu_net.initialize(HostXavier(SEED))
+            cpu_net(mx.nd.array(tokens))
+            weights = {n: p.data().asnumpy() for n, p in
+                       cpu_net.collect_params().items()}
+            cpu_net.cast(dtype)
+            cpu_logits = np.asarray(cpu_net(mx.nd.array(
+                tokens, dtype="int32")).asnumpy(), np.float32)
+        gpu_net = TransformerLM(**small)
+        load_numpy_params(gpu_net, weights, mx.gpu(0))
+        gpu_net.cast(dtype)
+        small_tokens = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+        torch.cuda.synchronize()
+        flash_attention.launches = flash_attention.f32_launches = 0
+        flash_attention.f16_launches = split_f32.launches = 0
+        with mx.autograd.predict_mode():
+            gpu_logits = np.asarray(gpu_net(small_tokens).asnumpy(),
+                                    np.float32)
+        launches = {c: getattr(flash_attention, c) for c in
+                    ("launches", "f32_launches", "f16_launches")}
+        launches["split_f32"] = split_f32.launches
+        small_launches[name] = launches[counter]
+        del small_tokens
+        err = float(np.abs(gpu_logits - cpu_logits).max())
+        top = float(np.abs(cpu_logits).max())
+        bound = 1e-4 if ulps is None else \
+            ulps * 2.0 ** (math.floor(math.log2(top)) - MANTISSA[dtype])
+        print("serve: small LM %s %s %s, card vs CPU logits max_abs_err %.3e "
+              "(bound %.3e%s); launches %s"
+              % (name, dtype, small, err, bound, "" if ulps is None else
+                 ": %d ulps at max |logits| %.4f" % (ulps, top), launches),
+              flush=True)
+        check(launches[counter] == small["n_layers"], "small LM %s launched "
+              "%d %s for %d layers" % (name, launches[counter], counter,
+                                       small["n_layers"]))
+        check(launches["launches"] == small["n_layers"], "small LM %s: %d "
+              "flash launches" % (name, launches["launches"]))
+        if dtype == "float32":
+            check(launches["split_f32"] == 3 * launches["f32_launches"],
+                  "split_f32 launched %d times for %d f32 attentions"
+                  % (launches["split_f32"], launches["f32_launches"]))
+        check(err <= bound, "small LM %s: card and CPU disagree" % name)
+        check(np.array_equal(gpu_logits[:, -1].argmax(-1),
+                             cpu_logits[:, -1].argmax(-1)),
+              "small LM %s: greedy tokens differ between card and CPU" % name)
+        del cpu_net, gpu_net
+        gc.collect()   # Blocks hold reference cycles: free the card's copy
 
     # phase 4b: the full-width LM serving 4 requests
     cfg = dict(vocab=16384, d_model=4096, n_heads=32, d_ffn=16384, n_layers=4,
@@ -952,40 +1222,22 @@ def main():
     profile_device(request, "one request",
                    {"flash_attention_fwd": "flash_fwd"}, gemm_flops,
                    card)
+    del net, requests
 
     # phase rtc: runtime-compiled user kernels, and the head trained by them
     rtc_entries = rtc_phase(mx, dev, card)
 
-    # phase 5: kernel timing at the serving shape
+    # phase 5: kernel timing at the serving shape, then at D = 256
     (b, h, sq, sk, d), causal = ATTENTION_CASES[-1]
-    q = torch.randn(b, h, sq, d, generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn(b, h, sk, d, generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn(b, h, sk, d, generator=gen, device=dev).to(torch.bfloat16)
-    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal), 20, torch)
-    plain_ms = cuda_ms(lambda: _attention_reference(q, k, v, causal), 5, torch)
-    mask = torch.ones(sq, sk, dtype=torch.bool, device=dev).tril(sk - sq)
-    scale = 1.0 / math.sqrt(d)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=scale),
-                         10, torch)
-    flops, nbytes = attention_work(b, h, sq, sk, d, causal, 2)
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    tflops = flops / kernel_ms / 1e9
-    print("timing: flash_attention_fwd at (%d,%d,%d,%d) causal bf16: "
-          "kernel_ms %.4f, bound_ms %.4f (%s: %.3e bytes at 3.35 TB/s, "
-          "%.3e flop at 989 TFLOP/s bf16), plain_ms %.4f, library_ms %.4f "
-          "(scaled_dot_product_attention with a bottom-right bool mask); "
-          "the split's tensor work %.3e flop, floor %.4f ms; kernel at %.1f "
-          "TFLOP/s of the needed work | %s"
-          % (b, h, sq, d, kernel_ms, bound_ms, bound_by, nbytes, flops,
-             plain_ms, library_ms, 1.5 * flops,
-             1.5 * flops / H100_BF16_FLOPS * 1e3, tflops, card), flush=True)
+    qkv = [torch.randn(b, h, s_, d, generator=gen, device=dev).to(
+        torch.bfloat16) for s_ in (sq, sk, sk)]
+    bf16 = time_flash(*qkv, causal, card, torch)
+    f16 = time_flash(*(t.half() for t in qkv), causal, card, torch)
     # the f32 route on the same values in f32: the split pass, then six bf16
     # products for each f32 product on the tensor cores
-    q, k, v = q.float(), k.float(), v.float()
+    q, k, v = (t.float() for t in qkv)
+    del qkv
+    scale = 1.0 / math.sqrt(d)
     lib = cuda_build.load("flash_attention")
     planes = (split_f32(q, scale), split_f32(k), split_f32(v))
 
@@ -996,41 +1248,19 @@ def main():
         return (_split_f32_reference(q, scale), _split_f32_reference(k),
                 _split_f32_reference(v))
 
-    f32 = {"ms": cuda_ms(lambda: flash_attention(q, k, v, causal), 10, torch),
-           "split_ms": cuda_ms(split3, 10, torch),
-           "attention_ms": cuda_ms(lambda: _attention_f32_planes(
-               *planes, q.shape, causal, lib), 10, torch),
-           "plain_ms": cuda_ms(lambda: _attention_reference(q, k, v, causal),
-                               5, torch),
-           "library_ms": cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask,
-                                              scale=scale), 5, torch)}
+    f32 = time_flash(q, k, v, causal, card, torch)
+    f32["split_ms"] = cuda_ms(split3, 10, torch)
+    f32["attention_ms"] = cuda_ms(lambda: _attention_f32_planes(
+        *planes, q.shape, causal, lib), 10, torch)
     split_plain_ms = cuda_ms(split3_plain, 5, torch)
     del q, k, v, planes
-    f32_bytes = attention_work(b, h, sq, sk, d, causal, 4)[1]
-    # the least time of f32-exact work: the f32 operations on the CUDA cores,
-    # or the split's six bf16 products on the tensor cores, whichever is less
-    split_flops = 6 * flops
-    f32_t = {"bytes": f32_bytes / H100_BYTES_PER_S * 1e3,
-             "cuda_core": flops / H100_F32_CUDA_CORE_FLOPS * 1e3,
-             "split_tensor": split_flops / H100_BF16_FLOPS * 1e3}
-    ops_ms = min(f32_t["cuda_core"], f32_t["split_tensor"])
-    f32["bound_ms"] = max(f32_t["bytes"], ops_ms)
-    f32["bound_by"] = "bytes" if f32_t["bytes"] >= ops_ms else "operations"
     done = f32_tensor_work(b, h, sq, sk, d, causal)
-    print("timing: flash_attention_fwd f32 route at (%d,%d,%d,%d) causal f32 "
-          "(%s; %s): kernel_ms %.4f (split pass %.4f, attention kernel %.4f), "
-          "bound_ms %.4f (%s: the split's tensor work %.3e flop at 989 "
-          "TFLOP/s bf16, floor %.4f ms; f32 operations %.3e flop at 67 TFLOP/s, %.4f "
-          "ms; %.3e bytes at 3.35 TB/s, %.4f ms), plain_ms %.4f, library_ms "
-          "%.4f (scaled_dot_product_attention, f32, TF32 off); the kernel "
-          "does %.3e flop of tensor work (64-key tiles across the diagonal), "
-          "%.1f TFLOP/s; %d HGMMA in its SASS | %s"
-          % (b, h, sq, d, F32_DESIGN, F32_SOURCE, f32["ms"], f32["split_ms"],
-             f32["attention_ms"], f32["bound_ms"], f32["bound_by"],
-             split_flops, f32_t["split_tensor"], flops, f32_t["cuda_core"],
-             f32_bytes, f32_t["bytes"], f32["plain_ms"], f32["library_ms"],
-             done, done / f32["attention_ms"] / 1e9, hgmma_f32, card),
-          flush=True)
+    print("timing: flash_attention_fwd f32 route at (%d,%d,%d,%d): split pass "
+          "%.4f ms, attention kernel %.4f ms; the kernel does %.3e flop of "
+          "tensor work (64-key tiles across the diagonal), %.1f TFLOP/s; %d "
+          "HGMMA in its SASS | %s"
+          % (b, h, sq, d, f32["split_ms"], f32["attention_ms"], done,
+             done / f32["attention_ms"] / 1e9, hgmma["f32"], card), flush=True)
     dp = -(-d // 8) * 8
     split_bytes = 4 * b * h * (sq + 2 * sk) * d + 3 * 2 * b * h * (
         sq + 2 * sk) * dp
@@ -1041,55 +1271,52 @@ def main():
           % (b, h, sq, d, f32["split_ms"], split_bound, split_bytes,
              split_plain_ms, split_bytes / f32["split_ms"] / 1e6, card),
           flush=True)
-    serving_f32 = case_key(*ATTENTION_CASES[-1], "float32")
+    # head dim 256: two output slices a block column on both routes
+    (b2, h2, sq2, sk2, d2), causal2 = WIDE_TIMING
+    q, k, v = (torch.randn(b2, h2, s_, d2, generator=gen, device=dev).to(
+        torch.bfloat16) for s_ in (sq2, sk2, sk2))
+    wide_bf16 = time_flash(q, k, v, causal2, card, torch)
+    q, k, v = (t.float() for t in (q, k, v))
+    wide_f32 = time_flash(q, k, v, causal2, card, torch)
+    del q, k, v
+    serving = case_key(*ATTENTION_CASES[-1], "bfloat16")
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "incubator_mxnet_tpu_torch/csrc/flash_attention_sm90.cu",
-        "replaces": "incubator_mxnet_tpu/ops/attention.py:56",
-        "design": FLASH_DESIGN,
-        "launches": launches["flash_attention_fwd"],
-        "max_abs_err": errs[case_key(*ATTENTION_CASES[-1], "bfloat16")],
-        "max_abs_err_cases": errs,
-        "bf16_violations_cases": violations,
-        "tflops": tflops,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-    }, {
-        "name": "flash_attention_fwd_f32",
-        "route": "cuda",
-        "source": F32_SOURCE,
-        "replaces": "incubator_mxnet_tpu/ops/attention.py:56",
-        "design": F32_DESIGN,
-        "launches": f32_launches["flash_attention_fwd_f32"],
-        "max_abs_err": errs[serving_f32],
-        "ms": f32["ms"],
-        "split_ms": f32["split_ms"],
-        "attention_ms": f32["attention_ms"],
-        "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"],
-        "bound_terms_ms": f32_t,
-        "hgmma": hgmma_f32,
-        "library_ms": f32["library_ms"],
-    }, {
-        "name": "split_f32",
-        "route": "cuda",
-        "source": F32_SOURCE,
-        "replaces": "incubator_mxnet_tpu/ops/attention.py:56",
-        "timed": "the f32 route's three calls (q, k, v)",
-        "launches": f32_launches["split_f32"],
-        "max_abs_err": split_errs[serving_f32],
-        "ms": f32["split_ms"],
-        "plain_ms": split_plain_ms,
-        "bound_ms": split_bound,
-        "bound_by": "bytes",
-        "library_ms": None,
-    }] + rtc_entries}))
+    def entry(name, source, design, launches_, err, t, **extra):
+        return dict(name=name, route="cuda", source=source,
+                    replaces="incubator_mxnet_tpu/ops/attention.py:56",
+                    design=design, launches=launches_, max_abs_err=err,
+                    ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=t["library_ms"],
+                    shape=t["shape"], **extra)
+
+    wide_key = case_key(*WIDE_CASES[-1], "%s")
+    print(json.dumps({"kernels": [
+        entry("flash_attention_fwd", BF16_SOURCE, FLASH_DESIGN,
+              launches["flash_attention_fwd"], errs[serving], bf16,
+              max_abs_err_cases=errs, half_violations_cases=violations,
+              tflops=bf16["tflops"]),
+        entry("flash_attention_fwd_f16", BF16_SOURCE, F16_DESIGN,
+              small_launches["f16_d128"],
+              errs[case_key(*ATTENTION_CASES[-1], "float16")], f16,
+              tflops=f16["tflops"]),
+        entry("flash_attention_fwd_f32", F32_SOURCE, F32_DESIGN,
+              small_launches["f32_d16"],
+              errs[case_key(*ATTENTION_CASES[-1], "float32")], f32,
+              split_ms=f32["split_ms"], attention_ms=f32["attention_ms"],
+              bound_terms_ms=f32["bound_terms_ms"], hgmma=hgmma["f32"]),
+        entry("split_f32", F32_SOURCE, "the f32 route's split pass (q, k, "
+              "v: three calls)", 3 * small_launches["f32_d16"],
+              split_errs[case_key(*ATTENTION_CASES[-1], "float32")],
+              dict(ms=f32["split_ms"], plain_ms=split_plain_ms,
+                   bound_ms=split_bound, bound_by="bytes", library_ms=None,
+                   shape=f32["shape"])),
+        entry("flash_attention_fwd_d256", BF16_SOURCE, WIDE_DESIGN,
+              small_launches["bf16_d256"], errs[wide_key % "bfloat16"],
+              wide_bf16, tflops=wide_bf16["tflops"]),
+        entry("flash_attention_fwd_f32_d256", F32_SOURCE, F32_WIDE_DESIGN,
+              small_launches["f32_d256"], errs[wide_key % "float32"],
+              wide_f32, bound_terms_ms=wide_f32["bound_terms_ms"]),
+    ] + rtc_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

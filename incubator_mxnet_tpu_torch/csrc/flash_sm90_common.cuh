@@ -1,17 +1,20 @@
 // Building blocks shared by the two Hopper (sm_90a) flash-attention kernels:
-// the bf16 route (flash_attention_sm90.cu) and the f32 route
-// (flash_attention_f32_sm90.cu). mbarriers with a trap on a stuck wait, TMA
-// tile loads, wgmma m64n64k16 on 128-byte-swizzled shared memory, the empty
-// register fences around asynchronous wgmma, the online softmax of one S
-// tile in log2 units, and the driver's tensor-map encoder. Layout and
-// exactness notes are in the two kernels' sources.
+// the 16-bit routes, bf16 and f16 (flash_attention_sm90.cu), and the f32
+// route (flash_attention_f32_sm90.cu). mbarriers with a trap on a stuck
+// wait, TMA tile loads, wgmma m64n64k16 (bf16 or f16 operands, f32
+// accumulator) on 128-byte-swizzled shared memory, the empty register fences
+// around asynchronous wgmma, the online softmax of one S tile in log2 units,
+// and the driver's tensor-map encoder. Layout and exactness notes are in the
+// two kernels' sources.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -135,56 +138,81 @@ __device__ __forceinline__ void fence_regs(float (&r)[NP][32]) {
   for (int p = 0; p < NP; ++p) fence_regs(r[p]);
 }
 
-// d (64 x 64, f32) = A·B (+ d when accumulate), A 64 x 16 bf16 K-major and
-// B 16 x 64 bf16 K-major, both from shared memory
+// the 32 f32 registers of a thread's share of a 64 x 64 accumulator, as
+// read-write asm operands
+#define WGMMA_ACC32(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define WGMMA_D32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+// wgmma m64n64k16 with both operands in shared memory (K-major), and with A
+// from registers and B MN-major (transpose bit), for element type TY
+#define WGMMA_SS(TY)                                                          \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WGMMA_D32       \
+  ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+#define WGMMA_RS(TY)                                                          \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                               \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " WGMMA_D32       \
+  ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+
+// d (64 x 64, f32) = A·B (+ d when accumulate), A 64 x 16 and B 16 x 64 of
+// element type T (bf16 or f16), both K-major in shared memory
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(WGMMA_SS("f16")
+                 : WGMMA_ACC32(d)
+                 : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  else
+    asm volatile(WGMMA_SS("bf16")
+                 : WGMMA_ACC32(d)
+                 : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d (64 x 64, f32) += A·B, A 64 x 16 bf16 from registers (four bf16x2 per
-// thread) and B 16 x 64 bf16 MN-major from shared memory (transpose bit)
+// d (64 x 64, f32) += A·B, A 64 x 16 of T from registers (four T x2 per
+// thread) and B 16 x 64 of T MN-major from shared memory (transpose bit)
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
                                          uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(WGMMA_RS("f16")
+                 : WGMMA_ACC32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"(1));
+  else
+    asm volatile(WGMMA_RS("bf16")
+                 : WGMMA_ACC32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"(1));
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
+// (a, b) rounded to T and packed as one T x2 register; *back gets the two
+// rounded values in f32
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16, float a, float b,
+                                          float2* back) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  if (back != nullptr) *back = __bfloat1622float2(h);
+  return bf16x2_bits(h);
+}
+__device__ __forceinline__ uint32_t pack2(__half, float a, float b,
+                                          float2* back) {
+  __half2 h = __floats2half2_rn(a, b);
+  if (back != nullptr) *back = __half22float2(h);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
 
 // the running max (log2 units) and this thread's share of the running sum of
 // its two rows

@@ -43,9 +43,11 @@ KERNELS = {
         # q, k, v, o, batch_heads, sq, sk, d, scale, causal, stream
         "flash_attention_bf16": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                                       _P]),
-        # x, its 4 strides, planes, b, h, s, d, mul, stream
+        "flash_attention_f16": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                     _P]),
+        # x, its 4 strides, planes, b, h, s, d, mul, x's dtype code, stream
         "flash_attention_f32_split": (_I, [_P, _L, _L, _L, _L, _P, _I, _I,
-                                           _I, _I, _F, _P]),
+                                           _I, _I, _F, _I, _P]),
         # q, k, v planes, o, batch_heads, sq, sk, d, causal, stream
         "flash_attention_f32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _P]),
@@ -53,7 +55,8 @@ KERNELS = {
     },
 }
 # kernel name -> its sources under csrc/: flash attention's C entry points,
-# its bf16 route and its f32 route (both wgmma and TMA), one library
+# its 16-bit routes (bf16, f16) and its f32 route (all wgmma and TMA), one
+# library
 SOURCES = {
     "flash_attention": ("flash_attention.cu", "flash_attention_sm90.cu",
                         "flash_attention_f32_sm90.cu"),

@@ -6,14 +6,16 @@ elsewhere; the port runs a hand-written kernel on a CUDA tensor and the
 plain PyTorch :func:`_attention_reference` on a CPU tensor.  Which path
 runs follows only from the device of the tensors: for a CUDA tensor the
 wrapper launches the kernel or raises, and never falls back.  The route
-follows the dtype, and both run on the tensor cores (wgmma and TMA):
-bfloat16 runs ``csrc/flash_attention_sm90.cu`` (P split into two bf16
-halves so the products stay f32-exact); float32 runs the split pass
-:func:`split_f32` (each operand into three bf16 planes, plain version
-:func:`_split_f32_reference`) and then ``csrc/flash_attention_f32_sm90.cu``
-(six bf16 products for each f32 product, as XLA computes
-``Precision.HIGHEST`` on the TPU).  ``csrc/flash_attention.cu`` holds the
-library's C entry points.
+follows the dtypes, and every route runs on the tensor cores (wgmma and
+TMA), at head dims 1..256: bfloat16 and float16 run
+``csrc/flash_attention_sm90.cu`` (P split into two halves of the input's
+type so the products stay f32-exact); float32, and any mix of float32,
+bfloat16 and float16 (which the reference promotes to f32, returning q's
+dtype), run the split pass :func:`split_f32` (each operand, read at its own
+dtype, into three bf16 planes, plain version :func:`_split_f32_reference`)
+and then ``csrc/flash_attention_f32_sm90.cu`` (six bf16 products for each
+f32 product, as XLA computes ``Precision.HIGHEST`` on the TPU).
+``csrc/flash_attention.cu`` holds the library's C entry points.
 
 Registered as op ``_contrib_FlashAttention`` (and its aliases), so the
 eager NDArray surface and Gluon's ``MultiHeadAttention`` reach it.
@@ -29,9 +31,10 @@ from .. import cuda_build
 from .registry import register
 
 _NEG_INF = -1e30
-_MAX_HEAD_DIM = 128
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# both routes load rows by TMA, whose row stride is a multiple of 16 bytes:
+_MAX_HEAD_DIM = 256
+# the dtypes a kernel reads, by their code in the C entry points
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# every route loads rows by TMA, whose row stride is a multiple of 16 bytes:
 # head dims are padded to a multiple of 8 bf16 columns
 _COLUMNS = 8
 _PIECES = 3   # bf16 planes of an f32 operand on the f32 route
@@ -78,11 +81,13 @@ def _check_inputs(q, k, v):
 
 def _kernel_dtype_code(q, k, v):
     """Check what the CUDA kernel takes beyond :func:`_check_inputs` and
-    return its dtype code."""
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KERNEL_DTYPES:
-        raise TypeError("the flash_attention kernel takes q, k, v all float32 "
-                        "or all bfloat16, got %s, %s, %s"
-                        % (q.dtype, k.dtype, v.dtype))
+    return its route's dtype code: 1 (all bfloat16) or 2 (all float16) for
+    the 16-bit kernel, 0 for the f32 route (all float32, or a mix)."""
+    for t in (q, k, v):
+        if t.dtype not in _KERNEL_DTYPES:
+            raise TypeError("the flash_attention kernel takes float32, "
+                            "bfloat16 and float16 tensors, got %s, %s, %s"
+                            % (q.dtype, k.dtype, v.dtype))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if not 1 <= d <= _MAX_HEAD_DIM:
@@ -92,10 +97,12 @@ def _kernel_dtype_code(q, k, v):
         raise ValueError("the flash_attention kernel needs B*H, Sq, Sk >= 1, "
                          "got shapes %s, %s" % (tuple(q.shape),
                                                 tuple(k.shape)))
-    if b * h >= 2 ** 31 or -(-sq // 128) > 65535:
+    if b * h >= 2 ** 31 or -(-sq // 64) > 65535:
         raise ValueError("flash_attention: B*H=%d or Sq=%d exceeds the "
                          "kernel's grid" % (b * h, sq))
-    return _KERNEL_DTYPES[q.dtype]
+    if q.dtype == k.dtype == v.dtype:
+        return _KERNEL_DTYPES[q.dtype]
+    return 0
 
 
 def _split_f32_reference(x, mul=1.0):
@@ -122,21 +129,24 @@ def _raise_on(err, lib, entry):
 
 
 def split_f32(x, mul=1.0):
-    """The f32 route's split pass: (B, H, S, D) float32 times ``mul`` into
-    three bf16 planes (3, B*H, S, Dp), as :func:`_split_f32_reference`.
+    """The f32 route's split pass: (B, H, S, D) float32, bfloat16 or float16
+    times ``mul`` (in f32) into three bf16 planes (3, B*H, S, Dp), as
+    :func:`_split_f32_reference`.
 
     A CUDA tensor goes through the kernel (``split3_kernel`` of
-    ``csrc/flash_attention_f32_sm90.cu``, which reads ``x``'s strides, so a
-    split-heads view needs no copy) and bumps ``split_f32.launches``; a CPU
-    tensor through the plain version."""
+    ``csrc/flash_attention_f32_sm90.cu``, which reads ``x``'s strides and
+    dtype, so neither a split-heads view nor a 16-bit input of a mix needs a
+    copy) and bumps ``split_f32.launches``; a CPU tensor through the plain
+    version."""
     if x.device.type == "cpu":
         return _split_f32_reference(x, mul)
     if x.device.type != "cuda":
         raise MXNetError("split_f32 runs on CUDA or CPU tensors, got device "
                          "%s" % x.device)
-    if x.dtype != torch.float32 or x.ndim != 4:
-        raise TypeError("split_f32 takes a (B, H, S, D) float32 tensor, got "
-                        "%s %s" % (x.dtype, tuple(x.shape)))
+    if x.dtype not in _KERNEL_DTYPES or x.ndim != 4:
+        raise TypeError("split_f32 takes a (B, H, S, D) float32, bfloat16 or "
+                        "float16 tensor, got %s %s" % (x.dtype,
+                                                       tuple(x.shape)))
     b, h, s, d = x.shape
     if not 1 <= d <= _MAX_HEAD_DIM or x.numel() == 0:
         raise ValueError("split_f32 takes head dims 1..%d and a non-empty "
@@ -149,7 +159,8 @@ def split_f32(x, mul=1.0):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.flash_attention_f32_split(x.data_ptr(), *x.stride(),
                                             planes.data_ptr(), b, h, s, d,
-                                            float(mul), stream)
+                                            float(mul), _KERNEL_DTYPES[x.dtype],
+                                            stream)
     _raise_on(err, lib, "flash_attention_f32_split")
     split_f32.launches += 1
     return planes
@@ -175,15 +186,20 @@ def _attention_f32_planes(qp, kp, vp, shape, causal, lib):
 
 def _flash_forward_f32(q, k, v, causal, scale, lib):
     """The f32 route: split q (times ``scale``, as the TPU kernel scales q),
-    k and v into bf16 planes, then the six-product attention kernel."""
+    k and v, each at its own dtype, into bf16 planes, then the six-product
+    attention kernel; the f32 result in q's dtype, as the reference returns
+    a mix."""
     o = _attention_f32_planes(split_f32(q, scale), split_f32(k), split_f32(v),
                               q.shape, causal, lib)
     flash_attention.f32_launches += 1
-    return o
+    if not q.dtype == k.dtype == v.dtype:
+        flash_attention.mixed_launches += 1
+    return o.to(q.dtype)
 
 
-def _flash_forward_bf16(q, k, v, causal, scale, lib):
-    """The bf16 route, on contiguous, 16-byte aligned copies of q, k, v."""
+def _flash_forward_16bit(q, k, v, causal, scale, lib):
+    """The bf16 or f16 route, on contiguous, 16-byte aligned copies of
+    q, k, v."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     # the split-heads transpose leaves q, k, v strided: one copy each, as
@@ -197,22 +213,25 @@ def _flash_forward_bf16(q, k, v, causal, scale, lib):
     # TMA reads from 16-byte aligned bases; a view may start anywhere
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     o = torch.empty_like(q)
+    entry = "flash_attention_f16" if q.dtype == torch.float16 else \
+        "flash_attention_bf16"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bf16(q.data_ptr(), k.data_ptr(),
-                                       v.data_ptr(), o.data_ptr(), b * h, sq,
-                                       sk, dk, float(scale), int(bool(causal)),
-                                       stream)
-    _raise_on(err, lib, "flash_attention_bf16")
+        err = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  o.data_ptr(), b * h, sq, sk, dk,
+                                  float(scale), int(bool(causal)), stream)
+    _raise_on(err, lib, entry)
+    if q.dtype == torch.float16:
+        flash_attention.f16_launches += 1
     return o if dk == d else o[..., :d].contiguous()
 
 
 def _flash_forward_cuda(q, k, v, causal, scale):
-    """Launch the kernel's route for q's dtype on the current stream of q's
-    device."""
+    """Launch the kernel's route for the dtypes of q, k, v on the current
+    stream of q's device."""
     code = _kernel_dtype_code(q, k, v)
     lib = cuda_build.load("flash_attention")
-    route = _flash_forward_f32 if code == 0 else _flash_forward_bf16
+    route = _flash_forward_f32 if code == 0 else _flash_forward_16bit
     o = route(q, k, v, causal, scale, lib)
     flash_attention.launches += 1
     return o
@@ -237,8 +256,10 @@ def flash_attention(q, k, v, causal=False, scale=None):
     """softmax(QKᵀ·scale)·V over (B, H, S, D) tensors.
 
     A CUDA tensor goes through the hand-written kernel (and bumps
-    ``flash_attention.launches``, and on the f32 route also
-    ``flash_attention.f32_launches``); a CPU tensor through the plain
+    ``flash_attention.launches``; on the f32 route also
+    ``flash_attention.f32_launches``, and for a mix of dtypes
+    ``flash_attention.mixed_launches``; on the f16 route
+    ``flash_attention.f16_launches``); a CPU tensor through the plain
     version.
     ``scale`` defaults to 1/sqrt(D); with ``causal`` the diagonal is
     anchored at the end of the key axis.  The output has q's dtype."""
@@ -255,6 +276,8 @@ def flash_attention(q, k, v, causal=False, scale=None):
 
 flash_attention.launches = 0
 flash_attention.f32_launches = 0
+flash_attention.f16_launches = 0
+flash_attention.mixed_launches = 0
 
 
 @register("_contrib_FlashAttention", num_inputs=3,

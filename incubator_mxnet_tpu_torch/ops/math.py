@@ -47,12 +47,21 @@ _SCALAR = {
 }
 
 
+def scalar_like(data, scalar):
+    """``scalar`` in ``data``'s dtype, as ``jnp.asarray(scalar, data.dtype)``
+    in the JAX build (ops/math.py:113).  On a floating array it is a 0-dim
+    tensor on the array's device, so a bf16 or f16 op sees the scalar
+    rounded to that dtype (a Python float would enter the op at f32) and a
+    division stays a division (CUDA multiplies by the reciprocal of a host
+    scalar); an integer array takes ``int(scalar)``."""
+    if not data.is_floating_point():
+        return int(scalar)
+    return torch.full((), float(scalar), dtype=data.dtype, device=data.device)
+
+
 def _reg_scalar(name, fn):
     def fcompute(data, scalar=0.0, _fn=fn):
-        # the scalar takes the array's dtype, as jnp.asarray(scalar, dtype)
-        # does in the JAX build: an int array stays int
-        s = float(scalar) if data.is_floating_point() else int(scalar)
-        return _fn(data, s)
+        return _fn(data, scalar_like(data, scalar))
     fcompute.__doc__ = "Scalar op %s (ref: elemwise_binary_scalar_op_basic.cc)" % name
     register(name, num_inputs=1)(fcompute)
 

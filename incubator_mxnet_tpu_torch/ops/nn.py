@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from .math import scalar_like
 from .registry import register
 
 
@@ -28,30 +29,42 @@ def _fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
 
 @register("LayerNorm", num_inputs=3, input_names=("data", "gamma", "beta"))
 def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
-    """ref: src/operator/nn/layer_norm.cc — biased variance; statistics in
-    float32, output in the promoted dtype of data, gamma and beta."""
-    x = data.to(torch.float32)
-    var, mean = torch.var_mean(x, dim=axis, keepdim=True, correction=0)
-    out = (x - mean) * torch.rsqrt(var + eps)
+    """ref: src/operator/nn/layer_norm.cc — biased variance.  Op by op in
+    the data's dtype, as the JAX build (ops/nn.py:358-365): mean and var
+    accumulate in f32 and round once to that dtype (``var_mean`` of a bf16
+    or f16 tensor does so, as ``jnp.mean``/``jnp.var`` do), then
+    ``(x - mean)·rsqrt(var + eps)`` with eps in that dtype, then
+    ``·gamma + beta``, each step rounded; gamma and beta of another dtype
+    promote the last two steps, as in jnp.  rsqrt rounds as XLA's does: in
+    f32, once, for bf16 (ATen's CPU bf16 rsqrt rounds twice); for f16 XLA
+    takes 1 / sqrt with the sqrt rounded to f16."""
+    var, mean = torch.var_mean(data, dim=axis, keepdim=True, correction=0)
+    var = var + scalar_like(data, eps)
+    if data.dtype == torch.float16:
+        inv = 1.0 / torch.sqrt(var)
+    else:
+        inv = torch.rsqrt(var.float()).to(data.dtype)
+    out = (data - mean) * inv
     bshape = [1] * data.ndim
     bshape[axis] = data.shape[axis]
-    out = out * gamma.reshape(bshape) + beta.reshape(bshape)
-    dt = torch.promote_types(torch.promote_types(data.dtype, gamma.dtype),
-                             beta.dtype)
-    return out.to(dt)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
 
 
 @register("Activation", num_inputs=1)
 def _activation(data, act_type="relu"):
-    """ref: activation.cc"""
+    """ref: activation.cc.  sigmoid and softrelu follow ``jax.nn.sigmoid``
+    (1 / (1 + exp(-x))) and ``jax.nn.softplus`` (max(x, 0) +
+    log1p(exp(-|x|))) op by op, so bf16 and f16 round where the JAX build
+    does."""
     if act_type == "relu":
         return torch.relu(data)
     if act_type == "sigmoid":
-        return torch.sigmoid(data)
+        return 1.0 / (torch.exp(-data) + 1.0)
     if act_type == "tanh":
         return torch.tanh(data)
     if act_type == "softrelu":
-        return torch.nn.functional.softplus(data)
+        out = torch.clamp_min(data, 0) + torch.log1p(torch.exp(-data.abs()))
+        return torch.where(torch.isnan(data), data, out)
     if act_type == "softsign":
         return torch.nn.functional.softsign(data)
     raise ValueError("unknown act_type %r" % act_type)
@@ -59,6 +72,9 @@ def _activation(data, act_type="relu"):
 
 @register("softmax", num_inputs=1)
 def _softmax(data, axis=-1, temperature=None):
-    """ref: src/operator/nn/softmax.cc"""
-    x = data / temperature if temperature else data
-    return torch.softmax(x, dim=axis)
+    """ref: src/operator/nn/softmax.cc.  As ``jax.nn.softmax``: exp(x - max)
+    in the data's dtype, its sum accumulated in f32 and rounded once to
+    that dtype, then the division."""
+    x = data / scalar_like(data, temperature) if temperature else data
+    e = torch.exp(x - x.amax(dim=axis, keepdim=True))
+    return e / e.sum(dim=axis, keepdim=True, dtype=torch.float32).to(e.dtype)

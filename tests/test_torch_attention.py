@@ -16,6 +16,9 @@ on the card; they skip without one:
 
     python -m pytest -m cuda tests/test_torch_attention.py
 """
+import contextlib
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,7 +52,16 @@ EDGE_CASES = [
     ((1, 2, 300, 200, 128), True),   # Sq > Sk at D = 128
     ((1, 2, 77, 77, 20), True),
 ]
-CARD_CASES = CASES[:-1] + [((8, 32, 1024, 1024, 128), True)] + EDGE_CASES
+# head dims 129-256: two output slices a block column, 160 and 192 with the
+# last Q/K panel and the second slice's second V panel never loaded
+WIDE_CASES = [
+    ((1, 2, 200, 200, 160), True),
+    ((2, 2, 130, 130, 192), False),
+    ((1, 2, 256, 256, 256), True),
+    ((1, 1, 77, 300, 256), True),    # Sq < Sk, ragged rows and keys
+]
+CARD_CASES = CASES[:-1] + [((8, 32, 1024, 1024, 128), True)] + EDGE_CASES + \
+    WIDE_CASES
 
 
 def _ids(cases):
@@ -60,8 +72,10 @@ def _ids(cases):
 IDS = _ids(CASES)
 CARD_IDS = _ids(CARD_CASES)
 # the per-element bound of the bf16 kernel against the f32 result: one bf16
-# rounding (2^-9 relative) plus as much again for the f32 arithmetic
+# rounding (2^-9 relative) plus as much again for the f32 arithmetic; the
+# f16 kernel's is the same with f16's 2^-12 rounding
 BF16_REL, BF16_ABS = 2.0 ** -8, 5e-5
+F16_REL = 2.0 ** -11
 
 
 def _inputs(shape, seed=0):
@@ -77,26 +91,28 @@ def _jax_flash(q, k, v, causal, dtype="float32"):
     return np.asarray(jax_flash(*args, causal).astype(jnp.float32))
 
 
-def _bf16_values(*arrays):
-    """The numpy arrays rounded to bf16, as float32 numpy arrays."""
-    return [torch.from_numpy(x).to(torch.bfloat16).float().numpy()
-            for x in arrays]
+def _bf16_values(*arrays, dtype=torch.bfloat16):
+    """The numpy arrays rounded to bf16 (or ``dtype``), as float32 numpy
+    arrays."""
+    return [torch.from_numpy(x).to(dtype).float().numpy() for x in arrays]
 
 
-def _violations(out, ref):
-    """Elements of ``out`` outside 2^-8·|ref| + 5e-5 of ``ref``."""
+def _violations(out, ref, rel=BF16_REL):
+    """Elements of ``out`` outside rel·|ref| + 5e-5 of ``ref`` (rel 2^-8 for
+    bf16, 2^-11 for f16: one rounding to the type, and as much again)."""
     out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
-    return int((np.abs(out - ref) > BF16_REL * np.abs(ref) + BF16_ABS).sum())
+    return int((np.abs(out - ref) > rel * np.abs(ref) + BF16_ABS).sum())
 
 
-def _bf16_kernel_emulation(q, k, v, causal, split=True, block_n=64):
-    """The bf16 kernel's arithmetic in plain PyTorch (test-only): bf16
-    q, k, v; S = Q·Kᵀ in f32 from exact bf16 products; an online softmax in
-    log2 units over tiles of ``block_n`` keys; O += P_hi·V + P_lo·V with
-    P_hi = bf16(P) and P_lo = bf16(P - P_hi), products in f32 (``split``
-    False: O += bf16(P)·V, the design the split avoids); o rounded to bf16
-    once."""
-    qf, kf, vf = (t.to(torch.bfloat16).float() for t in (q, k, v))
+def _bf16_kernel_emulation(q, k, v, causal, split=True, block_n=64,
+                           dtype=torch.bfloat16):
+    """The 16-bit kernel's arithmetic in plain PyTorch (test-only), for
+    ``dtype`` bf16 or f16: q, k, v of that type; S = Q·Kᵀ in f32 from exact
+    products; an online softmax in log2 units over tiles of ``block_n``
+    keys; O += P_hi·V + P_lo·V with P_hi = T(P) and P_lo = T(P - P_hi),
+    products in f32 (``split`` False: O += T(P)·V, the design the split
+    avoids); o rounded to the type once."""
+    qf, kf, vf = (t.to(dtype).float() for t in (q, k, v))
     sq, sk, d = qf.shape[-2], kf.shape[-2], qf.shape[-1]
     scale_log2 = (1.0 / np.sqrt(d)) * 1.4426950408889634
     rows = torch.arange(sq)[:, None]
@@ -113,14 +129,14 @@ def _bf16_kernel_emulation(q, k, v, causal, split=True, block_n=64):
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(x - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        p_hi = p.to(torch.bfloat16).float()
+        p_hi = p.to(dtype).float()
         if split:
-            p_lo = (p - p_hi).to(torch.bfloat16).float()
+            p_lo = (p - p_hi).to(dtype).float()
             acc = acc * alpha + (torch.matmul(p_hi, vt) + torch.matmul(p_lo, vt))
         else:
             acc = acc * alpha + torch.matmul(p_hi, vt)
         m = m_new
-    return (acc / l.clamp_min(1e-20)).to(torch.bfloat16)
+    return (acc / l.clamp_min(1e-20)).to(dtype)
 
 
 # The six products of the f32 route's split, in the kernel's issue order
@@ -249,6 +265,72 @@ def test_cpu_f32_one_piece_breaks_the_bound(shape, causal):
     assert np.abs(got.numpy() - want).max() > 1e-4
 
 
+# f16 inputs round identically on both sides; both compute in f32 and round
+# the result to f16 once, so they differ by at most one f16 step (|o| < 4)
+@pytest.mark.parametrize("shape,causal", CASES[:6], ids=IDS[:6])
+def test_cpu_f16_matches_jax(shape, causal):
+    q, k, v = _inputs(shape, seed=1)
+    want = _jax_flash(q, k, v, causal, "float16")
+    tq, tk, tv = (torch.from_numpy(x).to(torch.float16) for x in (q, k, v))
+    got = tatt.flash_attention(tq, tk, tv, causal)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=2e-3)
+
+
+# the f16 kernel's arithmetic (P split into two f16 halves) holds every
+# element within one f16 rounding, 2^-11·|ref| + 5e-5, of the JAX build's f32
+# result on the same (f16-valued) inputs, which the JAX build in f16 rounds
+# once to f16
+@pytest.mark.parametrize("shape,causal", CASES, ids=IDS)
+def test_cpu_f16_split_p_emulation_matches_jax(shape, causal):
+    q, k, v = _bf16_values(*_inputs(shape, seed=6), dtype=torch.float16)
+    want = _jax_flash(q, k, v, causal)
+    got = _bf16_kernel_emulation(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 causal, dtype=torch.float16)
+    assert got.dtype == torch.float16 and tuple(got.shape) == want.shape
+    assert _violations(got.float().numpy(), want, F16_REL) == 0
+
+
+# negative control: P rounded to f16 once breaks the f16 bound at >= 0.05% of
+# elements (0.07% to 3.3% at these shapes), so the bound tells the designs
+# apart
+@pytest.mark.parametrize("shape,causal", CASES, ids=IDS)
+def test_cpu_f16_p_breaks_the_bound(shape, causal):
+    q, k, v = _bf16_values(*_inputs(shape, seed=6), dtype=torch.float16)
+    want = _jax_flash(q, k, v, causal)
+    got = _bf16_kernel_emulation(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 causal, split=False, dtype=torch.float16)
+    assert _violations(got.float().numpy(), want, F16_REL) >= \
+        0.0005 * want.size
+
+
+MIXES = [("bfloat16", "float32", "float16"), ("float32", "bfloat16", "bfloat16"),
+         ("float16", "float16", "float32")]
+
+
+def _mixed(arrays, dtypes):
+    """numpy arrays as (JAX, torch) inputs of the given dtypes."""
+    return ([jnp.asarray(x, t) for x, t in zip(arrays, dtypes)],
+            [torch.from_numpy(x).to(getattr(torch, t))
+             for x, t in zip(arrays, dtypes)])
+
+
+# a mix of dtypes: both promote to f32, compute there and return q's dtype;
+# they differ by one rounding to q's dtype (2e-2 in bf16, 2e-3 in f16 at
+# |o| < 4) or f32 sums in other orders (2e-5)
+@pytest.mark.parametrize("dtypes", MIXES, ids=["_".join(m) for m in MIXES])
+def test_cpu_mixed_dtypes_match_jax(dtypes):
+    shape, causal = (1, 2, 64, 80, 40), True
+    jargs, targs = _mixed(_inputs(shape, seed=12), dtypes)
+    want = jax_flash(*jargs, causal)
+    got = tatt.flash_attention(*targs, causal)
+    assert str(want.dtype) == dtypes[0] and got.dtype == targs[0].dtype
+    tol = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-3}[dtypes[0]]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), rtol=0,
+                               atol=tol)
+
+
 # the split pass's plain version: three bf16 planes that carry x·mul to
 # 2^-24 relative, zero columns up to a multiple of 8, (3, B*H, S, Dp)
 @pytest.mark.parametrize("shape,mul", [((2, 3, 40, 20), 1.0),
@@ -316,25 +398,110 @@ def test_op_surface_matches_jax():
                                jmx.nd.array(v)).asnumpy(), rtol=0, atol=2e-5)
 
 
+# what the kernel takes: every mix of f32, bf16 and f16 (route code 0 for the
+# f32 route, 1 bf16, 2 f16) at head dims up to 256; it raises on D = 257,
+# float64 and integer inputs
 @pytest.mark.parametrize("bad,err", [
-    ("head_dim", ValueError), ("float16", TypeError),
-    ("mixed_dtype", TypeError), ("int", TypeError),
+    ("head_dim", ValueError), ("float16", 2), ("mixed_dtype", 0),
+    ("int", TypeError), ("float64", TypeError), ("head_dim_256", 1),
 ])
 def test_kernel_argument_checks(bad, err):
-    q = torch.zeros(1, 1, 8, 160 if bad == "head_dim" else 16)
+    d = {"head_dim": 257, "head_dim_256": 256}.get(bad, 16)
+    q = torch.zeros(1, 1, 8, d)
     k = torch.zeros(1, 1, 8, q.shape[-1])
     v = k.clone()
     if bad == "float16":
         q, k, v = q.half(), k.half(), v.half()
-    elif bad == "mixed_dtype":
+    elif bad in ("mixed_dtype", "head_dim_256"):
         k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        if bad == "head_dim_256":
+            q = q.to(torch.bfloat16)
     elif bad == "int":
         q = q.to(torch.int32)
+    elif bad == "float64":
+        q, k, v = q.double(), k.double(), v.double()
+    if isinstance(err, int):
+        assert tatt._kernel_dtype_code(q, k, v) == err
+        return
     with pytest.raises(err):
         if bad == "int":
             tatt.flash_attention(q, k, v)
         else:
             tatt._kernel_dtype_code(q, k, v)
+
+
+class _StubLibrary:
+    """The flash library's C entry points, recording each call (name, and
+    the head dim it was given) and returning success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _entry(name, d_index):
+        def call(self, *args):
+            self.calls.append((name, args[d_index]))
+            return 0
+        return call
+
+    flash_attention_bf16 = _entry("flash_attention_bf16", 7)
+    flash_attention_f16 = _entry("flash_attention_f16", 7)
+    flash_attention_f32 = _entry("flash_attention_f32", 7)
+    flash_attention_f32_split = _entry("flash_attention_f32_split", 9)
+
+    def flash_attention_error_string(self, err):
+        return b"stub"
+
+
+@pytest.fixture
+def stub_library(monkeypatch):
+    """The CUDA wrapper on CPU tensors with the library stubbed: the route
+    logic runs, the kernels do not (outputs are uninitialized)."""
+    lib = _StubLibrary()
+    monkeypatch.setattr(tatt.cuda_build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    return lib
+
+
+# the wrapper's routing on a CUDA tensor, with the library stubbed: each
+# dtype mix and head dim takes its route, the 16-bit routes get D padded to
+# a multiple of 8, a mix returns q's dtype through the f32 route
+@pytest.mark.parametrize("dtypes,d,entry,kernel_d", [
+    (("bfloat16",) * 3, 128, "flash_attention_bf16", 128),
+    (("float16",) * 3, 20, "flash_attention_f16", 24),
+    (("float16",) * 3, 256, "flash_attention_f16", 256),
+    (("bfloat16",) * 3, 160, "flash_attention_bf16", 160),
+    (("float32",) * 3, 192, "flash_attention_f32", 192),
+    (("bfloat16", "float32", "float16"), 64, "flash_attention_f32", 64),
+    (("float32", "bfloat16", "bfloat16"), 250, "flash_attention_f32", 250),
+], ids=["bf16", "f16_d20", "f16_d256", "bf16_d160", "f32_d192",
+        "mixed_bf16_f32_f16", "mixed_f32_bf16_d250"])
+def test_cuda_routing_with_stubbed_library(stub_library, dtypes, d, entry,
+                                           kernel_d):
+    q, k, v = (torch.zeros(1, 2, 8, d, dtype=getattr(torch, t))
+               for t in dtypes)
+    before = (tatt.flash_attention.launches, tatt.flash_attention.f16_launches,
+              tatt.flash_attention.mixed_launches)
+    out = tatt._flash_forward_cuda(q, k, v, True, 0.125)
+    assert stub_library.calls == [(entry, kernel_d)]
+    assert out.dtype == q.dtype and tuple(out.shape) == (1, 2, 8, d)
+    mixed = len(set(dtypes)) > 1
+    assert (tatt.flash_attention.launches, tatt.flash_attention.f16_launches,
+            tatt.flash_attention.mixed_launches) == (
+        before[0] + 1, before[1] + (entry == "flash_attention_f16"),
+        before[2] + mixed)
+
+
+# D = 257, float64 and integers raise before any launch
+@pytest.mark.parametrize("dtype,d,err", [(torch.bfloat16, 257, ValueError),
+                                         (torch.float32, 257, ValueError),
+                                         (torch.float64, 64, TypeError)])
+def test_cuda_wrapper_raises_past_its_range(stub_library, dtype, d, err):
+    q = torch.zeros(1, 1, 8, d, dtype=dtype)
+    with pytest.raises(err):
+        tatt._flash_forward_cuda(q, q, q, False, 0.1)
+    assert stub_library.calls == []
 
 
 def test_device_and_shape_checks():
@@ -379,25 +546,32 @@ def card():
 
 # kernel vs plain (f32 from the same inputs): f32 sums in other orders stay
 # far below 1e-4; bf16 output is one rounding of the f32 result, 7.8e-3 at
-# |o| < 4, within 2e-2, and every bf16 element within 2^-8·|ref| + 5e-5
+# |o| < 4, within 2e-2, and every bf16 element within 2^-8·|ref| + 5e-5; f16
+# output one rounding, 9.8e-4 at |o| < 4, within 2e-3, and every element
+# within 2^-11·|ref| + 5e-5
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)],
-                         ids=["f32", "bf16"])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-3)],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("shape,causal", CARD_CASES, ids=CARD_IDS)
 def test_card_kernel_matches_plain(card, shape, causal, dtype, tol):
     q, k, v = (torch.from_numpy(x).to(card, dtype)
                for x in _inputs(shape, seed=5))
-    before = tatt.flash_attention.launches
+    before = tatt.flash_attention.launches, tatt.flash_attention.f16_launches
     out = tatt.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
-    assert tatt.flash_attention.launches == before + 1
+    assert (tatt.flash_attention.launches,
+            tatt.flash_attention.f16_launches) == (
+        before[0] + 1, before[1] + (dtype == torch.float16))
     assert out.dtype == dtype and out.is_cuda
     assert tuple(out.shape) == tuple(q.shape)
     ref = tatt._attention_reference(q.float(), k.float(), v.float(), causal)
     assert (out.float() - ref).abs().max().item() <= tol
-    if dtype == torch.bfloat16:
-        assert _violations(out.float().cpu().numpy(), ref.cpu().numpy()) == 0
+    if dtype != torch.float32:
+        rel = BF16_REL if dtype == torch.bfloat16 else F16_REL
+        assert _violations(out.float().cpu().numpy(), ref.cpu().numpy(),
+                           rel) == 0
 
 
 # the bf16 kernel against the JAX build (CPU jax, f32 on the same
@@ -412,6 +586,81 @@ def test_card_bf16_kernel_matches_jax(card):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
     assert _violations(got.float().cpu().numpy(), want) == 0
+
+
+# the f16 kernel against the JAX build (CPU jax, f32 on the same f16-valued
+# inputs: the JAX build in f16 rounds this result once), element by element
+# at one f16 rounding, 2^-11·|ref| + 5e-5
+@pytest.mark.cuda
+def test_card_f16_kernel_matches_jax(card):
+    shape, causal = (1, 2, 1024, 1024, 128), True
+    q, k, v = _bf16_values(*_inputs(shape, seed=7), dtype=torch.float16)
+    want = _jax_flash(q, k, v, causal)
+    got = tatt.flash_attention(*(torch.from_numpy(x).to(card, torch.float16)
+                                 for x in (q, k, v)), causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16
+    assert _violations(got.float().cpu().numpy(), want, F16_REL) == 0
+
+
+# head dims 160, 192 and 256 on each route against the JAX build: the 16-bit
+# routes element by element at their rounding bounds, the f32 route at the
+# f32 bound of the CPU comparison
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("d", [160, 192, 256])
+def test_card_wide_head_dims_match_jax(card, d, dtype):
+    shape, causal = (1, 2, 384, 384, d), True
+    q, k, v = _bf16_values(*_inputs(shape, seed=13), dtype=dtype)
+    want = _jax_flash(q, k, v, causal)
+    got = tatt.flash_attention(*(torch.from_numpy(x).to(card, dtype)
+                                 for x in (q, k, v)), causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == want.shape
+    got = got.float().cpu().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    else:
+        rel = BF16_REL if dtype == torch.bfloat16 else F16_REL
+        assert _violations(got, want, rel) == 0
+
+
+# a mix of dtypes on the card: the f32 route (three split launches, each
+# input read at its own dtype, one mixed launch), q's dtype out, against the
+# plain version and the JAX build at one rounding to q's dtype
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", MIXES, ids=["_".join(m) for m in MIXES])
+def test_card_mixed_dtypes_match_plain_and_jax(card, dtypes):
+    shape, causal = (2, 3, 256, 320, 96), True
+    jargs, targs = _mixed(_inputs(shape, seed=14), dtypes)
+    targs = [t.to(card) for t in targs]
+    before = (tatt.flash_attention.mixed_launches, tatt.split_f32.launches)
+    got = tatt.flash_attention(*targs, causal)
+    torch.cuda.synchronize()
+    assert (tatt.flash_attention.mixed_launches, tatt.split_f32.launches) == (
+        before[0] + 1, before[1] + 3)
+    assert got.dtype == targs[0].dtype
+    tol = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-3}[dtypes[0]]
+    ref = tatt._attention_reference(*targs, causal)
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    want = np.asarray(jax_flash(*jargs, causal).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, rtol=0,
+                               atol=tol)
+
+
+# the split pass reads bf16 and f16 inputs at their own dtype, bit for bit
+# against its plain version (a 16-bit value splits exactly)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_card_split_16bit_inputs_match_plain(card, dtype):
+    rs = np.random.RandomState(15)
+    x = torch.from_numpy(rs.standard_normal((2, 77, 3, 200)).astype(
+        np.float32)).to(card, dtype).transpose(1, 2)
+    got = tatt.split_f32(x, 0.0625)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tatt._split_f32_reference(x, 0.0625))
 
 
 # a contiguous view that starts 2 bytes into its storage: TMA reads from

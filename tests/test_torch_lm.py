@@ -130,6 +130,44 @@ def test_bf16_serving_on_cpu_stays_close(pair):
     assert np.abs(out - want).max() < 0.25 * np.abs(want).max()
 
 
+# The same LM in bf16 (and f16) on both sides, with the same weights: the
+# port rounds where the JAX build does (ops in the dtype, the scalar and
+# LayerNorm steps as tests/test_torch_halfprec.py holds them), so the logits
+# stay within ``ulps`` ulps of the dtype at max |want|.  bf16: one, since
+# the GEMMs sum in f32 in another order (oneDNN, XLA) and a sum at a rounding
+# boundary may round one ulp apart.  f16: four, since XLA's f16 code also
+# fuses LayerNorm's ·gamma + beta into one rounding and turns divisions by a
+# constant into products with a rounded reciprocal (tests/test_torch_halfprec
+# .py), one ulp each, carried through two layers.  This is the meaningful
+# check of the half-precision LM; test_bf16_serving_on_cpu_stays_close only
+# bounds its distance from f32.
+@pytest.mark.parametrize("dtype,mantissa,ulps", [("bfloat16", 7, 1),
+                                                 ("float16", 10, 4)])
+def test_half_logits_match_jax_in_the_same_dtype(pair, dtype, mantissa, ulps):
+    jnet, _, _, tokens = pair
+    params = {n: p.data().asnumpy() for n, p in jnet.collect_params().items()}
+    jhalf = _jax_lm(**SMALL)
+    jhalf.initialize(jmx.init.Xavier())
+    jhalf(jmx.nd.array(tokens))
+    by_suffix = {n[len(jnet.prefix):]: a for n, a in params.items()}
+    for name, p in jhalf.collect_params().items():
+        p.set_data(jmx.nd.array(by_suffix[name[len(jhalf.prefix):]]))
+    jhalf.cast(dtype)
+    want = jhalf(jmx.nd.array(tokens, dtype="int32"))
+    assert str(want.dtype) == dtype
+    want = np.asarray(want.asnumpy(), np.float32)
+    net = TransformerLM(**SMALL)
+    load_numpy_params(net, params, tmx.cpu())
+    net.cast(dtype)
+    with tmx.cpu():
+        got = net(tmx.nd.array(tokens, dtype="int32"))
+    assert tmx.base.dtype_name(got._data.dtype) == dtype
+    got = np.asarray(got.asnumpy(), np.float32)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - mantissa)
+    assert np.abs(got - want).max() <= ulps * ulp
+    np.testing.assert_array_equal(got[:, -1].argmax(-1), want[:, -1].argmax(-1))
+
+
 def test_host_xavier_is_seeded_and_distinct():
     def init(seed):
         with tmx.cpu():

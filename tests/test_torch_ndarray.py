@@ -201,3 +201,45 @@ def test_copyto_context_and_waitall():
     np.testing.assert_array_equal(c.asnumpy(), a.asnumpy())
     tmx.nd.waitall()
     a.wait_to_read()
+
+
+# the six scalar ops on bf16 and f16 arrays: the scalar rounds to the array's
+# dtype (jnp.asarray(scalar, dtype) in the JAX build), then one rounded op;
+# bit for bit, but f16 division, where XLA multiplies by f16(1 / f16(s))
+# (its rewrite of a division by a constant), one ulp from the correctly
+# rounded quotient the port computes
+SCALAR_OPS = [
+    ("_plus_scalar", lambda a, s: a + s),
+    ("_minus_scalar", lambda a, s: a - s),
+    ("_rminus_scalar", lambda a, s: s - a),
+    ("_mul_scalar", lambda a, s: a * s),
+    ("_div_scalar", lambda a, s: a / s),
+    ("_rdiv_scalar", lambda a, s: s / a),
+]
+
+
+@pytest.mark.parametrize("scalar", [0.001, 0.1, 7.3, 3])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("name,fn", SCALAR_OPS, ids=[n for n, _ in SCALAR_OPS])
+def test_scalar_op_rounds_scalar_to_dtype(name, fn, dtype, scalar):
+    x = _x((256,), seed=7) * 5
+    want = np.asarray(fn(jmx.nd.array(x, dtype=dtype), scalar).asnumpy(),
+                      np.float32)
+    got = fn(tmx.nd.array(x, dtype=dtype), scalar)
+    assert tmx.base.dtype_name(got._data.dtype) == dtype
+    got = np.asarray(got.asnumpy(), np.float32)
+    if dtype == "float16" and name == "_div_scalar":
+        spacing = np.spacing(np.abs(want).astype(np.float16)).astype(np.float32)
+        assert (np.abs(got - want) <= spacing).all()
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_scalar_op_on_int_array_stays_int():
+    i = tmx.nd.array(np.array([1, 2, 7], np.int32))
+    out = i * 2.5                      # the scalar is int(2.5), as jnp's
+    assert out.dtype == np.int32
+    np.testing.assert_array_equal(out.asnumpy(), [2, 4, 14])
+    np.testing.assert_array_equal(
+        out.asnumpy(), (jmx.nd.array(np.array([1, 2, 7], np.int32)) *
+                        2.5).asnumpy())

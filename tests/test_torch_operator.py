@@ -205,6 +205,84 @@ def test_softmax_fwd_widths_on_card(card_kernels, c):
         chip_smoke.RTC_TOLERANCE["softmax_fwd"]
 
 
+# softmax_bwd's launch geometry: whole warps, at most BWD_THREADS, each
+# thread at most BWD_VEC float4 (or elements) of a row unless the block is
+# full, rows enough for about BWD_BLOCK_ELEMENTS elements, float4 exactly
+# when c % 4 == 0
+@pytest.mark.parametrize("c", [1, 3, 4, 97, 1000, 1024, 16384, 16385, 40000,
+                               1 << 20])
+def test_softmax_bwd_geometry(c):
+    block, rows, vec = chip_smoke.softmax_bwd_geometry(c)
+    assert vec == (c % 4 == 0)
+    assert block % 32 == 0 and 32 <= block <= chip_smoke.BWD_THREADS
+    units = c // 4 if vec else c
+    assert block * chip_smoke.BWD_VEC >= units or \
+        block == chip_smoke.BWD_THREADS
+    assert block == 32 or (block - 32) * chip_smoke.BWD_VEC < units
+    assert rows >= 1
+    assert rows * c <= max(chip_smoke.BWD_BLOCK_ELEMENTS, c)
+    assert (rows + 1) * c > chip_smoke.BWD_BLOCK_ELEMENTS
+
+
+# axpy's launch geometry: one pass of float4 covers n (its loop strides over
+# the grid anyway), at least one block
+@pytest.mark.parametrize("n", [1, 3, 8, 4095, 4096, 4097, 2 ** 26 + 3])
+def test_axpy_geometry(n):
+    grid, block = chip_smoke.axpy_geometry(n)
+    assert block == chip_smoke.AXPY_THREADS and grid >= 1
+    span = 4 * chip_smoke.AXPY_VEC * block
+    assert grid * span >= n > (grid - 1) * span or grid == 1
+
+
+def _card_base_offset(t, offset):
+    """``t`` copied into a flat buffer ``offset`` floats in (a view whose
+    base is 16-byte aligned only when offset % 4 == 0)."""
+    flat = torch.empty(t.numel() + offset, device=t.device)
+    flat[offset:] = t.reshape(-1)
+    return flat[offset:].view(t.shape)
+
+
+# softmax_bwd on the card at the geometry of its path: float4 rows (1000,
+# 16384, 40000), scalar rows (1, 16385) and an unaligned base, bit for bit
+# against softmax_bwd_plain (p - 1.0 is one IEEE op, p - 0.0 a copy)
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,offset", [(1, 0), (1000, 0), (16384, 0),
+                                      (16385, 0), (40000, 0), (16384, 1)])
+def test_softmax_bwd_widths_on_card(card_kernels, c, offset):
+    rows = 37
+    rs = np.random.RandomState(c + offset)
+    p = _card_base_offset(torch.from_numpy(
+        rs.uniform(0, 1, (rows, c)).astype(np.float32)).cuda(), offset)
+    label = rs.randint(0, c, rows)
+    label[:2] = (0, c - 1)                       # both ends of the row
+    lab = tmx.nd.array(label.astype(np.float32), ctx=tmx.gpu(0))
+    dz = tmx.nd.empty((rows, c), ctx=tmx.gpu(0))
+    block, per, _ = chip_smoke.softmax_bwd_geometry(c)
+    card_kernels["softmax_bwd"].launch(
+        [tmx.nd.NDArray(p), lab, dz, rows, c], tmx.gpu(0), (-(-rows // per),),
+        (block,))
+    torch.cuda.synchronize()
+    assert torch.equal(dz._data, chip_smoke.softmax_bwd_plain(p, lab._data))
+
+
+# axpy on the card: the scalar tail alone (n = 1, 3), float4 only (8), both
+# at the timing size (2^26 + 3), and unaligned bases; bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1, 0), (3, 0), (8, 0), (2 ** 26 + 3, 0),
+                                      (1027, 1)])
+def test_axpy_on_card(card_kernels, n, offset):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(n)
+    x, y = (_card_base_offset(torch.randn(n, generator=gen, device="cuda"),
+                              offset) for _ in range(2))
+    o = tmx.nd.empty((n,), ctx=tmx.gpu(0))
+    grid, block = chip_smoke.axpy_geometry(n)
+    card_kernels["axpy"].launch([tmx.nd.NDArray(x), tmx.nd.NDArray(y), o, n],
+                                tmx.gpu(0), (grid,), (block,))
+    torch.cuda.synchronize()
+    assert torch.equal(o._data, 2 * x + y)
+
+
 class _TwoOut:
     """Outputs (2x, x + 1); input grad 2·g0 + g1.  Written on the NDArray
     surface both packages share."""
