@@ -14,17 +14,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 2. build   — every hand-written kernel of the port, from ``csrc/`` with nvcc
              (one per source, all at once), with ptxas's report (registers,
              shared memory, spills) and the count of HGMMA (wgmma)
-             instructions in the SASS of the bf16, f16 and f32 kernels, none
-             of which may be 0: every route runs on the tensor cores;
+             instructions in the SASS of the bf16, f16 and f32 forward
+             kernels and of the bf16 and f16 backward kernels (dQ, dK/dV),
+             none of which may be 0: every route runs on the tensor cores;
 3. kernel  — each kernel against its plain PyTorch version on the card, at
              the shapes of its tests and of the serving path and at head dims
              160, 192 and 256, and 320 and 512 (the wide route), in f32, bf16
              and f16; bf16 and f16 also element by element (2^-8·|ref| +
              5e-5, 2^-11·|ref| + 5e-5); the f32 route's split pass bit for
              bit; mixes of dtypes (the f32 route, and the wide route, q's
-             dtype out); flash attention's backward (torch ops) against torch
-             autograd through the plain version in f32, TF32 off, at the
-             training shape in bf16 and at small f32 shapes and D = 320;
+             dtype out); flash attention's backward against torch autograd
+             through the plain version in f32, TF32 off: the backward kernel
+             in bf16 and f16 at the training shape and at Sq < Sk, Sq > Sk,
+             Sk = 65, D = 20 and 64 (each through the kernel: its launch
+             count moved, the torch ops' did not), the torch ops at small
+             f32 shapes and D = 320;
 4. serve   — small LMs on the card against the same weights on the CPU, with
              the same greedy tokens: f32 at D = 16 (the f32 route), f16 at
              D = 128 (the f16 route), bf16 and f32 at D = 256 (two output
@@ -48,7 +52,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              just before and read just after: each step's ms and loss,
              tokens/s, MFU (bench_transformer.py's model_flops_per_step over
              989 TFLOP/s), peak memory; it fails unless every loss is finite
-             and the last below the first; then one step under
+             and the last below the first, and unless every flash backward
+             of the timed steps went through the backward kernel (4 a step,
+             none through the torch ops); then one step under
              torch.profiler, by group (GEMMs, flash forward, flash backward,
              optimizer update, the rest) with the idle share;
 4c. rtc   — the user kernels of RTC_SOURCE compiled by the port's NVRTC
@@ -66,8 +72,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              split pass and the attention kernel also timed alone); at
              (8, 16, 1024, 256) causal on the bf16 and f32 routes; the wide
              route at (8, 8, 1024, 512) causal (the serving shape's work at
-             D = 512) in bf16 and f32; the backward at the training shape
-             against SDPA's backward;
+             D = 512) in bf16 and f32; the backward kernel at the training
+             shape beside the torch ops it replaced, the plain version and
+             SDPA's backward, with the card's bound and the design's floor;
 6. one JSON ``kernels`` line, then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -150,15 +157,24 @@ SMALL_LMS = [
 ]
 # flash attention's backward on the card against torch autograd through the
 # plain version in f32 with TF32 off: (shape (B, H, Sq, Sk, D), causal,
-# dtype).  f32: the same products in other orders, within 1e-4.  bf16 (the
-# training shape): both backwards compute in f32, but the port's starts from
-# the bf16 output (delta = sum(g·out)) and rounds each gradient once to bf16,
-# so the bound is 2^-7 of the largest |gradient| (the CPU shows 2.2e-3 to
-# 2.9e-3 of it at (1, 2, 1024, 1024, 128) causal)
+# dtype).  f32 (the torch ops): the same products in other orders, within
+# 1e-4.  bf16 and f16 (the backward kernel; the training shape first): both
+# compute in f32, but the kernel starts from the 16-bit output (delta =
+# sum(g·out)), carries P and dS as two halves of the type and rounds each
+# gradient once, so the bound is 2^-7 of the largest |gradient|
 BACKWARD_CASES = [
     ((8, 32, 1024, 1024, 128), True, "bfloat16"),
-    ((1, 2, 128, 256, 64), True, "float32"),     # Sq < Sk
-    ((1, 2, 256, 128, 64), True, "float32"),     # Sq > Sk: rows see no key
+    ((8, 32, 1024, 1024, 128), True, "float16"),
+    ((1, 2, 128, 256, 64), True, "bfloat16"),    # Sq < Sk
+    ((1, 2, 128, 256, 64), True, "float16"),
+    ((1, 2, 256, 128, 64), True, "bfloat16"),    # Sq > Sk: rows see no key
+    ((1, 2, 256, 128, 64), True, "float16"),
+    ((2, 2, 65, 65, 64), True, "bfloat16"),      # Sk = 65: a ragged tile
+    ((2, 2, 65, 65, 64), True, "float16"),
+    ((1, 2, 77, 77, 20), True, "bfloat16"),      # D = 20, padded to 24
+    ((1, 2, 77, 77, 20), True, "float16"),
+    ((1, 2, 128, 256, 64), True, "float32"),     # the torch ops from here
+    ((1, 2, 256, 128, 64), True, "float32"),
     ((2, 2, 65, 65, 32), True, "float32"),       # Sk = 65: one ragged chunk
     ((1, 2, 200, 200, 320), True, "float32"),    # D = 320, the wide forward
 ]
@@ -199,12 +215,27 @@ F32_WIDE_DESIGN = ("f32 at head dims 129-256: 64 query rows and one consumer "
                    "warpgroup a block (Q's three planes 96 KB at D = 256), "
                    "one block per 128 output columns, a four-slot ring of "
                    "32 KB (K plane) slots, 224 KB of shared memory")
+BWD_DESIGN = ("bf16 and f16 backward over the row stats (m, 1/l) the "
+              "forward kernel keeps when training; two kernels without "
+              "atomics: dQ with queries outer (delta = sum(g·out) first, "
+              "then S = Q·Kᵀ, dP = g·Vᵀ, dQ += dS_hi·K + dS_lo·K, K and V "
+              "through a 3-stage TMA ring); "
+              "dK and dV with keys outer, one 64-column output slice a block "
+              "(Sᵀ = K·Qᵀ, dPᵀ = V·gᵀ, dV += Pᵀ_hi·g + Pᵀ_lo·g, dK += "
+              "dSᵀ_hi·Q + dSᵀ_lo·Q, Q, g and their row stats through the "
+              "ring); P and dS only in registers, 1 producer warp + 2 "
+              "consumer warpgroups, 128 rows x 64 a tile")
 BF16_SOURCE = "incubator_mxnet_tpu_torch/csrc/flash_attention_sm90.cu"
 F32_SOURCE = "incubator_mxnet_tpu_torch/csrc/flash_attention_f32_sm90.cu"
+BWD_SOURCE = "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd_sm90.cu"
 # the (mangled) kernel names cuobjdump lists, by route
 HGMMA_FUNCTIONS = {"bf16": "flash_fwd_sm90_kernelI13__nv_bfloat16",
                    "f16": "flash_fwd_sm90_kernelI6__half",
-                   "f32": "flash_fwd_f32_sm90_kernel"}
+                   "f32": "flash_fwd_f32_sm90_kernel",
+                   "bwd_dq_bf16": "flash_bwd_dq_kernelI13__nv_bfloat16",
+                   "bwd_dkdv_bf16": "flash_bwd_dkdv_kernelI13__nv_bfloat16",
+                   "bwd_dq_f16": "flash_bwd_dq_kernelI6__half",
+                   "bwd_dkdv_f16": "flash_bwd_dkdv_kernelI6__half"}
 # the head dim 256 timing shape (B, H, Sq, Sk, D), causal
 WIDE_TIMING = ((8, 16, 1024, 1024, 256), True)
 # the wide route's timing shape: the serving shape's work at D = 512
@@ -1087,8 +1118,9 @@ def kernels_by_span(trace_path, spans):
 
 def profile_training_step(run, gemm_flops, card):
     """One training step under torch.profiler, by group: cuBLAS GEMMs of the
-    model, the flash forward kernel, the flash backward (its torch ops,
-    the span flash_attention_backward), the optimizer update (the span
+    model, the flash forward kernel, the flash backward (the backward
+    kernel and the copies its wrapper makes, the span
+    flash_attention_backward), the optimizer update (the span
     DataParallelTrainer.update) and the rest, against the step's wall time;
     the remainder is the device's idle share."""
     import torch
@@ -1143,8 +1175,9 @@ def profile_training_step(run, gemm_flops, card):
 
 def check_backward(gen, dev, card):
     """Flash attention's backward on the card against torch autograd through
-    the plain version in f32, TF32 off, at BACKWARD_CASES.  Returns the max
-    abs errors by case."""
+    the plain version in f32, TF32 off, at BACKWARD_CASES: the 16-bit cases
+    through the backward kernel, the f32 ones through the torch ops (each
+    checked by the routes' counts).  Returns the max abs errors by case."""
     import torch
     from incubator_mxnet_tpu_torch.ops.attention import (
         flash_attention, _attention_reference)
@@ -1155,11 +1188,18 @@ def check_backward(gen, dev, card):
                    .to(dtype) for s_ in (sq, sk, sk))
         g = torch.randn(b, h, sq, d, generator=gen, device=dev).to(dtype)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        before = flash_attention.backward_calls
+        before = (flash_attention.backward_calls,
+                  flash_attention.backward_kernel_launches,
+                  flash_attention.backward_torch_calls)
         got = torch.autograd.grad(flash_attention(*leaves, causal), leaves, g)
         torch.cuda.synchronize()
-        check(flash_attention.backward_calls == before + 1,
-              "the flash backward did not run through its Function")
+        kernel = dtype != torch.float32
+        check((flash_attention.backward_calls,
+               flash_attention.backward_kernel_launches,
+               flash_attention.backward_torch_calls) ==
+              (before[0] + 1, before[1] + kernel, before[2] + (not kernel)),
+              "the flash backward %s did not take its route (%s)"
+              % (dname, "the kernel" if kernel else "the torch ops"))
         plain = [t.float().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(_attention_reference(*plain, causal),
                                    plain, g.float())
@@ -1173,39 +1213,94 @@ def check_backward(gen, dev, card):
             bound = BACKWARD_F32_TOL if dtype == torch.float32 else \
                 BACKWARD_BF16_REL * top
             errs["%s_%s" % (key, name)] = err
+            ulps = "" if dtype == torch.float32 else \
+                ", %.2f ulps of the type at max |grad|" % (err / 2.0 ** (
+                    math.floor(math.log2(top)) - MANTISSA[dname]))
             print("kernel flash_attention_bwd %-36s %s max_abs_err %.3e "
-                  "(bound %.3e%s)" % (key, name, err, bound,
-                                      "" if dtype == torch.float32 else
-                                      ": 2^-7 of max |grad| %.4f" % top),
-                  flush=True)
+                  "(bound %.3e%s; %s)" % (
+                      key, name, err, bound, "" if dtype == torch.float32
+                      else ": 2^-7 of max |grad| %.4f" % top, "the kernel"
+                      if kernel else "the torch ops") + ulps, flush=True)
             check(err <= bound, "flash backward %s %s: max_abs_err %.3e > "
                   "%.3e" % (key, name, err, bound))
         del q, k, v, g, leaves, got, plain, want
     return errs
 
 
+def bwd_tensor_work(b, h, sq, sk, d, causal):
+    """The tensor work (flop) the backward kernel issues: the tile walks of
+    its dQ and dK/dV kernels (csrc/flash_attention_bwd_sm90.cu), whole
+    64 x 64 tiles across the diagonal over the head dim rounded up to 64
+    (the row stats come from the forward, which computes them anyway)."""
+    dp = -(-d // 64) * 64
+    tile = 2.0 * 128 * 64        # one 128-row block by one 64-row tile
+    offset, work = sk - sq, 0.0
+    for q0 in range(0, sq, 128):
+        rows = min(128, sq - q0)
+        n_end = max(1, min(sk, q0 + rows + offset)) if causal else sk
+        work += -(-n_end // 64) * tile * 4 * dp      # S, dP, dS_hi·K, dS_lo·K
+    n_qt = -(-sq // 64)
+    for n0 in range(0, sk, 128):
+        t_lo = t_start = 0
+        if causal:
+            t_lo = min(n_qt, -(-(-offset) // 64)) if offset < 0 else 0
+            first = n0 - offset - 63
+            t_start = max(t_lo, -(-first // 64) if first > 0 else 0)
+        walk = t_lo + n_qt - t_start
+        # each 64-column slice: Sᵀ, dPᵀ over dp, and two halves of dV and dK
+        work += walk * (dp // 64) * tile * (2 * dp + 4 * 64)
+    return b * h * work
+
+
 def time_backward(gen, dev, card):
-    """The flash backward at the training shape (bf16): its time (torch ops,
-    retain_graph so the forward is not timed), the plain version's (torch
-    autograd through _attention_reference in f32) and SDPA's backward (the
-    yardstick; the port never calls it), and its bound: the bytes (q, k, v,
-    out and g read once, dq, dk and dv written once) and the f32 products it
-    needs, 10·D flop per visible (query, key) pair (S again, dV, dP, dQ and
-    dK), on the CUDA cores or split six ways on the tensor cores, whichever
-    is less."""
+    """The flash backward at the training shape (bf16): the backward kernel's
+    time (autograd.grad with retain_graph, so the forward is not timed), the
+    torch ops it replaced (_flash_backward called alone), the plain version
+    (torch autograd through _attention_reference in f32) and SDPA's backward
+    (the yardstick; the port never calls it).  Its bound is the card's: the
+    bytes (q, k, v, out and g read once, dq, dk and dv written once) or the
+    products with the 16-bit operands exact and P and dS carried to f32,
+    16·D flop a visible (query, key) pair on the tensor cores (S and dP
+    once, dV, dK and dQ as two products each), whichever is larger; the
+    design's floor is the bf16 tensor work it issues (bwd_tensor_work).
+    Also: each of its kernels' device time (torch.profiler), and the f16
+    kernel's time on the same values."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from incubator_mxnet_tpu_torch.ops.attention import (
-        flash_attention, _attention_reference)
+        flash_attention, _attention_reference, _flash_backward)
     (b, h, sq, sk, d), causal, dname = BACKWARD_CASES[0]
     dtype = getattr(torch, dname)
+    scale = 1.0 / math.sqrt(d)
     q, k, v = (torch.randn(b, h, s_, d, generator=gen, device=dev).to(dtype)
                for s_ in (sq, sk, sk))
     g = torch.randn(b, h, sq, d, generator=gen, device=dev).to(dtype)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = flash_attention(*leaves, causal)
+    launches = flash_attention.backward_kernel_launches
     ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
-                                             retain_graph=True), 10, torch)
-    del out
+                                             retain_graph=True), 20, torch)
+    check(flash_attention.backward_kernel_launches == launches + 22,
+          "the timed backward did not run the kernel")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            torch.autograd.grad(out, leaves, g, retain_graph=True)
+        torch.cuda.synchronize()
+    kernel_us = {}
+    for evt in prof.key_averages():
+        for part in ("flash_bwd_dq", "flash_bwd_dkdv"):
+            if part in evt.key:
+                kernel_us[part] = kernel_us.get(part, 0.0) + (getattr(
+                    evt, "self_device_time_total", 0) or 0) / 5
+    half = [t.half().requires_grad_() for t in (q, k, v)]
+    out16 = flash_attention(*half, causal)
+    f16_ms = cuda_ms(lambda: torch.autograd.grad(out16, half, g.half(),
+                                                 retain_graph=True), 20, torch)
+    del out16, half
+    o = out.detach()
+    torch_ops_ms = cuda_ms(lambda: _flash_backward(q, k, v, o, g, causal,
+                                                   scale), 5, torch)
+    del out, o
     plain = [t.float().requires_grad_() for t in (q, k, v)]
     ref = _attention_reference(*plain, causal)
     plain_ms = cuda_ms(lambda: torch.autograd.grad(ref, plain, g.float(),
@@ -1215,33 +1310,43 @@ def time_backward(gen, dev, card):
     mask = torch.ones(sq, sk, dtype=torch.bool, device=dev).tril(sk - sq)
     lib = [t.clone().requires_grad_() for t in (q, k, v)]
     out = torch.nn.functional.scaled_dot_product_attention(
-        *lib, attn_mask=mask, scale=1.0 / math.sqrt(d))
+        *lib, attn_mask=mask, scale=scale)
     library_ms = cuda_ms(lambda: torch.autograd.grad(out, lib, g,
                                                      retain_graph=True),
-                         10, torch)
+                         20, torch)
     del out, lib, leaves
     fwd_flops, _ = attention_work(b, h, sq, sk, d, causal, 2)
-    flops = 2.5 * fwd_flops            # 10·D a pair against the forward's 4·D
+    flops = 4 * fwd_flops              # 16·D a pair against the forward's 4·D
+    issued = bwd_tensor_work(b, h, sq, sk, d, causal)
     nbytes = q.element_size() * b * h * d * (4 * sq + 4 * sk)
     terms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
-             "cuda_core": flops / H100_F32_CUDA_CORE_FLOPS * 1e3,
-             "split_tensor": 6 * flops / H100_BF16_FLOPS * 1e3}
-    ops_ms = min(terms["cuda_core"], terms["split_tensor"])
+             "operations": flops / H100_BF16_FLOPS * 1e3,
+             "design_floor": issued / H100_BF16_FLOPS * 1e3}
     t = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-         "bound_ms": max(terms["bytes"], ops_ms),
-         "bound_by": "bytes" if terms["bytes"] >= ops_ms else "operations",
-         "bound_terms_ms": terms,
+         "torch_ops_ms": torch_ops_ms, "f16_ms": f16_ms,
+         "kernel_us": kernel_us,
+         "bound_ms": max(terms["bytes"], terms["operations"]),
+         "bound_by": "bytes" if terms["bytes"] >= terms["operations"]
+         else "operations", "bound_terms_ms": terms,
+         "tflops": flops / ms / 1e9, "issued_tflops": issued / ms / 1e9,
          "shape": "(%d,%d,%d,%d,%d)%s %s" % (b, h, sq, sk, d,
                                              " causal" if causal else "",
                                              dname)}
-    print("timing: flash_attention_bwd (torch ops, f32 products, TF32 off) "
-          "at %s: ms %.4f, bound_ms %.4f (%s; terms ms %s; %.3e flop, %.3e "
-          "bytes), plain_ms %.4f (autograd through the plain version in "
-          "f32), library_ms %.4f (scaled_dot_product_attention's backward, "
-          "bf16, bottom-right bool mask) | %s"
+    print("timing: flash_attention_bwd (the backward kernel) at %s: ms %.4f, "
+          "bound_ms %.4f (%s; terms ms %s; %.3e flop needed, %.3e flop "
+          "issued, %.3e bytes), torch_ops_ms %.4f (the torch ops it "
+          "replaced, f32 products, TF32 off), plain_ms %.4f (autograd "
+          "through the plain version in f32), library_ms %.4f "
+          "(scaled_dot_product_attention's backward, bf16, bottom-right bool "
+          "mask); %.1f TFLOP/s of the needed work, %.1f of the issued; "
+          "device us by kernel %s (torch.profiler); f16 on the same values "
+          "%.4f ms | %s"
           % (t["shape"], ms, t["bound_ms"], t["bound_by"],
              json.dumps({k_: round(v_, 4) for k_, v_ in terms.items()}),
-             flops, nbytes, plain_ms, library_ms, card), flush=True)
+             flops, issued, nbytes, torch_ops_ms, plain_ms, library_ms,
+             t["tflops"], t["issued_tflops"],
+             json.dumps({k_: round(v_, 1) for k_, v_ in kernel_us.items()}),
+             f16_ms, card), flush=True)
     return t
 
 
@@ -1288,11 +1393,16 @@ def train_small_lm(mx, card):
     want_losses, want_w = run(mx.cpu())
     flash_attention.launches = flash_attention.f32_launches = 0
     flash_attention.backward_calls = split_f32.launches = 0
+    flash_attention.backward_kernel_launches = 0
+    flash_attention.backward_torch_calls = 0
     got_losses, got_w = run(mx.gpu(0))
     launches = {"launches": flash_attention.launches,
                 "f32_launches": flash_attention.f32_launches,
                 "split_f32": split_f32.launches,
-                "backward_calls": flash_attention.backward_calls}
+                "backward_calls": flash_attention.backward_calls,
+                "backward_torch_calls": flash_attention.backward_torch_calls,
+                "backward_kernel_launches":
+                    flash_attention.backward_kernel_launches}
     w_err = max(float(np.abs(got_w[k] - want_w[k]).max()) for k in want_w)
     l_err = max(abs(a - b) / abs(b) for a, b in zip(got_losses, want_losses))
     print("train: small LM %s f32, %d steps through DataParallelTrainer on "
@@ -1303,7 +1413,9 @@ def train_small_lm(mx, card):
              w_err, SMALL_TRAIN_W_TOL, launches, card), flush=True)
     expected = small["n_layers"] * SMALL_TRAIN_STEPS
     check(launches["f32_launches"] == expected and
-          launches["backward_calls"] == expected,
+          launches["backward_calls"] == expected and
+          launches["backward_torch_calls"] == expected and
+          launches["backward_kernel_launches"] == 0,
           "small LM training: %s for %d layers x %d steps" % (
               launches, small["n_layers"], SMALL_TRAIN_STEPS))
     check(sorted(got_w) == sorted(want_w), "small LM training: names differ")
@@ -1344,6 +1456,8 @@ def train_full_lm(mx, card):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             flash_attention.launches = flash_attention.backward_calls = 0
+            flash_attention.backward_kernel_launches = 0
+            flash_attention.backward_torch_calls = 0
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         losses.append(float(trainer.step(x, y).asscalar()))
@@ -1356,7 +1470,10 @@ def train_full_lm(mx, card):
                                                 time.perf_counter() - t0),
                   flush=True)
     launches = {"flash_attention_fwd": flash_attention.launches,
-                "flash_attention_bwd_calls": flash_attention.backward_calls}
+                "flash_attention_bwd_calls": flash_attention.backward_calls,
+                "flash_attention_bwd": flash_attention.backward_kernel_launches,
+                "flash_attention_bwd_torch_calls":
+                    flash_attention.backward_torch_calls}
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(int(np.prod(p.shape)) for p in
                    net.collect_params().values())
@@ -1388,8 +1505,11 @@ def train_full_lm(mx, card):
     check(losses[-1] < losses[0], "training loss did not fall: %s" % losses)
     expected = cfg["n_layers"] * TRAIN_STEPS
     check(launches["flash_attention_fwd"] == expected and
-          launches["flash_attention_bwd_calls"] == expected,
-          "training launches %s, expected %d each" % (launches, expected))
+          launches["flash_attention_bwd_calls"] == expected and
+          launches["flash_attention_bwd"] == expected and
+          launches["flash_attention_bwd_torch_calls"] == 0,
+          "training launches %s, expected %d each and no backward through "
+          "the torch ops" % (launches, expected))
     d, f = cfg["d_model"], cfg["d_ffn"]
     gemm_flops = 3 * 2.0 * tokens * (cfg["n_layers"] * (4 * d * d + 2 * d * f)
                                      + d * vocab)
@@ -1434,7 +1554,7 @@ def main():
     for name in cuda_build.KERNELS:
         for line in cuda_build.build_log(name).splitlines():
             if any(t in line for t in ("entry function", "registers",
-                                       "spill", "C7515")):
+                                       "spill", "C7515", "C7512")):
                 print("  ptxas %s: %s" % (name, line.strip()))
     flash_lib = cuda_build.lib_path("flash_attention")
     hgmma = {route: sass_count(flash_lib, "HGMMA", function)
@@ -1746,9 +1866,9 @@ def main():
     backward = time_backward(gen, dev, card)
     serving = case_key(*ATTENTION_CASES[-1], "bfloat16")
 
-    def entry(name, source, design, launches_, err, t, **extra):
-        return dict(name=name, route="cuda", source=source,
-                    replaces="incubator_mxnet_tpu/ops/attention.py:56",
+    def entry(name, source, design, launches_, err, t,
+              replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
                     design=design, launches=launches_, max_abs_err=err,
                     ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                     bound_by=t["bound_by"], library_ms=t["library_ms"],
@@ -1796,6 +1916,17 @@ def main():
                        bound_ms=wider_f32["bound_ms"],
                        library_ms=wider_f32["library_ms"],
                        max_abs_err=errs[wider_key % "float32"])),
+        entry("flash_attention_bwd", BWD_SOURCE, BWD_DESIGN,
+              train["launches"]["flash_attention_bwd"],
+              max(backward_errs[case_key(*BACKWARD_CASES[0][:2], "bfloat16")
+                                + "_" + n] for n in ("dq", "dk", "dv")),
+              backward, replaces="incubator_mxnet_tpu/ops/attention.py:168",
+              training_steps=TRAIN_STEPS, torch_ops_ms=backward[
+                  "torch_ops_ms"], f16_ms=backward["f16_ms"],
+              kernel_us=backward["kernel_us"],
+              bound_terms_ms=backward["bound_terms_ms"],
+              tflops=backward["tflops"], hgmma={
+                  r: n for r, n in hgmma.items() if r.startswith("bwd")}),
     ] + rtc_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,17 +9,19 @@
 //             reads each input at its own dtype, six products on wgmma).
 // Head dims 1..256 on those routes; head dims above 256, any dtype or mix:
 // flash_attention_wide.cu (f32 FMAs on the CUDA cores, shared memory that
-// does not grow with D). Each returns the cudaError_t of its launch
-// (0 = success); the launches run on the caller's stream and allocate
-// nothing.
+// does not grow with D). The backward of the bfloat16 and float16 routes at
+// head dims 1..128 (the gradient of _flash_kernel, the JAX build's
+// _flash_bwd): flash_attention_bwd_sm90.cu (two wgmma kernels, dQ and
+// dK/dV, over the row stats that the forward wrote). Each returns the cudaError_t of its launch (0 = success);
+// the launches run on the caller's stream and allocate nothing.
 
 #include <cuda_runtime.h>
 
 cudaError_t flash_attention_sm90_16bit(const void* q, const void* k,
                                        const void* v, void* o,
                                        int batch_heads, int sq, int sk, int d,
-                                       float scale, int causal, int is_half,
-                                       cudaStream_t stream);
+                                       float scale, int causal, void* stats,
+                                       int is_half, cudaStream_t stream);
 cudaError_t flash_attention_sm90_f32_split(const void* x, long long st0,
                                            long long st1, long long st2,
                                            long long st3, void* planes, int b,
@@ -29,6 +31,11 @@ cudaError_t flash_attention_sm90_f32(const void* qp, const void* kp,
                                      const void* vp, float* o,
                                      int batch_heads, int sq, int sk, int d,
                                      int causal, cudaStream_t stream);
+cudaError_t flash_attention_bwd_sm90_16bit(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* g, void* dq, void* dk, void* dv, void* stats,
+    int batch_heads, int sq, int sk, int d, float scale, int causal,
+    int is_half, cudaStream_t stream);
 cudaError_t flash_attention_wide_launch(
     const void* q, const long long* q_st, int q_dtype, const void* k,
     const long long* k_st, int k_dtype, const void* v, const long long* v_st,
@@ -47,14 +54,16 @@ bool valid_shape(int batch_heads, int sq, int sk, int d) {
 }  // namespace
 
 // q, o: (batch_heads, sq, d); k, v: (batch_heads, sk, d); contiguous bf16
-// with 16-byte aligned bases; d a multiple of 8 up to 256.
+// with 16-byte aligned bases; d a multiple of 8 up to 256. stats: null, or
+// (training, d <= 128) f32 (batch_heads, sq rounded up to 128, 4), 16-byte
+// aligned, where each row's (m, 1 / l) for the backward kernel is written.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int batch_heads,
                                     int sq, int sk, int d, float scale,
-                                    int causal, void* stream) {
+                                    int causal, void* stats, void* stream) {
   if (!valid_shape(batch_heads, sq, sk, d)) return (int)cudaErrorInvalidValue;
   return (int)flash_attention_sm90_16bit(q, k, v, o, batch_heads, sq, sk, d,
-                                         scale, causal, 0,
+                                         scale, causal, stats, 0,
                                          static_cast<cudaStream_t>(stream));
 }
 
@@ -62,10 +71,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
 extern "C" int flash_attention_f16(const void* q, const void* k,
                                    const void* v, void* o, int batch_heads,
                                    int sq, int sk, int d, float scale,
-                                   int causal, void* stream) {
+                                   int causal, void* stats, void* stream) {
   if (!valid_shape(batch_heads, sq, sk, d)) return (int)cudaErrorInvalidValue;
   return (int)flash_attention_sm90_16bit(q, k, v, o, batch_heads, sq, sk, d,
-                                         scale, causal, 1,
+                                         scale, causal, stats, 1,
                                          static_cast<cudaStream_t>(stream));
 }
 
@@ -120,6 +129,36 @@ extern "C" int flash_attention_wide(
       q, q_st, q_dtype, k, k_st, k_dtype, v, v_st, v_dtype,
       static_cast<float*>(o), b, h, sq, sk, d, scale, causal,
       static_cast<cudaStream_t>(stream));
+}
+
+// The backward of the bf16 route: q, out, g, dq (batch_heads, sq, d); k, v,
+// dk, dv (batch_heads, sk, d); contiguous bf16 with 16-byte aligned bases, d
+// a multiple of 8 up to 128; stats: the forward's row stats (its stats
+// argument), where the backward adds each row's delta.
+extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
+                                        const void* v, const void* out,
+                                        const void* g, void* dq, void* dk,
+                                        void* dv, void* stats,
+                                        int batch_heads, int sq, int sk, int d,
+                                        float scale, int causal,
+                                        void* stream) {
+  if (!valid_shape(batch_heads, sq, sk, d)) return (int)cudaErrorInvalidValue;
+  return (int)flash_attention_bwd_sm90_16bit(
+      q, k, v, out, g, dq, dk, dv, stats, batch_heads, sq, sk, d, scale,
+      causal, 0, static_cast<cudaStream_t>(stream));
+}
+
+// The same for float16 q, k, v, out, g, dq, dk, dv.
+extern "C" int flash_attention_bwd_f16(const void* q, const void* k,
+                                       const void* v, const void* out,
+                                       const void* g, void* dq, void* dk,
+                                       void* dv, void* stats, int batch_heads,
+                                       int sq, int sk, int d, float scale,
+                                       int causal, void* stream) {
+  if (!valid_shape(batch_heads, sq, sk, d)) return (int)cudaErrorInvalidValue;
+  return (int)flash_attention_bwd_sm90_16bit(
+      q, k, v, out, g, dq, dk, dv, stats, batch_heads, sq, sk, d, scale,
+      causal, 1, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

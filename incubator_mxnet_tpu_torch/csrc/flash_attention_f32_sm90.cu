@@ -464,6 +464,8 @@ cudaError_t flash_attention_sm90_f32(const void* qp, const void* kp,
   if (d < 1 || d > 256 || (sq + 63) / 64 > 65535 ||
       ((uintptr_t)qp | (uintptr_t)kp | (uintptr_t)vp) % 16 != 0)
     return cudaErrorInvalidValue;
+  const cudaError_t bound = bind_device(qp);
+  if (bound != cudaSuccess) return bound;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const int q_rows = d <= 128 ? 128 : 64;  // the instance's query rows

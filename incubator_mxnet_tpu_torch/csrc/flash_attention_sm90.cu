@@ -74,8 +74,11 @@
 // through shared memory. Ragged edges: TMA fills rows past Sq or Sk and
 // columns past D with zeros; keys past Sk get -inf logits (p = 0). Key tiles
 // past the last visible key of the block are skipped only when every row of
-// the block sees some key, where skipping is exact. The kernel allocates
-// nothing and runs on the caller's stream.
+// the block sees some key, where skipping is exact. Given a stats pointer
+// (training, head dims up to 128), it also writes each row's m and 1 / l for
+// the backward kernel (flash_attention_bwd_sm90.cu), which so needs no pass
+// of its own over Q·Kᵀ; serving passes null. The kernel allocates nothing
+// and runs on the caller's stream.
 
 #include "flash_sm90_common.cuh"
 
@@ -83,64 +86,19 @@ namespace {
 
 constexpr int kStages = 3;
 
-// S = Q·Kᵀ for this warpgroup's 64 rows and one tile of 64 keys, k16 steps
-// of 32 bytes inside each 128-byte panel; one commit group
-template <typename T, int NQK>
-__device__ __forceinline__ void issue_qk(float (&sacc)[32], uint32_t q_wg,
-                                         uint32_t k_t) {
-#pragma unroll
-  for (int kk = 0; kk < 4 * NQK; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    wgmma_ss<T>(sacc, smem_desc(q_wg + (kk / 4) * kQPanel + off, 16, 1024),
-                smem_desc(k_t + (kk / 4) * kKVPanel + off, 16, 1024), kk > 0);
-  }
-  wgmma_commit();
-}
-
-// O += P_hi·V + P_lo·V, one panel of V (64 output columns) at a time, a k16
-// step being 16 key rows (2048 bytes); registers 4kk .. 4kk+3 of P are the A
-// operand of step kk; one commit group
-template <typename T, int NO>
-__device__ __forceinline__ void issue_pv(float (&oacc)[NO][32],
-                                         const uint32_t (&p_hi)[16],
-                                         const uint32_t (&p_lo)[16],
-                                         uint32_t v_t) {
-#pragma unroll
-  for (int p = 0; p < NO; ++p) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv = smem_desc(v_t + p * kKVPanel + kk * 2048, 1024, 1024);
-      wgmma_rs<T>(oacc[p], &p_hi[4 * kk], dv);
-      wgmma_rs<T>(oacc[p], &p_lo[4 * kk], dv);
-    }
-  }
-  wgmma_commit();
-}
-
-// P = P_hi + P_lo, both packed in pairs into T x2: the accumulator pair
-// (2i, 2i+1) is register i of wgmma's A-from-registers fragment
-template <typename T>
-__device__ __forceinline__ void split_p(const float (&p)[32],
-                                        uint32_t (&p_hi)[16],
-                                        uint32_t (&p_lo)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    float2 hf;
-    p_hi[i] = pack2(T(), p[2 * i], p[2 * i + 1], &hf);
-    p_lo[i] = pack2(T(), p[2 * i] - hf.x, p[2 * i + 1] - hf.y, nullptr);
-  }
-}
-
 // T: __nv_bfloat16 or __half. NQK: 64-column panels of Q and K, the head
 // dim rounded up to a multiple of 64 (1 to 4); NO: panels of V and O in one
-// output slice, 1 or 2
+// output slice, 1 or 2. stats: null, or (for the backward kernel, at head
+// dims up to 128, one output slice) each row's (m in log2 units,
+// 1 / max(l, 1e-20), 0, 0) into (batch_heads, sq_pad) float4, zeros past sq.
 template <typename T, int NQK, int NO>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
                       T* __restrict__ o, int sq, int sk, int d,
-                      float scale, int causal) {
+                      float scale, int causal, float4* __restrict__ stats,
+                      int sq_pad) {
   constexpr int kKTile = NQK * kKVPanel;
   constexpr int kVTile = NO * kKVPanel;
   extern __shared__ uint8_t smem_raw[];
@@ -234,7 +192,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   mbar_wait(bar_k, 0);
   fence_regs(sacc);
   wgmma_fence();
-  issue_qk<T, NQK>(sacc, q_wg, k_s);
+  issue_qk16<T, NQK>(sacc, q_wg, k_s);
   wgmma_wait<0>();
   fence_regs(sacc);
   softmax_tile(sacc, 0, edge(0), sk, r0, offset, causal, scale_log2, t4, rows,
@@ -251,8 +209,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_regs(p_hi);
     fence_regs(p_lo);
     wgmma_fence();
-    issue_qk<T, NQK>(sacc, q_wg, k_s + s * kKTile);
-    issue_pv<T, NO>(oacc, p_hi, p_lo, v_s + sp * kVTile);
+    issue_qk16<T, NQK>(sacc, q_wg, k_s + s * kKTile);
+    issue_pv16<T, NO>(oacc, p_hi, p_lo, v_s + sp * kVTile);
     wgmma_wait<1>();  // S of tile t is in; P·V of tile t-1 may still run
     fence_regs(sacc);
     softmax_tile(sacc, t * kBlockN, edge(t * kBlockN), sk, r0, offset, causal,
@@ -273,7 +231,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   fence_regs(p_hi);
   fence_regs(p_lo);
   wgmma_fence();
-  issue_pv<T, NO>(oacc, p_hi, p_lo, v_s + sl * kVTile);
+  issue_pv16<T, NO>(oacc, p_hi, p_lo, v_s + sl * kVTile);
   wgmma_wait<0>();
   fence_regs(oacc);
   fence_regs(p_hi);
@@ -288,6 +246,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float den0 = fmaxf(l0, 1e-20f);
   const float den1 = fmaxf(l1, 1e-20f);
+  if (stats != nullptr && t4 == 0) {
+    stats[(long long)bh * sq_pad + r0] =
+        r0 < sq ? make_float4(rows.m0, 1.f / den0, 0.f, 0.f)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+    stats[(long long)bh * sq_pad + r1] =
+        r1 < sq ? make_float4(rows.m1, 1.f / den1, 0.f, 0.f)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   T* og = o + (long long)bh * sq * d;
 #pragma unroll
   for (int p = 0; p < NO; ++p) {
@@ -307,48 +273,37 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// A (batch_heads, rows, d) tensor of 16-bit `type` as a 3-d TMA map whose box
-// is one panel of 64 columns by box_rows rows of one (batch, head): rows past
-// `rows` and columns past d read as zeros.
-bool make_map(EncodeTiledFn encode, CUtensorMap* map, CUtensorMapDataType type,
-              const void* ptr, int batch_heads, int rows, int d,
-              int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)batch_heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kPanel, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
-                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int NQK, int NO>
 cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
                    const CUtensorMap& vm, void* o, int batch_heads, int sq,
-                   int sk, int d, float scale, int causal,
+                   int sk, int d, float scale, int causal, void* stats,
                    cudaStream_t stream) {
   const int smem = NQK * kQPanel + kStages * (NQK + NO) * kKVPanel + 1024;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_sm90_kernel<T, NQK, NO>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch_heads, (sq + kBlockM - 1) / kBlockM,
+  const int q_blocks = (sq + kBlockM - 1) / kBlockM;
+  const dim3 grid(batch_heads, q_blocks,
                   (d + NO * kPanel - 1) / (NO * kPanel));
   flash_fwd_sm90_kernel<T, NQK, NO><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<T*>(o), sq, sk, d, scale, causal);
+      qm, km, vm, static_cast<T*>(o), sq, sk, d, scale, causal,
+      static_cast<float4*>(stats), q_blocks * kBlockM);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t run(CUtensorMapDataType type, const void* q, const void* k,
                 const void* v, void* o, int batch_heads, int sq, int sk,
-                int d, float scale, int causal, cudaStream_t stream) {
+                int d, float scale, int causal, void* stats,
+                cudaStream_t stream) {
   if (d % 8 != 0 || d > 256 || (sq + kBlockM - 1) / kBlockM > 65535 ||
-      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
+      (stats != nullptr && d > 128) ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
+       (uintptr_t)stats) % 16 != 0)
     return cudaErrorInvalidValue;
+  const cudaError_t bound = bind_device(q);
+  if (bound != cudaSuccess) return bound;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
@@ -358,15 +313,15 @@ cudaError_t run(CUtensorMapDataType type, const void* q, const void* k,
     return cudaErrorInvalidValue;
   if (d <= 64)
     return launch<T, 1, 1>(qm, km, vm, o, batch_heads, sq, sk, d, scale,
-                           causal, stream);
+                           causal, stats, stream);
   if (d <= 128)
     return launch<T, 2, 2>(qm, km, vm, o, batch_heads, sq, sk, d, scale,
-                           causal, stream);
+                           causal, stats, stream);
   if (d <= 192)
     return launch<T, 3, 2>(qm, km, vm, o, batch_heads, sq, sk, d, scale,
-                           causal, stream);
+                           causal, stats, stream);
   return launch<T, 4, 2>(qm, km, vm, o, batch_heads, sq, sk, d, scale, causal,
-                         stream);
+                         stats, stream);
 }
 
 }  // namespace
@@ -375,15 +330,17 @@ cudaError_t run(CUtensorMapDataType type, const void* q, const void* k,
 // (flash_attention.cu). q, o: (batch_heads, sq, d); k, v: (batch_heads, sk,
 // d); contiguous bf16 (is_half 0) or f16 (is_half 1) with 16-byte aligned
 // bases; d a multiple of 8 up to 256 (the TMA row stride is a multiple of 16
-// bytes).
+// bytes); stats: null, or at d <= 128 the backward kernel's row stats,
+// batch_heads x (sq rounded up to 128) float4, 16-byte aligned.
 cudaError_t flash_attention_sm90_16bit(const void* q, const void* k,
                                        const void* v, void* o,
                                        int batch_heads, int sq, int sk, int d,
-                                       float scale, int causal, int is_half,
-                                       cudaStream_t stream) {
+                                       float scale, int causal, void* stats,
+                                       int is_half, cudaStream_t stream) {
   if (is_half)
     return run<__half>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, q, k, v, o,
-                       batch_heads, sq, sk, d, scale, causal, stream);
+                       batch_heads, sq, sk, d, scale, causal, stats, stream);
   return run<__nv_bfloat16>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, o,
-                            batch_heads, sq, sk, d, scale, causal, stream);
+                            batch_heads, sq, sk, d, scale, causal, stats,
+                            stream);
 }

@@ -1,11 +1,14 @@
-// Building blocks shared by the two Hopper (sm_90a) flash-attention kernels:
-// the 16-bit routes, bf16 and f16 (flash_attention_sm90.cu), and the f32
-// route (flash_attention_f32_sm90.cu). mbarriers with a trap on a stuck
-// wait, TMA tile loads, wgmma m64n64k16 (bf16 or f16 operands, f32
-// accumulator) on 128-byte-swizzled shared memory, the empty register fences
-// around asynchronous wgmma, the online softmax of one S tile in log2 units,
-// and the driver's tensor-map encoder. Layout and exactness notes are in the
-// two kernels' sources.
+// Building blocks shared by the Hopper (sm_90a) flash-attention kernels: the
+// 16-bit forward, bf16 and f16 (flash_attention_sm90.cu), the f32 forward
+// (flash_attention_f32_sm90.cu) and the 16-bit backward
+// (flash_attention_bwd_sm90.cu). mbarriers with a trap on a stuck wait, TMA
+// tile loads, wgmma m64n64k16 (bf16 or f16 operands, f32 accumulator) on
+// 128-byte-swizzled shared memory, the empty register fences around
+// asynchronous wgmma, the 16-bit routes' S = A·Bᵀ and O += P·V products with
+// P split into two halves, the online softmax of one S tile in log2 units,
+// the binding of the operands' device in the calling thread, and the CUDA
+// driver's tensor-map encoder with the 16-bit routes' panel maps.
+// Layout and exactness notes are in the kernels' sources.
 #pragma once
 
 #include <cuda.h>
@@ -214,6 +217,56 @@ __device__ __forceinline__ uint32_t pack2(__half, float a, float b,
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// S = A·Bᵀ for one warpgroup: A its 64 rows of a resident 128-row tile (Q in
+// the forward; panels kQPanel apart), B one 64-row tile of the ring (K;
+// panels kKVPanel apart), both K-major, over NQK panels of 64 columns in k16
+// steps of 32 bytes inside each 128-byte row; one commit group
+template <typename T, int NQK>
+__device__ __forceinline__ void issue_qk16(float (&sacc)[32], uint32_t a_wg,
+                                           uint32_t b_t) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NQK; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss<T>(sacc, smem_desc(a_wg + (kk / 4) * kQPanel + off, 16, 1024),
+                smem_desc(b_t + (kk / 4) * kKVPanel + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P_hi·V + P_lo·V, one panel of V (64 output columns) at a time, a k16
+// step being 16 rows of the 64-row tile V (2048 bytes); registers 4kk ..
+// 4kk+3 of P are the A operand of step kk; one commit group
+template <typename T, int NO>
+__device__ __forceinline__ void issue_pv16(float (&oacc)[NO][32],
+                                           const uint32_t (&p_hi)[16],
+                                           const uint32_t (&p_lo)[16],
+                                           uint32_t v_t) {
+#pragma unroll
+  for (int p = 0; p < NO; ++p) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = smem_desc(v_t + p * kKVPanel + kk * 2048, 1024, 1024);
+      wgmma_rs<T>(oacc[p], &p_hi[4 * kk], dv);
+      wgmma_rs<T>(oacc[p], &p_lo[4 * kk], dv);
+    }
+  }
+  wgmma_commit();
+}
+
+// P = P_hi + P_lo, both packed in pairs into T x2: the accumulator pair
+// (2i, 2i+1) is register i of wgmma's A-from-registers fragment
+template <typename T>
+__device__ __forceinline__ void split_p(const float (&p)[32],
+                                        uint32_t (&p_hi)[16],
+                                        uint32_t (&p_lo)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    float2 hf;
+    p_hi[i] = pack2(T(), p[2 * i], p[2 * i + 1], &hf);
+    p_lo[i] = pack2(T(), p[2 * i] - hf.x, p[2 * i + 1] - hf.y, nullptr);
+  }
+}
+
 // the running max (log2 units) and this thread's share of the running sum of
 // its two rows
 struct RowState {
@@ -294,6 +347,19 @@ __device__ __forceinline__ void rescale(float (&oacc)[NP][32], float alpha0,
 }
 
 
+// Make the primary context of the device that holds p current in the calling
+// thread. The tensor-map encoder is a CUDA driver call and fails without a
+// current context (CUDA_ERROR_INVALID_CONTEXT), and this library's own runtime
+// binds device 0 by default: a thread that has made no CUDA call yet has
+// neither, such as autograd's worker thread when the caching allocator serves
+// every buffer of a backward from memory it already holds.
+inline cudaError_t bind_device(const void* p) {
+  cudaPointerAttributes attr;
+  const cudaError_t err = cudaPointerGetAttributes(&attr, p);
+  if (err != cudaSuccess) return err;
+  return cudaSetDevice(attr.device);
+}
+
 // cuTensorMapEncodeTiled, taken from the driver through the runtime so that
 // the library needs no -lcuda
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -319,6 +385,24 @@ EncodeTiledFn encode_tiled() {
       fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
+}
+
+// A (batch_heads, rows, d) tensor of 16-bit `type` as a 3-d TMA map whose box
+// is one panel of 64 columns by box_rows rows of one (batch, head): rows past
+// `rows` and columns past d read as zeros.
+bool make_map(EncodeTiledFn encode, CUtensorMap* map, CUtensorMapDataType type,
+              const void* ptr, int batch_heads, int rows, int d,
+              int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)batch_heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kPanel, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

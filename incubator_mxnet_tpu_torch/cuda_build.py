@@ -40,11 +40,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 KERNELS = {
     "flash_attention": {
-        # q, k, v, o, batch_heads, sq, sk, d, scale, causal, stream
+        # q, k, v, o, batch_heads, sq, sk, d, scale, causal, stats (null
+        # when serving), stream
         "flash_attention_bf16": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                                      _P]),
+                                      _P, _P]),
         "flash_attention_f16": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                                     _P]),
+                                     _P, _P]),
         # x, its 4 strides, planes, b, h, s, d, mul, x's dtype code, stream
         "flash_attention_f32_split": (_I, [_P, _L, _L, _L, _L, _P, _I, _I,
                                            _I, _I, _F, _I, _P]),
@@ -55,16 +56,24 @@ KERNELS = {
         # d, scale, causal, stream
         "flash_attention_wide": (_I, [_P, _L, _L, _L, _L, _I] * 3 +
                                  [_P, _I, _I, _I, _I, _I, _F, _I, _P]),
+        # q, k, v, out, g, dq, dk, dv, stats, batch_heads, sq, sk, d, scale,
+        # causal, stream
+        "flash_attention_bwd_bf16": (_I, [_P] * 9 + [_I, _I, _I, _I, _F, _I,
+                                                      _P]),
+        "flash_attention_bwd_f16": (_I, [_P] * 9 + [_I, _I, _I, _I, _F, _I,
+                                                     _P]),
         "flash_attention_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 # kernel name -> its sources under csrc/: flash attention's C entry points,
-# its 16-bit routes (bf16, f16) and its f32 route (all wgmma and TMA), and
-# its route for head dims above 256 (CUDA cores), one library
+# its 16-bit routes (bf16, f16) and its f32 route (all wgmma and TMA), its
+# route for head dims above 256 (CUDA cores), and the 16-bit routes' backward
+# (wgmma and TMA), one library
 SOURCES = {
     "flash_attention": ("flash_attention.cu", "flash_attention_sm90.cu",
                         "flash_attention_f32_sm90.cu",
-                        "flash_attention_wide.cu"),
+                        "flash_attention_wide.cu",
+                        "flash_attention_bwd_sm90.cu"),
 }
 
 _LOCK = threading.Lock()

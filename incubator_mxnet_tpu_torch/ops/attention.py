@@ -21,11 +21,24 @@ reference pads any head dim and runs it.  ``csrc/flash_attention.cu`` holds
 the library's C entry points.
 
 The backward is the reference's ``_flash_bwd`` (ops/attention.py:168-242),
-which the JAX build runs as jnp under XLA, not as Pallas: here the same
-chunked passes in torch ops, f32 with TF32 off (``Precision.HIGHEST``), on
-either device (:func:`_flash_backward`).  Both devices go through one
-``torch.autograd.Function``, so the backward the card runs is the one the
-CPU tests hold against the JAX build.
+which the JAX build runs as jnp under XLA.  Both devices go through one
+``torch.autograd.Function``, whose backward takes one of two routes:
+
+- the kernel, ``csrc/flash_attention_bwd_sm90.cu`` (:func:`_flash_backward_cuda`:
+  dQ, dK and dV on wgmma over the row stats that the 16-bit forward kept,
+  P and dS split into two halves and kept in registers), for CUDA tensors
+  that are all bfloat16 or all float16 at head dims up to 128, when grad
+  mode is off inside the backward (no ``create_graph``); it bumps
+  ``flash_attention.backward_kernel_launches``;
+- the torch ops of :func:`_flash_backward` (the same chunked passes as the
+  reference, f32 with TF32 off, ``Precision.HIGHEST``) for everything else:
+  every CPU tensor (it is the kernel's plain version), and on the card f32,
+  dtype mixes, head dims above 128 and ``create_graph=True`` (a second
+  derivative needs a differentiable backward); it bumps
+  ``flash_attention.backward_torch_calls``.
+
+Neither route falls back to the other: a build or launch failure of the
+kernel raises ``MXNetError``.
 
 Registered as op ``_contrib_FlashAttention`` (and its aliases), so the
 eager NDArray surface and Gluon's ``MultiHeadAttention`` reach it.
@@ -213,9 +226,10 @@ def _flash_forward_f32(q, k, v, causal, scale, lib):
     return o.to(q.dtype)
 
 
-def _flash_forward_16bit(q, k, v, causal, scale, lib):
+def _flash_forward_16bit(q, k, v, causal, scale, lib, stats=None):
     """The bf16 or f16 route, on contiguous, 16-byte aligned copies of
-    q, k, v."""
+    q, k, v; with ``stats`` (from :func:`_backward_stats`) it also writes
+    each row's softmax stats for the backward kernel."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     # the split-heads transpose leaves q, k, v strided: one copy each, as
@@ -235,7 +249,9 @@ def _flash_forward_16bit(q, k, v, causal, scale, lib):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   o.data_ptr(), b * h, sq, sk, dk,
-                                  float(scale), int(bool(causal)), stream)
+                                  float(scale), int(bool(causal)),
+                                  None if stats is None else stats.data_ptr(),
+                                  stream)
     _raise_on(err, lib, entry)
     if q.dtype == torch.float16:
         flash_attention.f16_launches += 1
@@ -261,14 +277,17 @@ def _flash_forward_wide(q, k, v, causal, scale, lib):
     return o.to(q.dtype)
 
 
-def _flash_forward_cuda(q, k, v, causal, scale):
+def _flash_forward_cuda(q, k, v, causal, scale, stats=None):
     """Launch the kernel's route for the dtypes and head dim of q, k, v on
-    the current stream of q's device."""
+    the current stream of q's device; ``stats`` (the 16-bit routes at head
+    dims up to 128 only) receives the row stats of the backward kernel."""
     code = _kernel_dtype_code(q, k, v)
     lib = cuda_build.load("flash_attention")
-    route = {0: _flash_forward_f32, _WIDE: _flash_forward_wide}.get(
-        code, _flash_forward_16bit)
-    o = route(q, k, v, causal, scale, lib)
+    if code in (1, 2):
+        o = _flash_forward_16bit(q, k, v, causal, scale, lib, stats)
+    else:
+        route = _flash_forward_wide if code == _WIDE else _flash_forward_f32
+        o = route(q, k, v, causal, scale, lib)
     flash_attention.launches += 1
     return o
 
@@ -351,31 +370,111 @@ def _flash_backward(q, k, v, out, g, causal, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# the backward kernel's head dims (its dK/dV blocks hold one 64-column slice
+# of 64 keys and its dQ blocks all of D in registers)
+_MAX_BACKWARD_HEAD_DIM = 128
+# rows of the row stats are padded to the kernels' 128-row query blocks
+_BACKWARD_ROWS = 128
+
+
+def _backward_stats(q):
+    """The buffer of the backward kernel's row stats for (B, H, Sq, D) ``q``:
+    (B*H, Sq rounded up to 128, 4) f32, each row's (m, 1 / l) written by the
+    16-bit forward kernel and delta by the backward's dQ kernel."""
+    b, h, sq, _ = q.shape
+    return torch.empty((b * h, -(-sq // _BACKWARD_ROWS) * _BACKWARD_ROWS, 4),
+                       dtype=torch.float32, device=q.device)
+
+
+def _on_card(t):
+    """Is ``t`` on a CUDA card?  (The one device test of the backward's
+    routing, so the CPU tests can drive that routing with a stubbed
+    library.)"""
+    return t.device.type == "cuda"
+
+
+def _backward_kernel_inputs(q, k, v):
+    """Can the backward kernel take these inputs?  CUDA tensors, all
+    bfloat16 or all float16, head dim up to 128."""
+    return (_on_card(q) and q.dtype == k.dtype == v.dtype and
+            q.dtype in (torch.bfloat16, torch.float16) and
+            q.shape[-1] <= _MAX_BACKWARD_HEAD_DIM)
+
+
+def _flash_backward_cuda(q, k, v, out, g, causal, scale, stats):
+    """(dq, dk, dv) by the backward kernel
+    (``csrc/flash_attention_bwd_sm90.cu``), on contiguous, 16-byte aligned
+    copies of q, k, v, out and g with the head dim padded to a multiple of 8
+    (zero columns add nothing to S or dP, and their gradient columns are cut
+    off again), over ``stats``, the row stats the forward wrote (see
+    :func:`_backward_stats`)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dpad = -(-d // _COLUMNS) * _COLUMNS
+    ins = []
+    for t in (q, k, v, out, g.to(q.dtype)):
+        t = t.contiguous()
+        if dpad != d:
+            t = torch.nn.functional.pad(t, (0, dpad - d))
+        ins.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    grads = [torch.empty_like(t) for t in ins[:3]]
+    entry = "flash_attention_bwd_f16" if q.dtype == torch.float16 else \
+        "flash_attention_bwd_bf16"
+    lib = cuda_build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, entry)(*(t.data_ptr() for t in ins + grads),
+                                  stats.data_ptr(), b * h, sq, sk, dpad,
+                                  float(scale), int(bool(causal)), stream)
+    _raise_on(err, lib, entry)
+    flash_attention.backward_kernel_launches += 1
+    if dpad != d:
+        grads = [t[..., :d].contiguous() for t in grads]
+    return tuple(grads)
+
+
 class _FlashAttentionFunction(torch.autograd.Function):
     """Flash attention under autograd, on either device: the forward is the
     kernel on a CUDA tensor and the plain version on a CPU tensor; the
-    backward is :func:`_flash_backward` on both.  It saves the inputs as
-    given and the output (no padded or contiguous copy of the 16-bit route).
-    Its backward is made of differentiable torch ops, so a second derivative
-    (``create_graph=True``) goes through it too."""
+    backward is the backward kernel for inputs it takes
+    (:func:`_backward_kernel_inputs`) when grad mode is off inside the
+    backward (it is on only under ``create_graph``), else
+    :func:`_flash_backward`.  It saves the inputs as given,
+    the output (no padded or contiguous copy of the 16-bit route) and, for
+    the backward kernel, the row stats the forward wrote.  Under
+    ``create_graph=True`` the backward is the torch ops, which are
+    differentiable, so a second derivative goes through them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        if q.device.type == "cpu":
+        stats = None
+        if not _on_card(q):
             out = _attention_reference(q, k, v, causal, scale)
         else:
-            out = _flash_forward_cuda(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out)
+            # a gradient to come that the backward kernel can take: the
+            # forward keeps each row's softmax stats for it
+            if any(ctx.needs_input_grad[:3]) and \
+                    _backward_kernel_inputs(q, k, v):
+                stats = _backward_stats(q)
+            out = _flash_forward_cuda(q, k, v, causal, scale, stats)
+        ctx.save_for_backward(q, k, v, out, stats)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, stats = ctx.saved_tensors
         # a named span, so a profile can attribute the backward's kernels
         with torch.profiler.record_function("flash_attention_backward"):
-            dq, dk, dv = _flash_backward(q, k, v, out, grad_out, ctx.causal,
-                                         ctx.scale)
+            if _backward_kernel_inputs(q, k, v) and \
+                    not torch.is_grad_enabled():
+                dq, dk, dv = _flash_backward_cuda(q, k, v, out, grad_out,
+                                                  ctx.causal, ctx.scale,
+                                                  stats)
+            else:
+                dq, dk, dv = _flash_backward(q, k, v, out, grad_out,
+                                             ctx.causal, ctx.scale)
+                flash_attention.backward_torch_calls += 1
         flash_attention.backward_calls += 1
         return dq, dk, dv, None, None
 
@@ -389,8 +488,10 @@ def flash_attention(q, k, v, causal=False, scale=None):
     ``flash_attention.mixed_launches``; on the f16 route
     ``flash_attention.f16_launches``; at head dims above 256
     ``flash_attention.wide_launches``); a CPU tensor through the plain
-    version.  Either way the gradient is :func:`_flash_backward`
-    (``flash_attention.backward_calls`` counts its runs).
+    version.  The gradient takes the backward kernel or
+    :func:`_flash_backward` as the module's docstring says
+    (``flash_attention.backward_calls`` counts both,
+    ``backward_kernel_launches`` and ``backward_torch_calls`` each route).
     ``scale`` defaults to 1/sqrt(D); with ``causal`` the diagonal is
     anchored at the end of the key axis.  The output has q's dtype."""
     _check_inputs(q, k, v)
@@ -408,6 +509,8 @@ flash_attention.f16_launches = 0
 flash_attention.mixed_launches = 0
 flash_attention.wide_launches = 0
 flash_attention.backward_calls = 0
+flash_attention.backward_kernel_launches = 0
+flash_attention.backward_torch_calls = 0
 
 
 @register("_contrib_FlashAttention", num_inputs=3,

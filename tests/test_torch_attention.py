@@ -522,9 +522,10 @@ def test_device_and_shape_checks():
 
 
 def test_kernel_backward_is_not_ported():
-    """The autograd Function's backward, on the CPU path as on the card, is
-    the ported ``_flash_bwd``: ``_flash_backward`` on the saved inputs and
-    output."""
+    """The autograd Function's backward on the CPU path (and on the card for
+    f32, mixes, D > 128 and ``create_graph``) is the ported ``_flash_bwd``:
+    ``_flash_backward`` on the saved inputs and output.  16-bit inputs on
+    the card take the backward kernel (tests/test_torch_flash_backward.py)."""
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _inputs((1, 2, 24, 40, 8), seed=9))
     out = tatt._FlashAttentionFunction.apply(q, k, v, True, 0.3)

@@ -59,7 +59,8 @@ def test_build_all_compiles_each_source_once(fake_nvcc):
         cuda_build.SOURCES["flash_attention"])    # one nvcc for each source
     assert cuda_build.SOURCES["flash_attention"] == (
         "flash_attention.cu", "flash_attention_sm90.cu",
-        "flash_attention_f32_sm90.cu", "flash_attention_wide.cu")
+        "flash_attention_f32_sm90.cu", "flash_attention_wide.cu",
+        "flash_attention_bwd_sm90.cu")
     assert not list(cuda_build.BUILD_DIR.glob("*.tmp-*"))
 
 
@@ -102,3 +103,21 @@ def test_library_name_follows_every_source(source, tmp_path, monkeypatch):
     a = cuda_build.lib_path("flash_attention")
     (tmp_path / source).write_text("// edited\n", encoding="utf-8")
     assert cuda_build.lib_path("flash_attention") != a
+
+
+def test_backward_source_is_built_and_hashed(tmp_path, monkeypatch):
+    """The backward kernel's source is one of the library's, its entry
+    points are bound, and an edit to it renames (so rebuilds) the library."""
+    import shutil
+    assert "flash_attention_bwd_sm90.cu" in cuda_build.SOURCES[
+        "flash_attention"]
+    for entry in ("flash_attention_bwd_bf16", "flash_attention_bwd_f16"):
+        restype, argtypes = cuda_build.KERNELS["flash_attention"][entry]
+        assert len(argtypes) == 16
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    before = cuda_build.lib_path("flash_attention")
+    src = csrc / "flash_attention_bwd_sm90.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert cuda_build.lib_path("flash_attention") != before

@@ -1,24 +1,36 @@
 """The backward of flash attention in the PyTorch port against ``jax.vjp`` of
-the JAX build's ``flash_attention``, and its route for head dims above 256.
+the JAX build's ``flash_attention``, its hand-written kernel, and the
+forward's route for head dims above 256.
 
 The JAX build's backward is ``_flash_bwd`` (ops/attention.py:168-242), jnp
-under XLA on every backend; the port's is the same two chunked passes in
-torch ops (``ops/attention.py`` ``_flash_backward``), behind one
-``torch.autograd.Function`` on the CPU and on the card.  The same seeded
-numpy q, k, v and head gradient go to both.  Bounds: f32 1e-5 absolute (the
-same f32 products summed in other orders; gradients here are below ~5 in
-magnitude); bf16 and f16 within one ulp of the dtype at each element's
-magnitude plus one ulp at 2^-6 (both compute in f32 and round once to the
-input's dtype, so two f32 results a few f32 ulps apart may round to
+under XLA on every backend.  The port's has two routes behind one
+``torch.autograd.Function``: on the card, 16-bit inputs (all bf16 or all
+f16) at head dims up to 128 take the kernel
+``csrc/flash_attention_bwd_sm90.cu``; everything else, and every CPU
+tensor, takes the same two chunked passes in torch ops
+(``ops/attention.py`` ``_flash_backward``).  The same seeded numpy q, k, v
+and head gradient go to both builds.  Bounds of the torch ops: f32 1e-5
+absolute (the same f32 products summed in other orders; gradients here are
+below ~5 in magnitude); bf16 and f16 within one ulp of the dtype at each
+element's magnitude plus one ulp at 2^-6 (both compute in f32 and round once
+to the input's dtype, so two f32 results a few f32 ulps apart may round to
 neighbouring 16-bit values, and values near zero cancel).
 
-Head dims above 256 run ``csrc/flash_attention_wide.cu`` on the card; the
-``cuda`` tests hold it against the plain version and the JAX build, and a
-stubbed library shows the routing here:
+The kernel cannot run here: ``_bf16_backward_kernel_emulation`` replays its
+arithmetic (16-bit operands, f32 products, P and dS split into two halves of
+the type, its tile order) and is held against ``jax.vjp`` at the kernel's
+bound on the card, 2^-7 of each gradient's largest magnitude (plus 1e-5 for
+a gradient that vanishes); with P and dS
+rounded once (``split=False``) it must break that bound on keys that share
+an offset, where dQ = dS·K cancels.  A stubbed library shows the routing of
+both backward routes and of the forward's route for head dims above 256.
+The ``cuda`` tests hold the kernels against the plain version and the JAX
+build on the card:
 
     python -m pytest -m cuda tests/test_torch_flash_backward.py
 """
 import contextlib
+import math
 import types
 
 import jax
@@ -164,11 +176,142 @@ def test_recorded_attention_fills_the_grad_buffer():
 
 
 # ---------------------------------------------------------------------------
-# the route for head dims above 256, with the library stubbed (CPU tensors)
+# the 16-bit backward kernel's arithmetic, replayed on the CPU
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+KERNEL_TILE = 64      # the kernel's key and query tiles
+# the kernel's bound on the card: 2^-7 of each gradient's largest magnitude,
+# plus 1e-5 for a gradient that vanishes by cancellation (at Sk = 1 a row's P
+# is 1, so dS = dP - delta, two f32 sums of the same products in other
+# orders: a few ulps of |dP| ~ 10, below 1e-6 after the scale)
+BACKWARD_REL, BACKWARD_ABS = 2.0 ** -7, 1e-5
+# Keys that share an offset leave P unchanged (the offset adds a constant to
+# each row's logits), but dQ = dS·K then sums terms much larger than dQ that
+# cancel. dS rounded once to the type (2^-9 relative in bf16, 2^-12 in f16)
+# loses that cancellation at 2^(mantissa - 3) and breaks the bound; its two
+# halves (2^-17, 2^-22) keep it.
+KEY_OFFSET = {torch.bfloat16: 16.0, torch.float16: 128.0}
+EMU_CASES = [
+    ((1, 2, 64, 64, 20), False),
+    ((1, 2, 64, 64, 20), True),
+    ((1, 2, 48, 192, 128), True),    # Sq < Sk
+    ((1, 2, 200, 128, 20), True),    # Sq > Sk: 72 rows see no key
+    ((2, 1, 65, 65, 128), True),     # Sk = 65: a ragged key tile
+    ((1, 2, 64, 64, 128), False),
+]
+EMU_IDS = ["%dx%dx%dx%dx%d%s" % (s + ("_causal" if c else "",))
+           for s, c in EMU_CASES]
+HALF = [torch.bfloat16, torch.float16]
+HALF_IDS = ["bf16", "f16"]
+
+
+def _bf16_backward_kernel_emulation(q, k, v, g, out, causal, split=True,
+                                    dtype=torch.bfloat16):
+    """The backward kernel's arithmetic (csrc/flash_attention_bwd_sm90.cu) in
+    plain PyTorch (test-only), for ``dtype`` bf16 or f16: q, k, v, g and out
+    of that type; S = Q·Kᵀ and dP = g·Vᵀ in f32 from exact products; each
+    row's max m and sum l in log2 units by the online scan over 64-key tiles,
+    masked logits at the -1e30 sentinel; P = exp2(x - m) / max(l, 1e-20);
+    delta = sum(g·out) in f32; dS = P·(dP - delta)·scale, 0 at masked
+    logits; dQ summed over key tiles, dK and dV over query tiles, each
+    product as T(X)·Y + T(X - T(X))·Y with f32 products (``split`` False:
+    T(X)·Y, the design the split avoids); each gradient rounded to the type
+    once."""
+    qf, kf, vf, gf, of = (torch.tensor(t).to(dtype).float()
+                          for t in (q, k, v, g, out))
+    sq, sk, d = qf.shape[-2], kf.shape[-2], qf.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    x = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * LOG2E)
+    masked = torch.zeros((sq, sk), dtype=torch.bool)
+    if causal:
+        masked = torch.arange(sk)[None, :] > torch.arange(sq)[:, None] + \
+            sk - sq
+        x = x.masked_fill(masked, -1e30)
+    m = torch.full(qf.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    for n0 in range(0, sk, KERNEL_TILE):
+        xt = x[..., n0:n0 + KERNEL_TILE]
+        m_new = torch.maximum(m, xt.amax(-1, keepdim=True))
+        l = l * torch.exp2(m - m_new) + torch.exp2(xt - m_new).sum(
+            -1, keepdim=True)
+        m = m_new
+    p = torch.exp2(x - m) / l.clamp_min(1e-20)
+    delta = (gf * of).sum(-1, keepdim=True)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).masked_fill(masked, 0.0)
+
+    def halves(t):
+        hi = t.to(dtype).float()
+        return (hi, (t - hi).to(dtype).float()) if split else (hi,)
+
+    dq = torch.zeros_like(qf)
+    for n0 in range(0, sk, KERNEL_TILE):
+        for part in halves(ds[..., n0:n0 + KERNEL_TILE]):
+            dq = dq + torch.matmul(part, kf[..., n0:n0 + KERNEL_TILE, :])
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i0 in range(0, sq, KERNEL_TILE):
+        rows = slice(i0, i0 + KERNEL_TILE)
+        for part in halves(p[..., rows, :]):
+            dv = dv + torch.matmul(part.transpose(-1, -2), gf[..., rows, :])
+        for part in halves(ds[..., rows, :]):
+            dk = dk + torch.matmul(part.transpose(-1, -2), qf[..., rows, :])
+    return [t.to(dtype) for t in (dq, dk, dv)]
+
+
+def _half_case(shape, causal, dtype, key_offset=0.0, seed=10):
+    """Seeded inputs (keys shifted by ``key_offset``) rounded to ``dtype`` as
+    f32 numpy, and the JAX build's out, dq, dk, dv from ``jax.vjp`` in that
+    dtype."""
+    q, k, v, g = _inputs(shape, seed)
+    q, k, v, g = (torch.from_numpy(x).to(dtype).float().numpy()
+                  for x in (q, k + np.float32(key_offset), v, g))
+    return (q, k, v, g), _jax_grads(q, k, v, g, causal,
+                                    str(dtype).split(".")[1])
+
+
+def _bound_ratios(got, want):
+    """Each gradient's max abs error over the bound 2^-7·max|grad| + 1e-5."""
+    return [float(np.abs(np.asarray(a, np.float64) - b).max() /
+                  (BACKWARD_REL * np.abs(b).max() + BACKWARD_ABS))
+            for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("key_offset", [False, True], ids=["", "key_offset"])
+@pytest.mark.parametrize("dtype", HALF, ids=HALF_IDS)
+@pytest.mark.parametrize("shape,causal", EMU_CASES, ids=EMU_IDS)
+def test_cpu_backward_kernel_emulation_matches_jax_vjp(shape, causal, dtype,
+                                                       key_offset):
+    (q, k, v, g), (out, *want) = _half_case(
+        shape, causal, dtype, KEY_OFFSET[dtype] if key_offset else 0.0)
+    got = _bf16_backward_kernel_emulation(q, k, v, g, out, causal,
+                                          dtype=dtype)
+    ratios = _bound_ratios([t.float().numpy() for t in got], want)
+    assert max(ratios) <= 1.0, dict(zip(("dq", "dk", "dv"), ratios))
+
+
+@pytest.mark.parametrize("dtype", HALF, ids=HALF_IDS)
+@pytest.mark.parametrize("shape,causal", EMU_CASES, ids=EMU_IDS)
+def test_cpu_backward_unsplit_emulation_breaks_the_bound(shape, causal,
+                                                         dtype):
+    """The negative control: P and dS rounded once to the type break the
+    bound that their two halves keep, on keys that share an offset."""
+    (q, k, v, g), (out, *want) = _half_case(shape, causal, dtype,
+                                            KEY_OFFSET[dtype])
+    got = _bf16_backward_kernel_emulation(q, k, v, g, out, causal,
+                                          split=False, dtype=dtype)
+    assert _bound_ratios([t.float().numpy() for t in got], want)[0] > 1.0
+
+
+# ---------------------------------------------------------------------------
+# the backward's routes and the forward's route for head dims above 256,
+# with the library stubbed (CPU tensors)
 # ---------------------------------------------------------------------------
 
 class _StubLibrary:
-    """Records the C entry point called and the head dim it was given."""
+    """Records the C entry point called and the head dim it was given (and,
+    for the 16-bit forward, whether it got a stats buffer; for the
+    backward, which of its nine pointers are not 16-byte aligned)."""
 
     def __init__(self):
         self.calls = []
@@ -178,6 +321,30 @@ class _StubLibrary:
         self.calls.append(("flash_attention_wide", args[23], args[5],
                            args[11], args[17]))
         return 0
+
+    def _backward(name):
+        def call(self, *args):
+            # q, k, v, out, g, dq, dk, dv, stats, batch_heads, sq, sk, d, ...
+            self.calls.append((name, args[12],
+                               [i for i in range(9) if args[i] % 16]))
+            return 0
+        return call
+
+    flash_attention_bwd_bf16 = _backward("flash_attention_bwd_bf16")
+    flash_attention_bwd_f16 = _backward("flash_attention_bwd_f16")
+
+    def _forward(name):
+        def call(self, *args):
+            # q, k, v, o, batch_heads, sq, sk, d, ...; the 16-bit routes'
+            # stats buffer (None when serving) at 10
+            self.calls.append((name, args[7],
+                               len(args) == 12 and args[10] is not None))
+            return 0
+        return call
+
+    flash_attention_bf16 = _forward("flash_attention_bf16")
+    flash_attention_f16 = _forward("flash_attention_f16")
+    flash_attention_f32 = _forward("flash_attention_f32")
 
     def flash_attention_error_string(self, err):
         return b"stub"
@@ -210,6 +377,72 @@ def test_wide_head_dims_reach_the_wide_entry_point(stub_library, dtypes, d):
     assert (tatt.flash_attention.launches,
             tatt.flash_attention.wide_launches) == (before[0] + 1,
                                                     before[1] + 1)
+
+
+# each dtype mix, head dim and grad mode takes its backward route: 16-bit at
+# D <= 128 the kernel (D padded to a multiple of 8, aligned contiguous
+# copies) over the row stats its forward wrote, everything else the torch
+# ops; strided views as the split-heads transpose leaves them. The forward
+# keeps the stats whenever the kernel could take the gradient.
+@pytest.mark.parametrize("dtypes,d,create_graph,forward,stats,backward,"
+                         "kernel_d", [
+    (("bfloat16",) * 3, 128, False, "flash_attention_bf16", True,
+     "flash_attention_bwd_bf16", 128),
+    (("float16",) * 3, 20, False, "flash_attention_f16", True,
+     "flash_attention_bwd_f16", 24),
+    (("bfloat16",) * 3, 64, False, "flash_attention_bf16", True,
+     "flash_attention_bwd_bf16", 64),
+    (("float32",) * 3, 64, False, "flash_attention_f32", False, None, 64),
+    (("bfloat16", "float32", "float16"), 64, False, "flash_attention_f32",
+     False, None, 64),
+    (("bfloat16",) * 3, 160, False, "flash_attention_bf16", False, None, 160),
+    (("float16",) * 3, 64, True, "flash_attention_f16", True, None, 64),
+], ids=["bf16_d128", "f16_d20", "bf16_d64", "f32", "mixed", "bf16_d160",
+        "f16_create_graph"])
+def test_backward_routing_with_stubbed_library(stub_library, monkeypatch,
+                                               dtypes, d, create_graph,
+                                               forward, stats, backward,
+                                               kernel_d):
+    monkeypatch.setattr(tatt, "_on_card", lambda t: True)
+    torch_route = []
+    plain = tatt._flash_backward
+    monkeypatch.setattr(tatt, "_flash_backward",
+                        lambda *a: torch_route.append(1) or plain(*a))
+    q, k, v, g = _inputs((1, 2, 8, 8, d), seed=11)
+    q, k, v = (torch.from_numpy(x).to(getattr(torch, t)).transpose(1, 2)
+               .contiguous().transpose(1, 2).requires_grad_()
+               for x, t in zip((q, k, v), dtypes))
+    fa = tatt.flash_attention
+    before = (fa.backward_calls, fa.backward_kernel_launches,
+              fa.backward_torch_calls)
+    out = fa(q, k, v, True)
+    grads = torch.autograd.grad(out, [q, k, v],
+                                torch.from_numpy(g).to(out.dtype),
+                                create_graph=create_graph)
+    kernel = backward is not None
+    assert stub_library.calls == [(forward, kernel_d, stats)] + (
+        [(backward, kernel_d, [])] if kernel else [])
+    assert torch_route == ([] if kernel else [1])
+    assert (fa.backward_calls, fa.backward_kernel_launches,
+            fa.backward_torch_calls) == (before[0] + 1, before[1] + kernel,
+                                         before[2] + (not kernel))
+    for grad, x in zip(grads, (q, k, v)):
+        assert grad.dtype == x.dtype and grad.shape == x.shape
+        assert grad.is_contiguous() or not kernel
+
+
+def test_backward_launch_error_raises(stub_library, monkeypatch):
+    """A failed launch of the backward kernel raises; nothing falls back to
+    the torch ops."""
+    monkeypatch.setattr(tatt, "_on_card", lambda t: True)
+    monkeypatch.setattr(type(stub_library), "flash_attention_bwd_bf16",
+                        lambda self, *args: 700)
+    q = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16, requires_grad=True)
+    before = tatt.flash_attention.backward_torch_calls
+    out = tatt.flash_attention(q, q, q, True)
+    with pytest.raises(tmx.base.MXNetError, match="flash_attention_bwd_bf16"):
+        torch.autograd.grad(out, [q], torch.ones_like(out))
+    assert tatt.flash_attention.backward_torch_calls == before
 
 
 # ---------------------------------------------------------------------------
@@ -281,3 +514,129 @@ def test_card_backward_matches_jax(card, shape, causal):
     np.testing.assert_allclose(got[0], want[0], rtol=0, atol=2e-5)
     for a, b in zip(got[1:], want[1:]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+
+
+# the backward kernel: the smoke's 16-bit cases (the training shape cut to 4
+# heads for the CPU's jax.vjp; Sq < Sk, Sq > Sk, Sk = 65, D = 20 and 64), and
+# Sk = 1, D = 8 and 96, not causal
+BWD_CARD_CASES = [
+    ((1, 4, 1024, 1024, 128), True),
+    ((1, 2, 128, 256, 64), True),
+    ((1, 2, 256, 128, 64), True),      # 128 rows see no key
+    ((2, 2, 65, 65, 64), True),
+    ((1, 2, 77, 77, 20), True),        # D padded to 24
+    ((1, 2, 64, 1, 128), True),        # Sk = 1: 63 rows see no key
+    ((1, 2, 64, 1, 128), False),
+    ((1, 2, 100, 100, 8), True),
+    ((1, 2, 200, 200, 96), False),
+    ((2, 3, 256, 256, 64), False),
+]
+BWD_CARD_IDS = ["%dx%dx%dx%dx%d%s" % (s + ("_causal" if c else "",))
+                for s, c in BWD_CARD_CASES]
+
+
+def _card_kernel_grads(card, q, k, v, g, causal, dtype):
+    """dq, dk, dv by the backward kernel on the card (its launch counted,
+    the torch ops not), as f32 numpy."""
+    qt, kt, vt = (torch.from_numpy(x).to(card, dtype).requires_grad_()
+                  for x in (q, k, v))
+    fa = tatt.flash_attention
+    before = fa.backward_kernel_launches, fa.backward_torch_calls
+    out = fa(qt, kt, vt, causal)
+    got = torch.autograd.grad(out, [qt, kt, vt],
+                              torch.from_numpy(g).to(card, dtype))
+    torch.cuda.synchronize()
+    assert (fa.backward_kernel_launches, fa.backward_torch_calls) == (
+        before[0] + 1, before[1])
+    for a, x in zip(got, (qt, kt, vt)):
+        assert a.dtype == dtype and a.shape == x.shape
+        assert bool(torch.isfinite(a).all())
+    return [a.float().cpu().numpy() for a in got]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF, ids=HALF_IDS)
+@pytest.mark.parametrize("shape,causal", BWD_CARD_CASES, ids=BWD_CARD_IDS)
+def test_card_backward_kernel_matches_plain_and_jax(card, shape, causal,
+                                                    dtype):
+    """The kernel within 2^-7 of each gradient's largest magnitude of
+    autograd through the plain version in f32 (TF32 off) on the same 16-bit
+    values, and of jax.vjp in the dtype."""
+    (q, k, v, g), (_, *want) = _half_case(shape, causal, dtype, seed=12)
+    got = _card_kernel_grads(card, q, k, v, g, causal, dtype)
+    plain = [torch.from_numpy(x).to(card).requires_grad_() for x in (q, k, v)]
+    ref = torch.autograd.grad(tatt._attention_reference(*plain, causal),
+                              plain, torch.from_numpy(g).to(card))
+    ratios = _bound_ratios(got, [r.cpu().numpy() for r in ref])
+    assert max(ratios) <= 1.0, ratios
+    ratios = _bound_ratios(got, want)
+    assert max(ratios) <= 1.0, ratios
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF, ids=HALF_IDS)
+@pytest.mark.parametrize("shape,causal", [EMU_CASES[2], EMU_CASES[4]],
+                         ids=[EMU_IDS[2], EMU_IDS[4]])
+def test_card_backward_kernel_keeps_the_split(card, shape, causal, dtype):
+    """On keys that share an offset the kernel stays within the bound that
+    P and dS rounded once break (the CPU's negative control).  As the
+    emulation, it gets the JAX build's out: the offset multiplies delta's
+    error into dQ, so one ulp of difference in a forward's rounded out
+    would show there too."""
+    (q, k, v, g), (out, *want) = _half_case(shape, causal, dtype,
+                                            KEY_OFFSET[dtype])
+    q, k, v, g, out = (torch.tensor(x).to(card, dtype)
+                       for x in (q, k, v, g, out))
+    scale = 1.0 / math.sqrt(shape[-1])
+    stats = tatt._backward_stats(q)
+    tatt._flash_forward_cuda(q, k, v, causal, scale, stats)
+    before = tatt.flash_attention.backward_kernel_launches
+    got = tatt._flash_backward_cuda(q, k, v, out, g, causal, scale, stats)
+    torch.cuda.synchronize()
+    assert tatt.flash_attention.backward_kernel_launches == before + 1
+    ratios = _bound_ratios([t.float().cpu().numpy() for t in got], want)
+    assert max(ratios) <= 1.0, ratios
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF, ids=HALF_IDS)
+def test_card_backward_kernel_is_deterministic(card, dtype):
+    """No atomics: two runs give the same bits."""
+    q, k, v, g = _inputs((2, 4, 512, 512, 128), seed=13)
+    runs = [_card_kernel_grads(card, q, k, v, g, True, dtype)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_card_kernels_run_on_a_thread_without_a_context(card):
+    """A thread that has made no CUDA call has no current context, and the
+    caching allocator may serve all of a call's buffers without one (as on
+    autograd's worker thread); the routes that encode TMA maps bind the
+    operands' device first, so they give the main thread's bits there."""
+    import threading
+    q, k, v, g = (torch.from_numpy(x).to(card, torch.bfloat16)
+                  for x in _inputs((1, 2, 128, 128, 64), seed=14))
+
+    def run():
+        stats = tatt._backward_stats(q)
+        out = tatt._flash_forward_cuda(q, k, v, True, 0.125, stats)
+        return [out, stats,
+                tatt.flash_attention(q.float(), k.float(), v.float(), True),
+                *tatt._flash_backward_cuda(q, k, v, out, g, True, 0.125,
+                                           stats)]
+
+    want = run()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    spare = torch.empty(1 << 28, dtype=torch.uint8, device=card)
+    del spare                    # 256 MiB back in the allocator's cache
+    got = []
+    worker = threading.Thread(target=lambda: got.append(run()))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert len(got) == 1
+    for a, b in zip(got[0], want):
+        assert torch.equal(a, b)
