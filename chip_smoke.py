@@ -15,16 +15,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              (one per source, all at once), with ptxas's report (registers,
              shared memory, spills) and the count of HGMMA (wgmma)
              instructions in the SASS of the bf16, f16 and f32 forward
-             kernels and of the bf16 and f16 backward kernels (dQ, dK/dV),
-             none of which may be 0: every route runs on the tensor cores;
+             kernels, of the wide kernels (route A in bf16 and f16, route B)
+             and of the bf16 and f16 backward kernels (dQ, dK/dV), none of
+             which may be 0: every route runs on the tensor cores;
 3. kernel  — each kernel against its plain PyTorch version on the card, at
              the shapes of its tests and of the serving path and at head dims
-             160, 192 and 256, and 320 and 512 (the wide route), in f32, bf16
-             and f16; bf16 and f16 also element by element (2^-8·|ref| +
-             5e-5, 2^-11·|ref| + 5e-5); the f32 route's split pass bit for
-             bit; mixes of dtypes (the f32 route, and the wide route, q's
-             dtype out); flash attention's backward against torch autograd
-             through the plain version in f32, TF32 off: the backward kernel
+             160, 192 and 256, and 320 and 512 (the wide routes: A in bf16
+             and f16, B in f32), in f32, bf16 and f16; bf16 and f16 also
+             element by element (2^-8·|ref| + 5e-5, 2^-11·|ref| + 5e-5);
+             the f32 route's split pass bit for bit; mixes of dtypes (the
+             f32 route, and route B above D = 256, q's dtype out); flash
+             attention's backward against torch autograd through the plain
+             version in f32, TF32 off: the backward kernel
              in bf16 and f16 at the training shape and at Sq < Sk, Sq > Sk,
              Sk = 65, D = 20 and 64 (each through the kernel: its launch
              count moved, the torch ops' did not), the torch ops at small
@@ -32,15 +34,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 4. serve   — small LMs on the card against the same weights on the CPU, with
              the same greedy tokens: f32 at D = 16 (the f32 route), f16 at
              D = 128 (the f16 route), bf16 and f32 at D = 256 (two output
-             slices a block on the 16-bit and the f32 route), each route's
-             launch count zeroed just before and read just after, none 0;
-             then
+             slices a block on the 16-bit and the f32 route), f32 and bf16
+             at D = 320 (routes B and A), each route's launch count zeroed
+             just before and read just after, none 0, and the wide count
+             equal to the layers at D = 320 and 0 below; then
              the LM of bench_transformer.py at its full width (vocab 16384,
              d_model 4096, 32 heads, d_ffn 16384, 4 layers, seq 1024; random
              weights from a seed) answering 4 requests of 8 prompts x 1024
              tokens with each prompt's greedy next token; the kernels' launch
              counts are zeroed just before and read just after; then one more
              request under torch.profiler for its device time by kernel;
+4e. serve  — the same LM with BENCH_HEADS=8 (D = 512, the same parameter
+             shapes) in bf16 answering 2 requests of 8 x 1024 tokens, every
+             attention through route A (4 launches a request, counted with
+             the counters zeroed just before and read just after), each
+             request's ms beside the D = 128 model's;
 4d. train — the small f32 LM trained 3 steps through DataParallelTrainer on
              the card against the same 3 steps on the CPU (weights within
              1e-4, losses within 1e-5 relative); then the same LM at full
@@ -71,8 +79,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              bf16 (the serving path), f16, and on the f32 route (with the
              split pass and the attention kernel also timed alone); at
              (8, 16, 1024, 256) causal on the bf16 and f32 routes; the wide
-             route at (8, 8, 1024, 512) causal (the serving shape's work at
-             D = 512) in bf16 and f32; the backward kernel at the training
+             routes at (8, 8, 1024, 512) causal (the serving shape's work at
+             D = 512) in bf16, f16 (route A) and f32 (route B, with its split
+             pass and attention kernel also alone), each beside SDPA, with
+             the design's floor (the tensor work its walk issues at 989
+             TFLOP/s); the backward kernel at the training
              shape beside the torch ops it replaced, the plain version and
              SDPA's backward, with the card's bound and the design's floor;
 6. one JSON ``kernels`` line, then the card's name and power limit, and last
@@ -113,12 +124,15 @@ WIDE_CASES = [
     ((2, 2, 130, 130, 192), False),
     ((2, 4, 512, 512, 256), True),
 ]
-# head dims above 256: the wide route (f32 FMAs on the CUDA cores) in every
-# dtype; one mix of its own, q's dtype out
+# head dims above 256: the wide routes (csrc/flash_attention_wide_sm90.cu),
+# route A in bf16 and f16, route B in f32, with the main path's shape (phase
+# 4e and WIDER_TIMING: 16 key tiles, 16 row blocks) last; one mix of its own
+# (route B), q's dtype out
 WIDER_CASES = [
     ((1, 2, 200, 200, 320), True),
     ((2, 2, 130, 150, 512), True),   # Sq < Sk, ragged tiles, four slices
     ((1, 2, 150, 100, 320), True),   # Sq > Sk: 50 rows see no key
+    ((8, 8, 1024, 1024, 512), True),
 ]
 WIDE_MIXED = (("float16", "bfloat16", "float32"), (1, 2, 96, 160, 320))
 # mixes of dtypes (q, k, v): the f32 route, q's dtype out
@@ -152,8 +166,11 @@ SMALL_LMS = [
                                  n_layers=2, seq_len=32), "f32_launches",
      None),
     ("f32_d320", "float32", dict(vocab=97, d_model=640, n_heads=2, d_ffn=1280,
-                                 n_layers=2, seq_len=32), "wide_launches",
+                                 n_layers=2, seq_len=32), "wide_f32_launches",
      None),
+    ("bf16_d320", "bfloat16", dict(vocab=97, d_model=640, n_heads=2,
+                                   d_ffn=1280, n_layers=2, seq_len=32),
+     "wide16_launches", 8),
 ]
 # flash attention's backward on the card against torch autograd through the
 # plain version in f32 with TF32 off: (shape (B, H, Sq, Sk, D), causal,
@@ -232,20 +249,42 @@ BWD_SOURCE = "incubator_mxnet_tpu_torch/csrc/flash_attention_bwd_sm90.cu"
 HGMMA_FUNCTIONS = {"bf16": "flash_fwd_sm90_kernelI13__nv_bfloat16",
                    "f16": "flash_fwd_sm90_kernelI6__half",
                    "f32": "flash_fwd_f32_sm90_kernel",
+                   "wide16_bf16": "flash_fwd_wide16_kernelI13__nv_bfloat16",
+                   "wide16_f16": "flash_fwd_wide16_kernelI6__half",
+                   "wide_f32": "flash_fwd_wide_f32_kernel",
                    "bwd_dq_bf16": "flash_bwd_dq_kernelI13__nv_bfloat16",
                    "bwd_dkdv_bf16": "flash_bwd_dkdv_kernelI13__nv_bfloat16",
                    "bwd_dq_f16": "flash_bwd_dq_kernelI6__half",
                    "bwd_dkdv_f16": "flash_bwd_dkdv_kernelI6__half"}
 # the head dim 256 timing shape (B, H, Sq, Sk, D), causal
 WIDE_TIMING = ((8, 16, 1024, 1024, 256), True)
-# the wide route's timing shape: the serving shape's work at D = 512
+# the wide routes' timing shape: the serving shape's work at D = 512
 WIDER_TIMING = ((8, 8, 1024, 1024, 512), True)
-WIDER_SOURCE = "incubator_mxnet_tpu_torch/csrc/flash_attention_wide.cu"
-WIDER_DESIGN = ("head dims above 256, any dtype or mix: f32 FMAs on the CUDA "
-                "cores, 64 query rows x 128 output columns a block (grid z "
-                "over the output slices), S over 64-column Q and K panels "
-                "streamed through shared memory, an online softmax in half "
-                "warps, P and the V slice in shared memory; 84 KB at every D")
+WIDER_SOURCE = "incubator_mxnet_tpu_torch/csrc/flash_attention_wide_sm90.cu"
+WIDE16_DESIGN = ("route A, bf16 and f16 at head dims above 256: 64 query rows "
+                 "and 256 output columns (3 or 4 panels) a block, one "
+                 "consumer warpgroup (255-register cap) + 1 producer warp; "
+                 "wgmma m64n64k16 for S over 64-column panels of K streamed "
+                 "through a ring of 8 KB slots (Q resident up to D = 768, "
+                 "streamed beside K above; 16 slots, 27 when streamed), a "
+                 "commit group a panel with up to 5 (kLag) in flight; O += "
+                 "P_hi·V + P_lo·V from registers, the softmax of tile t "
+                 "beside P·V of tile t-1")
+WIDE_F32_DESIGN = ("route B, f32 and mixes at head dims above 256: the split "
+                   "pass's three bf16 planes, 64 query rows and 256 output "
+                   "columns a block, one consumer warpgroup; S in two walks "
+                   "over the head-dim panels (the five small products, then "
+                   "hh), Q's plane h resident up to D = 768 beside a 16-slot "
+                   "ring of 8 KB panels (27 slots when it streams), planes m "
+                   "and l streamed; O += P·V with six products, P in three "
+                   "pieces in registers")
+# the LM served at head dim 512 (phase 4e): bench_transformer.py's widths
+# with BENCH_HEADS=8, the same parameter shapes; route A, 4 launches a request
+WIDE_LM_HEADS, WIDE_LM_REQUESTS = 8, 2
+# flash_attention's launch counters: all routes, then those of head dims
+# above 256
+WIDE_COUNTERS = ("launches", "wide_launches", "wide16_launches",
+                 "wide_f32_launches")
 RTC_DESIGNS = {
     "softmax_fwd": ("one block per row; where c % 4 == 0 and the row fits, "
                     "the row read once as float4 into registers (SOFTMAX_VEC "
@@ -692,6 +731,53 @@ def f32_tensor_work(b, h, sq, sk, d, causal):
             n_end = min(sk, q0 + min(128, sq - q0) + sk - sq)
         tiles += -(-n_end // 64)
     return b * h * tiles * 2 * 6 * 2.0 * 128 * 64 * bucket
+
+
+def wide_tensor_work(b, h, sq, sk, d, causal, products):
+    """The tensor work (flop) the wide kernels issue: their walk over 64-row
+    query blocks and 64-key tiles (whole tiles across the diagonal), for
+    each of the ceil(panels / slice) output slices of 3 or 4 panels, S over
+    the padded head dim and P·V over the slice, ``products`` wgmma products
+    for each f32 product (route A: 1 for S and the two halves of P for P·V,
+    so 1 and 2; route B: 6 and 6)."""
+    panels = -(-(-(-d // 8) * 8) // 64)
+    slices = -(-panels // 4)
+    width = 3 if -(-panels // slices) <= 3 else 4
+    slices = -(-panels // width)
+    tiles = 0
+    for q0 in range(0, sq, 64):
+        n_end = sk
+        if causal and q0 + sk - sq >= 0:
+            n_end = min(sk, q0 + min(64, sq - q0) + sk - sq)
+        tiles += -(-n_end // 64)
+    s_prod, pv_prod = products
+    per_tile = 2.0 * 64 * 64 * 64 * (s_prod * panels + pv_prod * width)
+    return b * h * slices * tiles * per_tile
+
+
+def ptxas_resources(log, function):
+    """ptxas's report for each instance of the kernels whose (mangled) name
+    contains ``function``: {instance: (registers, spill stores, spill loads
+    in bytes)}."""
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if function in m.group(1) else None
+            if name is not None:   # the kernel's name and template arguments
+                name = name[name.find("flash_fwd"):].split("EEEv")[0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            found[name] = (0, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            spills = found.get(name, (0, 0, 0))
+            found[name] = (int(m.group(1)), spills[1], spills[2])
+    return found
 
 
 def time_flash(q, k, v, causal, card, torch):
@@ -1263,8 +1349,10 @@ def time_backward(gen, dev, card):
     16·D flop a visible (query, key) pair on the tensor cores (S and dP
     once, dV, dK and dQ as two products each), whichever is larger; the
     design's floor is the bf16 tensor work it issues (bwd_tensor_work).
-    Also: each of its kernels' device time (torch.profiler), and the f16
-    kernel's time on the same values."""
+    Also: each of its kernels' device time (torch.profiler), and in f16 on
+    the same values the kernel's time, the plain version's (autograd through
+    _attention_reference in f32 from the f16 values) and SDPA's backward in
+    f16."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from incubator_mxnet_tpu_torch.ops.attention import (
@@ -1315,6 +1403,17 @@ def time_backward(gen, dev, card):
                                                      retain_graph=True),
                          20, torch)
     del out, lib, leaves
+    plain = [t.half().float().requires_grad_() for t in (q, k, v)]
+    ref = _attention_reference(*plain, causal)
+    f16_plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        ref, plain, g.half().float(), retain_graph=True), 5, torch)
+    del ref, plain
+    lib = [t.half().requires_grad_() for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *lib, attn_mask=mask, scale=scale)
+    f16_library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, lib, g.half(), retain_graph=True), 20, torch)
+    del out, lib
     fwd_flops, _ = attention_work(b, h, sq, sk, d, causal, 2)
     flops = 4 * fwd_flops              # 16·D a pair against the forward's 4·D
     issued = bwd_tensor_work(b, h, sq, sk, d, causal)
@@ -1324,6 +1423,7 @@ def time_backward(gen, dev, card):
              "design_floor": issued / H100_BF16_FLOPS * 1e3}
     t = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
          "torch_ops_ms": torch_ops_ms, "f16_ms": f16_ms,
+         "f16_plain_ms": f16_plain_ms, "f16_library_ms": f16_library_ms,
          "kernel_us": kernel_us,
          "bound_ms": max(terms["bytes"], terms["operations"]),
          "bound_by": "bytes" if terms["bytes"] >= terms["operations"]
@@ -1340,18 +1440,82 @@ def time_backward(gen, dev, card):
           "(scaled_dot_product_attention's backward, bf16, bottom-right bool "
           "mask); %.1f TFLOP/s of the needed work, %.1f of the issued; "
           "device us by kernel %s (torch.profiler); f16 on the same values "
-          "%.4f ms | %s"
+          "%.4f ms (plain %.4f, SDPA's backward in f16 %.4f) | %s"
           % (t["shape"], ms, t["bound_ms"], t["bound_by"],
              json.dumps({k_: round(v_, 4) for k_, v_ in terms.items()}),
              flops, issued, nbytes, torch_ops_ms, plain_ms, library_ms,
              t["tflops"], t["issued_tflops"],
              json.dumps({k_: round(v_, 1) for k_, v_ in kernel_us.items()}),
-             f16_ms, card), flush=True)
+             f16_ms, f16_plain_ms, f16_library_ms, card), flush=True)
     return t
 
 
 def _by_suffix(weights):
     return {n.split("_", 1)[1]: a for n, a in weights.items()}
+
+
+def serve_wide_lm(mx, card, rs, d128_request_ms):
+    """Phase 4e: the LM of bench_transformer.py:63-69 at its published widths
+    with BENCH_HEADS=8 (D = 512, the same parameter shapes as the 32-head
+    model), bf16, random weights from the seed, answering WIDE_LM_REQUESTS
+    requests of 8 prompts x 1024 tokens with each prompt's greedy next
+    token; every attention takes route A of the wide kernels, counted with
+    the counters zeroed just before the requests and read just after."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch.ops.attention import flash_attention
+    from incubator_mxnet_tpu_torch.models import TransformerLM, HostXavier
+    cfg = dict(LM_CONFIG, n_heads=WIDE_LM_HEADS)
+    batch = 8
+    net = TransformerLM(**cfg)
+    net.pos_embed.init = None
+    net.initialize(HostXavier(SEED), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    net.collect_params().setattr("grad_req", "null")
+    requests = [mx.nd.array(rs.randint(0, cfg["vocab"],
+                                       (batch, cfg["seq_len"])),
+                            ctx=mx.gpu(0), dtype="int32")
+                for _ in range(WIDE_LM_REQUESTS)]
+    with mx.autograd.predict_mode():
+        net(requests[0]).wait_to_read()   # resolves the deferred shapes
+    torch.cuda.synchronize()
+    for c in WIDE_COUNTERS:
+        setattr(flash_attention, c, 0)
+    request_ms = []
+    with mx.autograd.predict_mode():
+        for tokens_nd in requests:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = net(tokens_nd)
+            last = mx.nd.slice_axis(logits, axis=1, begin=-1, end=None)
+            ids = mx.nd.argmax(last, axis=-1).asnumpy().reshape(-1)
+            torch.cuda.synchronize()
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+            check(logits.shape == (batch, cfg["seq_len"], cfg["vocab"]) and
+                  bool(torch.isfinite(logits._data).all()),
+                  "D = 512 LM: logits %s not finite or misshapen"
+                  % (logits.shape,))
+            check(ids.min() >= 0 and ids.max() < cfg["vocab"],
+                  "D = 512 LM: token ids out of range: %s" % ids)
+            print("serve: D = 512 LM request %d: %.3f ms, %.1f tokens/s "
+                  "(the D = 128 model: mean %.3f ms), next tokens %s | %s"
+                  % (len(request_ms) - 1, request_ms[-1],
+                     batch * cfg["seq_len"] / request_ms[-1] * 1e3,
+                     sum(d128_request_ms) / len(d128_request_ms),
+                     ids.astype(np.int64).tolist(), card), flush=True)
+            del logits
+    launches = {c: getattr(flash_attention, c) for c in WIDE_COUNTERS}
+    expected = WIDE_LM_REQUESTS * cfg["n_layers"]
+    print("serve: D = 512 LM %s, launches %s (expected %d route A) | %s"
+          % (cfg, launches, expected, card), flush=True)
+    check(launches == dict(launches=expected, wide_launches=expected,
+                           wide16_launches=expected, wide_f32_launches=0),
+          "D = 512 LM: launches %s, expected %d through route A"
+          % (launches, expected))
+    del net, requests
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(request_ms=request_ms, launches=launches["wide16_launches"])
 
 
 def train_small_lm(mx, card):
@@ -1629,16 +1793,19 @@ def main():
         check(err <= TOLERANCE[dtypes[0]], "mixed %s: max_abs_err %.3e"
               % (dtypes, err))
         del q, k, v, out, ref
-    # a mix of dtypes above D = 256: the wide route, each input at its dtype
+    # a mix of dtypes above D = 256: route B, each input at its dtype
     dtypes, (b, h, sq, sk, d) = WIDE_MIXED
     q, k, v = (torch.randn(b, h, s_, d, generator=gen, device=dev).to(
         getattr(torch, t)) for t, s_ in zip(dtypes, (sq, sk, sk)))
-    before = flash_attention.wide_launches
+    before = (flash_attention.wide_launches, flash_attention.wide_f32_launches,
+              split_f32.launches)
     out = flash_attention(q, k, v, True)
     torch.cuda.synchronize()
     ref = _attention_reference(q, k, v, True)
-    check(out.dtype == q.dtype and flash_attention.wide_launches == before + 1,
-          "wide mixed %s: output %s, not the wide route" % (dtypes, out.dtype))
+    check(out.dtype == q.dtype and (
+        flash_attention.wide_launches, flash_attention.wide_f32_launches,
+        split_f32.launches) == (before[0] + 1, before[1] + 1, before[2] + 3),
+          "wide mixed %s: output %s, not route B" % (dtypes, out.dtype))
     err = (out.float() - ref.float()).abs().max().item()
     key = case_key((b, h, sq, sk, d), True, "+".join(dtypes))
     errs[key] = err
@@ -1688,15 +1855,14 @@ def main():
         gpu_net.cast(dtype)
         small_tokens = mx.nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
         torch.cuda.synchronize()
-        flash_attention.launches = flash_attention.f32_launches = 0
-        flash_attention.f16_launches = split_f32.launches = 0
-        flash_attention.wide_launches = 0
+        for c in WIDE_COUNTERS + ("f32_launches", "f16_launches"):
+            setattr(flash_attention, c, 0)
+        split_f32.launches = 0
         with mx.autograd.predict_mode():
             gpu_logits = np.asarray(gpu_net(small_tokens).asnumpy(),
                                     np.float32)
         launches = {c: getattr(flash_attention, c) for c in
-                    ("launches", "f32_launches", "f16_launches",
-                     "wide_launches")}
+                    WIDE_COUNTERS + ("f32_launches", "f16_launches")}
         launches["split_f32"] = split_f32.launches
         small_launches[name] = launches[counter]
         del small_tokens
@@ -1714,10 +1880,16 @@ def main():
                                        small["n_layers"]))
         check(launches["launches"] == small["n_layers"], "small LM %s: %d "
               "flash launches" % (name, launches["launches"]))
+        wide = small["d_model"] // small["n_heads"] > 256
+        check(launches["wide_launches"] == wide * small["n_layers"],
+              "small LM %s: %d wide launches" % (name,
+                                                 launches["wide_launches"]))
         if dtype == "float32":
-            check(launches["split_f32"] == 3 * launches["f32_launches"],
+            f32_routes = launches["f32_launches"] + \
+                launches["wide_f32_launches"]
+            check(launches["split_f32"] == 3 * f32_routes,
                   "split_f32 launched %d times for %d f32 attentions"
-                  % (launches["split_f32"], launches["f32_launches"]))
+                  % (launches["split_f32"], f32_routes))
         check(err <= bound, "small LM %s: card and CPU disagree" % name)
         check(np.array_equal(gpu_logits[:, -1].argmax(-1),
                              cpu_logits[:, -1].argmax(-1)),
@@ -1796,6 +1968,9 @@ def main():
     del net, requests
     gc.collect()
 
+    # phase 4e: the same LM at head dim 512 (8 heads), route A
+    wide_lm = serve_wide_lm(mx, card, rs, request_ms)
+
     # phase 4d: training through DataParallelTrainer, small and full width
     small_train_launches = train_small_lm(mx, card)
     train = train_full_lm(mx, card)
@@ -1855,14 +2030,38 @@ def main():
     q, k, v = (t.float() for t in (q, k, v))
     wide_f32 = time_flash(q, k, v, causal2, card, torch)
     del q, k, v
-    # head dim 512: the wide route, the serving shape's work
+    # head dim 512: the wide routes, the serving shape's work; route A in
+    # bf16 and f16, route B in f32 (split pass and attention also alone)
     (b3, h3, sq3, sk3, d3), causal3 = WIDER_TIMING
     q, k, v = (torch.randn(b3, h3, s_, d3, generator=gen, device=dev).to(
         torch.bfloat16) for s_ in (sq3, sk3, sk3))
     wider_bf16 = time_flash(q, k, v, causal3, card, torch)
+    wider_f16 = time_flash(q.half(), k.half(), v.half(), causal3, card, torch)
     q, k, v = (t.float() for t in (q, k, v))
     wider_f32 = time_flash(q, k, v, causal3, card, torch)
-    del q, k, v
+    scale3 = 1.0 / math.sqrt(d3)
+    planes = (split_f32(q, scale3), split_f32(k), split_f32(v))
+    wider_f32["split_ms"] = cuda_ms(lambda: (
+        split_f32(q, scale3), split_f32(k), split_f32(v)), 10, torch)
+    wider_f32["attention_ms"] = cuda_ms(lambda: _attention_f32_planes(
+        *planes, q.shape, causal3, lib), 10, torch)
+    del q, k, v, planes
+    wide_floor = {}
+    for route, products, t_ in (("wide16", (1, 2), wider_bf16),
+                                ("wide_f32", (6, 6), wider_f32)):
+        issued = wide_tensor_work(b3, h3, sq3, sk3, d3, causal3, products)
+        wide_floor[route] = issued / H100_BF16_FLOPS * 1e3
+        t_["floor_ms"] = wide_floor[route]
+        t_["issued_flop"] = issued
+        print("timing: %s at %s: the design issues %.3e flop of tensor work "
+              "(its floor %.4f ms at 989 TFLOP/s), %.1f TFLOP/s of it in "
+              "%.4f ms%s | %s"
+              % (route, t_["shape"], issued, wide_floor[route],
+                 issued / (t_.get("attention_ms", t_["ms"])) / 1e9,
+                 t_.get("attention_ms", t_["ms"]),
+                 " (the attention kernel alone; split pass %.4f ms)"
+                 % t_["split_ms"] if "split_ms" in t_ else "", card),
+              flush=True)
     backward = time_backward(gen, dev, card)
     serving = case_key(*ATTENTION_CASES[-1], "bfloat16")
 
@@ -1875,7 +2074,8 @@ def main():
                     shape=t["shape"], **extra)
 
     wide_key = case_key(*WIDE_CASES[-1], "%s")
-    wider_key = case_key(*WIDER_CASES[1], "%s")
+    wider_key = case_key(*WIDER_CASES[-1], "%s")
+    build_log = cuda_build.build_log("flash_attention")
     print("train: summary " + json.dumps({
         k_: v_ for k_, v_ in train.items() if k_ != "losses"}), flush=True)
     print("backward: " + json.dumps(dict(backward, max_abs_err_cases=
@@ -1909,13 +2109,26 @@ def main():
         entry("flash_attention_fwd_f32_d256", F32_SOURCE, F32_WIDE_DESIGN,
               small_launches["f32_d256"], errs[wide_key % "float32"],
               wide_f32, bound_terms_ms=wide_f32["bound_terms_ms"]),
-        entry("flash_attention_fwd_wide", WIDER_SOURCE, WIDER_DESIGN,
-              small_launches["f32_d320"], errs[wider_key % "bfloat16"],
+        entry("flash_attention_fwd_wide16", WIDER_SOURCE, WIDE16_DESIGN,
+              wide_lm["launches"], errs[wider_key % "bfloat16"],
               wider_bf16, tflops=wider_bf16["tflops"],
-              f32=dict(ms=wider_f32["ms"], plain_ms=wider_f32["plain_ms"],
-                       bound_ms=wider_f32["bound_ms"],
-                       library_ms=wider_f32["library_ms"],
-                       max_abs_err=errs[wider_key % "float32"])),
+              floor_ms=wider_bf16["floor_ms"],
+              hgmma={r: hgmma[r] for r in ("wide16_bf16", "wide16_f16")},
+              ptxas=ptxas_resources(build_log, "flash_fwd_wide16_kernel"),
+              small_lm_launches=small_launches["bf16_d320"],
+              d512_request_ms=wide_lm["request_ms"],
+              f16=dict(ms=wider_f16["ms"], plain_ms=wider_f16["plain_ms"],
+                       bound_ms=wider_f16["bound_ms"],
+                       library_ms=wider_f16["library_ms"],
+                       max_abs_err=errs[wider_key % "float16"])),
+        entry("flash_attention_fwd_wide_f32", WIDER_SOURCE, WIDE_F32_DESIGN,
+              small_launches["f32_d320"], errs[wider_key % "float32"],
+              wider_f32, floor_ms=wider_f32["floor_ms"],
+              split_ms=wider_f32["split_ms"],
+              attention_ms=wider_f32["attention_ms"],
+              bound_terms_ms=wider_f32["bound_terms_ms"],
+              hgmma=hgmma["wide_f32"],
+              ptxas=ptxas_resources(build_log, "flash_fwd_wide_f32_kernel")),
         entry("flash_attention_bwd", BWD_SOURCE, BWD_DESIGN,
               train["launches"]["flash_attention_bwd"],
               max(backward_errs[case_key(*BACKWARD_CASES[0][:2], "bfloat16")
@@ -1924,6 +2137,8 @@ def main():
               training_steps=TRAIN_STEPS, torch_ops_ms=backward[
                   "torch_ops_ms"], f16_ms=backward["f16_ms"],
               kernel_us=backward["kernel_us"],
+              f16_plain_ms=backward["f16_plain_ms"],
+              f16_library_ms=backward["f16_library_ms"],
               bound_terms_ms=backward["bound_terms_ms"],
               tflops=backward["tflops"], hgmma={
                   r: n for r, n in hgmma.items() if r.startswith("bwd")}),

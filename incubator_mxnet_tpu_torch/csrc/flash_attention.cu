@@ -7,9 +7,11 @@
 //   float32, and any mix of dtypes: flash_attention_f32_sm90.cu (each
 //             operand split into three bf16 planes by a pass of its own, which
 //             reads each input at its own dtype, six products on wgmma).
-// Head dims 1..256 on those routes; head dims above 256, any dtype or mix:
-// flash_attention_wide.cu (f32 FMAs on the CUDA cores, shared memory that
-// does not grow with D). The backward of the bfloat16 and float16 routes at
+// Head dims 1..256 on those routes; head dims above 256:
+// flash_attention_wide_sm90.cu (wgmma, TMA, Q and K streamed in 64-column
+// panels), route A for bfloat16 and float16 (P split into two halves), route
+// B for float32 and any mix (over the same split pass's planes, six
+// products). The backward of the bfloat16 and float16 routes at
 // head dims 1..128 (the gradient of _flash_kernel, the JAX build's
 // _flash_bwd): flash_attention_bwd_sm90.cu (two wgmma kernels, dQ and
 // dK/dV, over the row stats that the forward wrote). Each returns the cudaError_t of its launch (0 = success);
@@ -36,19 +38,32 @@ cudaError_t flash_attention_bwd_sm90_16bit(
     const void* g, void* dq, void* dk, void* dv, void* stats,
     int batch_heads, int sq, int sk, int d, float scale, int causal,
     int is_half, cudaStream_t stream);
-cudaError_t flash_attention_wide_launch(
-    const void* q, const long long* q_st, int q_dtype, const void* k,
-    const long long* k_st, int k_dtype, const void* v, const long long* v_st,
-    int v_dtype, float* o, int batch, int heads, int sq, int sk, int d,
-    float scale, int causal, cudaStream_t stream);
+cudaError_t flash_attention_wide_sm90_16bit(const void* q, const void* k,
+                                            const void* v, void* o,
+                                            int batch_heads, int sq, int sk,
+                                            int d, float scale, int causal,
+                                            int is_half, cudaStream_t stream);
+cudaError_t flash_attention_wide_sm90_f32(const void* qp, const void* kp,
+                                          const void* vp, float* o,
+                                          int batch_heads, int sq, int sk,
+                                          int d, int causal,
+                                          cudaStream_t stream);
 
 namespace {
 
 constexpr int kMaxHeadDim = 256;
 
+bool valid_rows(int batch_heads, int sq, int sk) {
+  return sq >= 1 && sk >= 1 && batch_heads >= 1 && (sq + 63) / 64 <= 65535;
+}
+
 bool valid_shape(int batch_heads, int sq, int sk, int d) {
-  return d >= 1 && d <= kMaxHeadDim && sq >= 1 && sk >= 1 &&
-         batch_heads >= 1 && (sq + 63) / 64 <= 65535;
+  return d >= 1 && d <= kMaxHeadDim && valid_rows(batch_heads, sq, sk);
+}
+
+// head dims above kMaxHeadDim: the wide routes
+bool valid_wide_shape(int batch_heads, int sq, int sk, int d) {
+  return d > kMaxHeadDim && valid_rows(batch_heads, sq, sk);
 }
 
 }  // namespace
@@ -78,16 +93,16 @@ extern "C" int flash_attention_f16(const void* q, const void* k,
                                          static_cast<cudaStream_t>(stream));
 }
 
-// The f32 route's split pass: x (b, h, s, d) at element strides st0..st3, of
-// dtype 0 (f32), 1 (bf16) or 2 (f16), times mul, into planes (3, b·h, s, dp)
-// bf16 (dp = d rounded up to a multiple of 8, zeros past d), 16-byte aligned.
+// The f32 routes' split pass (any d >= 1): x (b, h, s, d) at element strides
+// st0..st3, of dtype 0 (f32), 1 (bf16) or 2 (f16), times mul, into planes
+// (3, b·h, s, dp) bf16 (dp = d rounded up to a multiple of 8, zeros past d),
+// 16-byte aligned.
 extern "C" int flash_attention_f32_split(const void* x, long long st0,
                                          long long st1, long long st2,
                                          long long st3, void* planes, int b,
                                          int h, int s, int d, float mul,
                                          int dtype, void* stream) {
-  if (d > kMaxHeadDim || dtype < 0 || dtype > 2)
-    return (int)cudaErrorInvalidValue;
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   return (int)flash_attention_sm90_f32_split(
       x, st0, st1, st2, st3, planes, b, h, s, d, mul, dtype,
       static_cast<cudaStream_t>(stream));
@@ -106,28 +121,45 @@ extern "C" int flash_attention_f32(const void* qp, const void* kp,
                                        static_cast<cudaStream_t>(stream));
 }
 
-// The route for head dims above 256 (any d >= 1 runs): q (b, h, sq, d), k and
-// v (b, h, sk, d), each at its own element strides and dtype (0 f32, 1 bf16,
-// 2 f16); o (b·h, sq, d) f32 contiguous.
-extern "C" int flash_attention_wide(
-    const void* q, long long qs0, long long qs1, long long qs2, long long qs3,
-    int q_dtype, const void* k, long long ks0, long long ks1, long long ks2,
-    long long ks3, int k_dtype, const void* v, long long vs0, long long vs1,
-    long long vs2, long long vs3, int v_dtype, void* o, int b, int h, int sq,
-    int sk, int d, float scale, int causal, void* stream) {
-  const long long bh = (long long)b * h;
-  if (d < 1 || sq < 1 || sk < 1 || b < 1 || h < 1 || bh >= (1LL << 31) ||
-      (sq + 63) / 64 > 65535)
+// Route A of the head dims above 256: q, o (batch_heads, sq, d); k, v
+// (batch_heads, sk, d); contiguous bf16 with 16-byte aligned bases; d a
+// multiple of 8 above 256.
+extern "C" int flash_attention_wide_bf16(const void* q, const void* k,
+                                         const void* v, void* o,
+                                         int batch_heads, int sq, int sk,
+                                         int d, float scale, int causal,
+                                         void* stream) {
+  if (!valid_wide_shape(batch_heads, sq, sk, d))
     return (int)cudaErrorInvalidValue;
-  if (q_dtype < 0 || q_dtype > 2 || k_dtype < 0 || k_dtype > 2 ||
-      v_dtype < 0 || v_dtype > 2)
+  return (int)flash_attention_wide_sm90_16bit(
+      q, k, v, o, batch_heads, sq, sk, d, scale, causal, 0,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The same for float16 q, k, v, o.
+extern "C" int flash_attention_wide_f16(const void* q, const void* k,
+                                        const void* v, void* o,
+                                        int batch_heads, int sq, int sk,
+                                        int d, float scale, int causal,
+                                        void* stream) {
+  if (!valid_wide_shape(batch_heads, sq, sk, d))
     return (int)cudaErrorInvalidValue;
-  const long long q_st[4] = {qs0, qs1, qs2, qs3};
-  const long long k_st[4] = {ks0, ks1, ks2, ks3};
-  const long long v_st[4] = {vs0, vs1, vs2, vs3};
-  return (int)flash_attention_wide_launch(
-      q, q_st, q_dtype, k, k_st, k_dtype, v, v_st, v_dtype,
-      static_cast<float*>(o), b, h, sq, sk, d, scale, causal,
+  return (int)flash_attention_wide_sm90_16bit(
+      q, k, v, o, batch_heads, sq, sk, d, scale, causal, 1,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Route B of the head dims above 256, over the planes of the split pass: qp
+// (3, batch_heads, sq, dp) of q times its scale, kp and vp (3, batch_heads,
+// sk, dp); o (batch_heads, sq, d) f32 contiguous.
+extern "C" int flash_attention_wide_f32(const void* qp, const void* kp,
+                                        const void* vp, void* o,
+                                        int batch_heads, int sq, int sk,
+                                        int d, int causal, void* stream) {
+  if (!valid_wide_shape(batch_heads, sq, sk, d))
+    return (int)cudaErrorInvalidValue;
+  return (int)flash_attention_wide_sm90_f32(
+      qp, kp, vp, static_cast<float*>(o), batch_heads, sq, sk, d, causal,
       static_cast<cudaStream_t>(stream));
 }
 

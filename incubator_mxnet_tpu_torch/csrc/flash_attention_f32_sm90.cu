@@ -76,37 +76,7 @@
 
 namespace {
 
-constexpr int kPieces = 3;  // bf16 planes of each f32 operand: h, m, l
 constexpr int kSplitThreads = 256;
-
-// Product i of the split, i = 0..5, in issue order lh, hl, mm, mh, hm, hh:
-// the piece of the A operand and of the B operand (0 = h, 1 = m, 2 = l).
-__device__ __forceinline__ constexpr int a_piece(int i) {
-  return i == 0 ? 2 : (i == 2 || i == 3) ? 1 : 0;
-}
-__device__ __forceinline__ constexpr int b_piece(int i) {
-  return i == 1 ? 2 : (i == 2 || i == 4) ? 1 : 0;
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[kPieces][16]) {
-#pragma unroll
-  for (int p = 0; p < kPieces; ++p) fence_regs(r[p]);
-}
-
-// The three bf16 pieces of the pair (x0, x1), packed as bf16x2 into w[0],
-// w[stride], w[2 * stride]: each piece is the rounding of what the earlier
-// ones left, and the subtractions are exact in f32.
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t* w,
-                                           int stride) {
-#pragma unroll
-  for (int p = 0; p < kPieces; ++p) {
-    const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
-    w[p * stride] = bf16x2_bits(b);
-    const float2 f = __bfloat1622float2(b);
-    x0 -= f.x;
-    x1 -= f.y;
-  }
-}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -195,17 +165,6 @@ __device__ __forceinline__ void issue_pv(float (&oacc)[NO][32],
     }
   }
   wgmma_commit();
-}
-
-// o[col], o[col + 1] of one row, as far as they lie inside d
-__device__ __forceinline__ void store_pair(float* row, int col, int d,
-                                           float x0, float x1) {
-  if (col + 1 < d && (d & 1) == 0) {
-    *reinterpret_cast<float2*>(row + col) = make_float2(x0, x1);
-  } else {
-    if (col < d) row[col] = x0;
-    if (col + 1 < d) row[col + 1] = x1;
-  }
 }
 
 // NQK: 64-column panels of Q and K, the head dim rounded up to a multiple of
@@ -376,26 +335,6 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                    oacc[pn][4 * j + 3] / den1);
     }
   }
-}
-
-// The planes (3, batch_heads, rows, dp) bf16 as a 4-d TMA map (columns,
-// rows, b·h, plane) whose box is one panel of 64 columns by box_rows rows of
-// one plane of one (batch, head): rows past `rows` and columns past dp read
-// as zeros.
-bool make_planes_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr,
-                     int batch_heads, int rows, int dp, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)dp, (cuuint64_t)rows,
-                              (cuuint64_t)batch_heads, (cuuint64_t)kPieces};
-  const cuuint64_t strides[3] = {(cuuint64_t)dp * 2,
-                                 (cuuint64_t)rows * dp * 2,
-                                 (cuuint64_t)batch_heads * rows * dp * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kPanel, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int NQK, int NO, int NWG, int SLOTS>

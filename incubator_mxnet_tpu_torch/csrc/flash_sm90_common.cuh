@@ -1,13 +1,16 @@
 // Building blocks shared by the Hopper (sm_90a) flash-attention kernels: the
 // 16-bit forward, bf16 and f16 (flash_attention_sm90.cu), the f32 forward
-// (flash_attention_f32_sm90.cu) and the 16-bit backward
+// (flash_attention_f32_sm90.cu), the forward at head dims above 256
+// (flash_attention_wide_sm90.cu) and the 16-bit backward
 // (flash_attention_bwd_sm90.cu). mbarriers with a trap on a stuck wait, TMA
 // tile loads, wgmma m64n64k16 (bf16 or f16 operands, f32 accumulator) on
 // 128-byte-swizzled shared memory, the empty register fences around
 // asynchronous wgmma, the 16-bit routes' S = A·Bᵀ and O += P·V products with
-// P split into two halves, the online softmax of one S tile in log2 units,
-// the binding of the operands' device in the calling thread, and the CUDA
-// driver's tensor-map encoder with the 16-bit routes' panel maps.
+// P split into two halves, the f32 routes' three-way bf16 split and the order
+// of their six products, the online softmax of one S tile in log2 units, the
+// binding of the operands' device in the calling thread, and the CUDA
+// driver's tensor-map encoder with the 16-bit routes' panel maps and the f32
+// routes' plane maps.
 // Layout and exactness notes are in the kernels' sources.
 #pragma once
 
@@ -267,6 +270,50 @@ __device__ __forceinline__ void split_p(const float (&p)[32],
   }
 }
 
+// The f32 routes' split (flash_attention_f32_sm90.cu, and route B of
+// flash_attention_wide_sm90.cu).
+constexpr int kPieces = 3;  // bf16 planes of each f32 operand: h, m, l
+
+// Product i of the split, i = 0..5, in issue order lh, hl, mm, mh, hm, hh:
+// the piece of the A operand and of the B operand (0 = h, 1 = m, 2 = l).
+__device__ __forceinline__ constexpr int a_piece(int i) {
+  return i == 0 ? 2 : (i == 2 || i == 3) ? 1 : 0;
+}
+__device__ __forceinline__ constexpr int b_piece(int i) {
+  return i == 1 ? 2 : (i == 2 || i == 4) ? 1 : 0;
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kPieces][16]) {
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p) fence_regs(r[p]);
+}
+
+// The three bf16 pieces of the pair (x0, x1), packed as bf16x2 into w[0],
+// w[stride], w[2 * stride]: each piece is the rounding of what the earlier
+// ones left, and the subtractions are exact in f32.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t* w,
+                                           int stride) {
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+    w[p * stride] = bf16x2_bits(b);
+    const float2 f = __bfloat1622float2(b);
+    x0 -= f.x;
+    x1 -= f.y;
+  }
+}
+
+// o[col], o[col + 1] of one row, as far as they lie inside d
+__device__ __forceinline__ void store_pair(float* row, int col, int d,
+                                           float x0, float x1) {
+  if (col + 1 < d && (d & 1) == 0) {
+    *reinterpret_cast<float2*>(row + col) = make_float2(x0, x1);
+  } else {
+    if (col < d) row[col] = x0;
+    if (col + 1 < d) row[col + 1] = x1;
+  }
+}
+
 // the running max (log2 units) and this thread's share of the running sum of
 // its two rows
 struct RowState {
@@ -402,6 +449,26 @@ bool make_map(EncodeTiledFn encode, CUtensorMap* map, CUtensorMapDataType type,
   return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The planes (3, batch_heads, rows, dp) bf16 as a 4-d TMA map (columns,
+// rows, b·h, plane) whose box is one panel of 64 columns by box_rows rows of
+// one plane of one (batch, head): rows past `rows` and columns past dp read
+// as zeros.
+bool make_planes_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr,
+                     int batch_heads, int rows, int dp, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dp, (cuuint64_t)rows,
+                              (cuuint64_t)batch_heads, (cuuint64_t)kPieces};
+  const cuuint64_t strides[3] = {(cuuint64_t)dp * 2,
+                                 (cuuint64_t)rows * dp * 2,
+                                 (cuuint64_t)batch_heads * rows * dp * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kPanel, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

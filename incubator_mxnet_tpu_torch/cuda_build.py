@@ -52,10 +52,15 @@ KERNELS = {
         # q, k, v planes, o, batch_heads, sq, sk, d, causal, stream
         "flash_attention_f32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _P]),
-        # q, its 4 strides, its dtype code; k, ...; v, ...; o, b, h, sq, sk,
-        # d, scale, causal, stream
-        "flash_attention_wide": (_I, [_P, _L, _L, _L, _L, _I] * 3 +
-                                 [_P, _I, _I, _I, _I, _I, _F, _I, _P]),
+        # head dims above 256, route A: q, k, v, o, batch_heads, sq, sk, d,
+        # scale, causal, stream
+        "flash_attention_wide_bf16": (_I, [_P, _P, _P, _P, _I, _I, _I, _I,
+                                           _F, _I, _P]),
+        "flash_attention_wide_f16": (_I, [_P, _P, _P, _P, _I, _I, _I, _I,
+                                          _F, _I, _P]),
+        # route B: q, k, v planes, o, batch_heads, sq, sk, d, causal, stream
+        "flash_attention_wide_f32": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _P]),
         # q, k, v, out, g, dq, dk, dv, stats, batch_heads, sq, sk, d, scale,
         # causal, stream
         "flash_attention_bwd_bf16": (_I, [_P] * 9 + [_I, _I, _I, _I, _F, _I,
@@ -66,13 +71,12 @@ KERNELS = {
     },
 }
 # kernel name -> its sources under csrc/: flash attention's C entry points,
-# its 16-bit routes (bf16, f16) and its f32 route (all wgmma and TMA), its
-# route for head dims above 256 (CUDA cores), and the 16-bit routes' backward
-# (wgmma and TMA), one library
+# its 16-bit routes (bf16, f16), its f32 route, its two routes for head dims
+# above 256 and the 16-bit routes' backward (all wgmma and TMA), one library
 SOURCES = {
     "flash_attention": ("flash_attention.cu", "flash_attention_sm90.cu",
                         "flash_attention_f32_sm90.cu",
-                        "flash_attention_wide.cu",
+                        "flash_attention_wide_sm90.cu",
                         "flash_attention_bwd_sm90.cu"),
 }
 

@@ -15,10 +15,13 @@ dtype), run the split pass :func:`split_f32` (each operand, read at its own
 dtype, into three bf16 planes, plain version :func:`_split_f32_reference`)
 and then ``csrc/flash_attention_f32_sm90.cu`` (six bf16 products for each
 f32 product, as XLA computes ``Precision.HIGHEST`` on the TPU).
-Head dims above 256, in any dtype or mix, run ``csrc/flash_attention_wide.cu``
-(f32 FMAs on the CUDA cores, shared memory that does not grow with D), as the
-reference pads any head dim and runs it.  ``csrc/flash_attention.cu`` holds
-the library's C entry points.
+Head dims above 256, as the reference pads any head dim and runs it, run
+``csrc/flash_attention_wide_sm90.cu`` (wgmma and TMA, Q and K streamed
+through shared memory in 64-column panels, 256 output columns a block):
+route A for all-bfloat16 or all-float16 inputs (the 16-bit route's split of
+P), route B for float32 and any mix (the same split pass, then six bf16
+products for each f32 product).  ``csrc/flash_attention.cu`` holds the
+library's C entry points.
 
 The backward is the reference's ``_flash_bwd`` (ops/attention.py:168-242),
 which the JAX build runs as jnp under XLA.  Both devices go through one
@@ -55,7 +58,8 @@ from .. import cuda_build
 from .registry import register
 
 _NEG_INF = -1e30
-# the wgmma routes' (and split_f32's) head dims; above it the wide route
+# the head dims of the routes in csrc/flash_attention_sm90.cu and
+# csrc/flash_attention_f32_sm90.cu; above it the wide routes
 _MAX_HEAD_DIM = 256
 _WIDE = 3     # route code of the head dims above _MAX_HEAD_DIM
 # the dtypes a kernel reads, by their code in the C entry points
@@ -109,7 +113,8 @@ def _kernel_dtype_code(q, k, v):
     """Check what the CUDA kernel takes beyond :func:`_check_inputs` and
     return its route's code: 1 (all bfloat16) or 2 (all float16) for the
     16-bit kernel, 0 for the f32 route (all float32, or a mix), each at head
-    dims up to 256; ``_WIDE`` (3) for head dims above 256, any dtype."""
+    dims up to 256; ``_WIDE`` (3) for head dims above 256, any dtype (route
+    A or B by the dtypes, :func:`_flash_forward_wide`)."""
     for t in (q, k, v):
         if t.dtype not in _KERNEL_DTYPES:
             raise TypeError("the flash_attention kernel takes float32, "
@@ -166,7 +171,7 @@ def split_f32(x, mul=1.0):
     ``csrc/flash_attention_f32_sm90.cu``, which reads ``x``'s strides and
     dtype, so neither a split-heads view nor a 16-bit input of a mix needs a
     copy) and bumps ``split_f32.launches``; a CPU tensor through the plain
-    version."""
+    version.  Any head dim: the f32 route's up to 256 and route B's above."""
     if x.device.type == "cpu":
         return _split_f32_reference(x, mul)
     if x.device.type != "cuda":
@@ -177,9 +182,9 @@ def split_f32(x, mul=1.0):
                         "float16 tensor, got %s %s" % (x.dtype,
                                                        tuple(x.shape)))
     b, h, s, d = x.shape
-    if not 1 <= d <= _MAX_HEAD_DIM or x.numel() == 0:
-        raise ValueError("split_f32 takes head dims 1..%d and a non-empty "
-                         "tensor, got %s" % (_MAX_HEAD_DIM, tuple(x.shape)))
+    if x.numel() == 0:
+        raise ValueError("split_f32 takes a non-empty tensor, got %s"
+                         % (tuple(x.shape),))
     dp = -(-d // _COLUMNS) * _COLUMNS
     planes = torch.empty((_PIECES, b * h, s, dp), dtype=torch.bfloat16,
                          device=x.device)
@@ -199,37 +204,43 @@ split_f32.launches = 0
 
 
 def _attention_f32_planes(qp, kp, vp, shape, causal, lib):
-    """The f32 route's attention kernel over the planes of :func:`split_f32`
-    (q's times its scale); ``shape`` is q's (B, H, Sq, D)."""
+    """The attention kernel over the planes of :func:`split_f32` (q's times
+    its scale): the f32 route's up to D = 256, route B's above; ``shape`` is
+    q's (B, H, Sq, D)."""
     b, h, sq, d = shape
+    entry = "flash_attention_wide_f32" if d > _MAX_HEAD_DIM else \
+        "flash_attention_f32"
     o = torch.empty((b, h, sq, d), dtype=torch.float32, device=qp.device)
     with torch.cuda.device(qp.device):
         stream = torch.cuda.current_stream(qp.device).cuda_stream
-        err = lib.flash_attention_f32(qp.data_ptr(), kp.data_ptr(),
-                                      vp.data_ptr(), o.data_ptr(), b * h, sq,
-                                      kp.shape[2], d, int(bool(causal)),
-                                      stream)
-    _raise_on(err, lib, "flash_attention_f32")
+        err = getattr(lib, entry)(qp.data_ptr(), kp.data_ptr(),
+                                  vp.data_ptr(), o.data_ptr(), b * h, sq,
+                                  kp.shape[2], d, int(bool(causal)), stream)
+    _raise_on(err, lib, entry)
     return o
 
 
 def _flash_forward_f32(q, k, v, causal, scale, lib):
-    """The f32 route: split q (times ``scale``, as the TPU kernel scales q),
-    k and v, each at its own dtype, into bf16 planes, then the six-product
-    attention kernel; the f32 result in q's dtype, as the reference returns
-    a mix."""
+    """The f32 route (route B above D = 256): split q (times ``scale``, as
+    the TPU kernel scales q), k and v, each at its own dtype, into bf16
+    planes, then the six-product attention kernel; the f32 result in q's
+    dtype, as the reference returns a mix."""
     o = _attention_f32_planes(split_f32(q, scale), split_f32(k), split_f32(v),
                               q.shape, causal, lib)
-    flash_attention.f32_launches += 1
+    if q.shape[-1] > _MAX_HEAD_DIM:
+        flash_attention.wide_f32_launches += 1
+    else:
+        flash_attention.f32_launches += 1
     if not q.dtype == k.dtype == v.dtype:
         flash_attention.mixed_launches += 1
     return o.to(q.dtype)
 
 
 def _flash_forward_16bit(q, k, v, causal, scale, lib, stats=None):
-    """The bf16 or f16 route, on contiguous, 16-byte aligned copies of
-    q, k, v; with ``stats`` (from :func:`_backward_stats`) it also writes
-    each row's softmax stats for the backward kernel."""
+    """The bf16 or f16 route (route A above D = 256), on contiguous, 16-byte
+    aligned copies of q, k, v with D padded to a multiple of 8; with
+    ``stats`` (from :func:`_backward_stats`, D <= 128) it also writes each
+    row's softmax stats for the backward kernel."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     # the split-heads transpose leaves q, k, v strided: one copy each, as
@@ -243,38 +254,37 @@ def _flash_forward_16bit(q, k, v, causal, scale, lib, stats=None):
     # TMA reads from 16-byte aligned bases; a view may start anywhere
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     o = torch.empty_like(q)
-    entry = "flash_attention_f16" if q.dtype == torch.float16 else \
-        "flash_attention_bf16"
+    wide = d > _MAX_HEAD_DIM
+    entry = "flash_attention_%s%s" % (
+        "wide_" if wide else "", "f16" if q.dtype == torch.float16 else "bf16")
+    # the wide entries take no stats: the backward kernel's head dims end at
+    # 128
+    extra = () if wide else (None if stats is None else stats.data_ptr(),)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   o.data_ptr(), b * h, sq, sk, dk,
-                                  float(scale), int(bool(causal)),
-                                  None if stats is None else stats.data_ptr(),
+                                  float(scale), int(bool(causal)), *extra,
                                   stream)
     _raise_on(err, lib, entry)
-    if q.dtype == torch.float16:
+    if wide:
+        flash_attention.wide16_launches += 1
+    elif q.dtype == torch.float16:
         flash_attention.f16_launches += 1
     return o if dk == d else o[..., :d].contiguous()
 
 
 def _flash_forward_wide(q, k, v, causal, scale, lib):
-    """The route for head dims above 256: one kernel reads q, k and v through
-    their strides, each at its own dtype, and writes o in f32, returned in
-    q's dtype as the reference returns it."""
-    b, h, sq, d = q.shape
-    o = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
-    args = []
-    for t in (q, k, v):
-        args += [t.data_ptr(), *t.stride(), _KERNEL_DTYPES[t.dtype]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_wide(*args, o.data_ptr(), b, h, sq,
-                                       k.shape[2], d, float(scale),
-                                       int(bool(causal)), stream)
-    _raise_on(err, lib, "flash_attention_wide")
+    """Head dims above 256: all-bfloat16 or all-float16 inputs take route A
+    (:func:`_flash_forward_16bit`), float32 and any mix route B
+    (:func:`_flash_forward_f32`); both kernels are in
+    ``csrc/flash_attention_wide_sm90.cu``."""
+    if q.dtype == k.dtype == v.dtype and q.dtype != torch.float32:
+        o = _flash_forward_16bit(q, k, v, causal, scale, lib)
+    else:
+        o = _flash_forward_f32(q, k, v, causal, scale, lib)
     flash_attention.wide_launches += 1
-    return o.to(q.dtype)
+    return o
 
 
 def _flash_forward_cuda(q, k, v, causal, scale, stats=None):
@@ -487,9 +497,11 @@ def flash_attention(q, k, v, causal=False, scale=None):
     ``flash_attention.f32_launches``, and for a mix of dtypes
     ``flash_attention.mixed_launches``; on the f16 route
     ``flash_attention.f16_launches``; at head dims above 256
-    ``flash_attention.wide_launches``); a CPU tensor through the plain
-    version.  The gradient takes the backward kernel or
-    :func:`_flash_backward` as the module's docstring says
+    ``flash_attention.wide_launches`` and its route's
+    ``wide16_launches`` (A: bf16, f16) or ``wide_f32_launches`` (B: f32,
+    mixes)); a CPU tensor through the plain version.  The gradient takes
+    the backward kernel or :func:`_flash_backward` as the module's docstring
+    says
     (``flash_attention.backward_calls`` counts both,
     ``backward_kernel_launches`` and ``backward_torch_calls`` each route).
     ``scale`` defaults to 1/sqrt(D); with ``causal`` the diagonal is
@@ -508,6 +520,8 @@ flash_attention.f32_launches = 0
 flash_attention.f16_launches = 0
 flash_attention.mixed_launches = 0
 flash_attention.wide_launches = 0
+flash_attention.wide16_launches = 0
+flash_attention.wide_f32_launches = 0
 flash_attention.backward_calls = 0
 flash_attention.backward_kernel_launches = 0
 flash_attention.backward_torch_calls = 0

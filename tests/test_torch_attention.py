@@ -104,14 +104,30 @@ def _violations(out, ref, rel=BF16_REL):
     return int((np.abs(out - ref) > rel * np.abs(ref) + BF16_ABS).sum())
 
 
+def _panel_matmul(a, b, panel):
+    """a @ b in f32 as the wide kernels accumulate it: the products of each
+    ``panel`` columns of a (rows of b) summed in the order of the panels
+    (``panel`` None: one product)."""
+    if panel is None:
+        return torch.matmul(a, b)
+    acc = None
+    for c0 in range(0, a.shape[-1], panel):
+        term = torch.matmul(a[..., c0:c0 + panel], b[..., c0:c0 + panel, :])
+        acc = term if acc is None else acc + term
+    return acc
+
+
 def _bf16_kernel_emulation(q, k, v, causal, split=True, block_n=64,
-                           dtype=torch.bfloat16):
+                           dtype=torch.bfloat16, panel=None):
     """The 16-bit kernel's arithmetic in plain PyTorch (test-only), for
     ``dtype`` bf16 or f16: q, k, v of that type; S = Q·Kᵀ in f32 from exact
-    products; an online softmax in log2 units over tiles of ``block_n``
-    keys; O += P_hi·V + P_lo·V with P_hi = T(P) and P_lo = T(P - P_hi),
-    products in f32 (``split`` False: O += T(P)·V, the design the split
-    avoids); o rounded to the type once."""
+    products (``panel`` 64: summed panel by panel, as route A of
+    csrc/flash_attention_wide_sm90.cu streams Q and K at D > 256; its
+    256-column output slices each see the whole S, so they change no
+    value); an online softmax in log2 units over tiles of ``block_n`` keys;
+    O += P_hi·V + P_lo·V with P_hi = T(P) and P_lo = T(P - P_hi), products
+    in f32 (``split`` False: O += T(P)·V, the design the split avoids); o
+    rounded to the type once."""
     qf, kf, vf = (t.to(dtype).float() for t in (q, k, v))
     sq, sk, d = qf.shape[-2], kf.shape[-2], qf.shape[-1]
     scale_log2 = (1.0 / np.sqrt(d)) * 1.4426950408889634
@@ -121,7 +137,7 @@ def _bf16_kernel_emulation(q, k, v, causal, split=True, block_n=64,
     acc = torch.zeros_like(qf)
     for n0 in range(0, sk, block_n):
         kt, vt = kf[..., n0:n0 + block_n, :], vf[..., n0:n0 + block_n, :]
-        x = torch.matmul(qf, kt.transpose(-1, -2)) * scale_log2
+        x = _panel_matmul(qf, kt.transpose(-1, -2), panel) * scale_log2
         if causal:
             cols = torch.arange(n0, n0 + kt.shape[-2])[None, :]
             x = x.masked_fill(cols > rows + sk - sq, -1e30)
@@ -155,25 +171,41 @@ def _pieces(x, n):
     return out
 
 
-def _split_matmul(a, b, pieces):
+def _split_matmul(a, b, pieces, panel=None):
     """a @ b as the kernel computes it from ``pieces`` bf16 pieces of each
     operand: the products of F32_PRODUCTS whose ranks add up to less than
     ``pieces`` (all six for 3, hh alone for 1), each exact, summed in f32 in
-    the kernel's order."""
+    the kernel's order: each product over the whole of a's columns in turn;
+    or (``panel`` 64, route B of csrc/flash_attention_wide_sm90.cu) a walk
+    over the panels of columns with the small products of each panel, then
+    a second walk adding hh panel by panel."""
     pa, pb = _pieces(a, pieces), _pieces(b, pieces)
     acc = None
-    for i, j in F32_PRODUCTS:
-        if i + j < pieces:
-            term = torch.matmul(pa[i], pb[j])
-            acc = term if acc is None else acc + term
+    if panel is None:
+        for i, j in F32_PRODUCTS:
+            if i + j < pieces:
+                term = torch.matmul(pa[i], pb[j])
+                acc = term if acc is None else acc + term
+        return acc
+    cols = range(0, a.shape[-1], panel)
+    for small in (True, False):
+        for c0 in cols:
+            for i, j in F32_PRODUCTS:
+                if i + j < pieces and ((i, j) != (0, 0)) == small:
+                    term = torch.matmul(pa[i][..., c0:c0 + panel],
+                                        pb[j][..., c0:c0 + panel, :])
+                    acc = term if acc is None else acc + term
     return acc
 
 
-def _f32_split_kernel_emulation(q, k, v, causal, pieces=3, block_n=64):
+def _f32_split_kernel_emulation(q, k, v, causal, pieces=3, block_n=64,
+                                panel=None):
     """The f32 kernel's arithmetic in plain PyTorch (test-only): q scaled in
     f32 and split, as k and v, into ``pieces`` bf16 pieces; S = Q·Kᵀ from
-    the split products into f32; an online softmax in log2 units over tiles
-    of ``block_n`` keys; O += P·V with P split the same way; o in f32."""
+    the split products into f32 (``panel`` 64: panel by panel, as route B
+    streams Q's and K's planes at D > 256; its 256-column output slices
+    each see the whole S); an online softmax in log2 units over tiles of
+    ``block_n`` keys; O += P·V with P split the same way; o in f32."""
     q, k, v = (t.to(torch.float32) for t in (q, k, v))
     sq, sk, d = q.shape[-2], k.shape[-2], q.shape[-1]
     qs = q * (1.0 / np.sqrt(d))
@@ -183,7 +215,7 @@ def _f32_split_kernel_emulation(q, k, v, causal, pieces=3, block_n=64):
     acc = torch.zeros_like(q)
     for n0 in range(0, sk, block_n):
         kt, vt = k[..., n0:n0 + block_n, :], v[..., n0:n0 + block_n, :]
-        x = _split_matmul(qs, kt.transpose(-1, -2), pieces) * LOG2E
+        x = _split_matmul(qs, kt.transpose(-1, -2), pieces, panel) * LOG2E
         if causal:
             cols = torch.arange(n0, n0 + kt.shape[-2])[None, :]
             x = x.masked_fill(cols > rows + sk - sq, -1e30)
@@ -304,6 +336,52 @@ def test_cpu_f16_p_breaks_the_bound(shape, causal):
         0.0005 * want.size
 
 
+# head dims above 256, the wide routes' arithmetic: S summed panel by panel
+# (64 columns) at D = 320, Sq = Sk, Sq > Sk (rows that see no key) and not
+# causal with Sq < Sk
+WIDE_EMU_CASES = [((1, 2, 200, 200, 320), True),
+                  ((1, 1, 150, 100, 320), True),
+                  ((1, 2, 130, 150, 320), False)]
+WIDE_EMU_IDS = _ids(WIDE_EMU_CASES)
+HALF = {"bf16": (torch.bfloat16, BF16_REL, 0.01),
+        "f16": (torch.float16, F16_REL, 0.0005)}
+
+
+# route A: the split of P holds every element to one rounding of the JAX
+# build's f32 result, and P rounded once breaks that bound (at >= 1% of the
+# elements in bf16, >= 0.05% in f16, as at D <= 256)
+@pytest.mark.parametrize("split", [True, False], ids=["split", "unsplit"])
+@pytest.mark.parametrize("half", list(HALF))
+@pytest.mark.parametrize("shape,causal", WIDE_EMU_CASES, ids=WIDE_EMU_IDS)
+def test_cpu_wide_16bit_emulation_against_jax(shape, causal, half, split):
+    dtype, rel, share = HALF[half]
+    q, k, v = _bf16_values(*_inputs(shape, seed=16), dtype=dtype)
+    want = _jax_flash(q, k, v, causal)
+    got = _bf16_kernel_emulation(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 causal, split=split, dtype=dtype, panel=64)
+    assert got.dtype == dtype and tuple(got.shape) == want.shape
+    bad = _violations(got.float().numpy(), want, rel)
+    if split:
+        assert bad == 0
+    else:
+        assert bad >= share * want.size
+
+
+# route B: three pieces, six products a panel, within the f32 bound 2e-5 of
+# the JAX build; one piece breaks 1e-4
+@pytest.mark.parametrize("pieces", [3, 1], ids=["three_pieces", "one_piece"])
+@pytest.mark.parametrize("shape,causal", WIDE_EMU_CASES, ids=WIDE_EMU_IDS)
+def test_cpu_wide_f32_split_emulation_against_jax(shape, causal, pieces):
+    q, k, v = _inputs(shape, seed=17)
+    want = _jax_flash(q, k, v, causal)
+    got = _f32_split_kernel_emulation(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal, pieces=pieces,
+        panel=64)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    err = np.abs(got.numpy() - want).max()
+    assert err <= 2e-5 if pieces == 3 else err > 1e-4
+
+
 MIXES = [("bfloat16", "float32", "float16"), ("float32", "bfloat16", "bfloat16"),
          ("float16", "float16", "float32")]
 
@@ -352,6 +430,25 @@ def test_cpu_split_f32_planes(shape, mul):
     assert ((got - want).abs() <= 2.0 ** -24 * want.abs()).all()
     assert (planes[1].float().abs() <= 2.0 ** -8 *
             planes[0].float().abs()).all()
+
+
+# the planes of head dims above 256 (route B's input) against the JAX
+# build's q·scale in f32, which its kernel reads: plane 0 is that value
+# rounded to bf16, and the three carry it to 2^-24 relative
+@pytest.mark.parametrize("d", [320, 512])
+def test_cpu_split_f32_reference_matches_jax_at_wide_head_dims(d):
+    rs = np.random.RandomState(18)
+    x = rs.standard_normal((1, 2, 70, d)).astype(np.float32)
+    scale = np.float32(1.0 / np.sqrt(d))
+    want = np.asarray(jnp.asarray(x) * scale).reshape(2, 70, d)
+    planes = tatt._split_f32_reference(torch.from_numpy(x), float(scale))
+    assert tuple(planes.shape) == (3, 2, 70, d)
+    np.testing.assert_array_equal(
+        planes[0].float().numpy(),
+        np.asarray(jnp.asarray(want).astype(jnp.bfloat16).astype(
+            jnp.float32)))
+    got = planes.double().sum(0).numpy()
+    assert (np.abs(got - want) <= 2.0 ** -24 * np.abs(want)).all()
 
 
 def test_rows_without_visible_keys_average_v():

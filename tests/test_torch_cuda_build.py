@@ -59,7 +59,7 @@ def test_build_all_compiles_each_source_once(fake_nvcc):
         cuda_build.SOURCES["flash_attention"])    # one nvcc for each source
     assert cuda_build.SOURCES["flash_attention"] == (
         "flash_attention.cu", "flash_attention_sm90.cu",
-        "flash_attention_f32_sm90.cu", "flash_attention_wide.cu",
+        "flash_attention_f32_sm90.cu", "flash_attention_wide_sm90.cu",
         "flash_attention_bwd_sm90.cu")
     assert not list(cuda_build.BUILD_DIR.glob("*.tmp-*"))
 
@@ -92,7 +92,7 @@ def test_library_name_follows_source_and_flags(monkeypatch):
 @pytest.mark.parametrize("source", ["flash_attention.cu",
                                     "flash_attention_sm90.cu",
                                     "flash_attention_f32_sm90.cu",
-                                    "flash_attention_wide.cu",
+                                    "flash_attention_wide_sm90.cu",
                                     "flash_sm90_common.cuh"])
 def test_library_name_follows_every_source(source, tmp_path, monkeypatch):
     headers = [p.name for p in cuda_build.CSRC.glob("*.cuh")]
@@ -121,3 +121,22 @@ def test_backward_source_is_built_and_hashed(tmp_path, monkeypatch):
     src = csrc / "flash_attention_bwd_sm90.cu"
     src.write_text(src.read_text() + "\n// edited\n")
     assert cuda_build.lib_path("flash_attention") != before
+
+
+@pytest.mark.parametrize("entry,n_args", [("flash_attention_wide_bf16", 11),
+                                          ("flash_attention_wide_f16", 11),
+                                          ("flash_attention_wide_f32", 10)])
+def test_wide_entry_points_are_bound(entry, n_args):
+    """Head dims above 256: routes A (bf16, f16: q, k, v, o, batch_heads,
+    sq, sk, d, scale, causal, stream) and B (the planes, o, batch_heads, sq,
+    sk, d, causal, stream) have C entry points in the library built from
+    csrc/flash_attention_wide_sm90.cu, and the CUDA-core kernel's is gone."""
+    import ctypes
+    kernels = cuda_build.KERNELS["flash_attention"]
+    assert "flash_attention_wide" not in kernels
+    assert "flash_attention_wide_sm90.cu" in cuda_build.SOURCES[
+        "flash_attention"]
+    restype, argtypes = kernels[entry]
+    assert restype is ctypes.c_int and len(argtypes) == n_args
+    assert argtypes[-1] is ctypes.c_void_p        # the stream
+    assert argtypes[:4] == [ctypes.c_void_p] * 4  # q, k, v, o

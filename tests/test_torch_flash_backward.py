@@ -310,17 +310,11 @@ def test_cpu_backward_unsplit_emulation_breaks_the_bound(shape, causal,
 
 class _StubLibrary:
     """Records the C entry point called and the head dim it was given (and,
-    for the 16-bit forward, whether it got a stats buffer; for the
-    backward, which of its nine pointers are not 16-byte aligned)."""
+    for the forward, whether it got a stats buffer; for the backward, which
+    of its nine pointers are not 16-byte aligned)."""
 
     def __init__(self):
         self.calls = []
-
-    def flash_attention_wide(self, *args):
-        # q, 4 strides, dtype; k ...; v ...; o, b, h, sq, sk, d, ...
-        self.calls.append(("flash_attention_wide", args[23], args[5],
-                           args[11], args[17]))
-        return 0
 
     def _backward(name):
         def call(self, *args):
@@ -345,6 +339,9 @@ class _StubLibrary:
     flash_attention_bf16 = _forward("flash_attention_bf16")
     flash_attention_f16 = _forward("flash_attention_f16")
     flash_attention_f32 = _forward("flash_attention_f32")
+    flash_attention_wide_bf16 = _forward("flash_attention_wide_bf16")
+    flash_attention_wide_f16 = _forward("flash_attention_wide_f16")
+    flash_attention_wide_f32 = _forward("flash_attention_wide_f32")
 
     def flash_attention_error_string(self, err):
         return b"stub"
@@ -361,22 +358,40 @@ def stub_library(monkeypatch):
     return lib
 
 
-@pytest.mark.parametrize("dtypes,d", [
-    (("bfloat16",) * 3, 257), (("float32",) * 3, 320),
-    (("float16",) * 3, 512), (("bfloat16", "float32", "float16"), 384),
+# head dims above 256: all-16-bit inputs reach route A with D padded to a
+# multiple of 8; f32 and a mix reach split_f32 (q times its scale, k, v, each
+# at its own dtype) and route B; every one counts as a wide launch
+@pytest.mark.parametrize("dtypes,d,entry,kernel_d", [
+    (("bfloat16",) * 3, 257, "flash_attention_wide_bf16", 264),
+    (("float32",) * 3, 320, "flash_attention_wide_f32", 320),
+    (("float16",) * 3, 512, "flash_attention_wide_f16", 512),
+    (("bfloat16", "float32", "float16"), 384, "flash_attention_wide_f32",
+     384),
 ], ids=["bf16_d257", "f32_d320", "f16_d512", "mixed_d384"])
-def test_wide_head_dims_reach_the_wide_entry_point(stub_library, dtypes, d):
+def test_wide_head_dims_reach_the_wide_entry_point(stub_library, monkeypatch,
+                                                   dtypes, d, entry,
+                                                   kernel_d):
+    splits = []
+    plain_split = tatt.split_f32
+    monkeypatch.setattr(tatt, "split_f32", lambda x, mul=1.0: splits.append(
+        (x.dtype, mul)) or plain_split(x, mul))
     q, k, v = (torch.zeros(1, 2, 8, d, dtype=getattr(torch, t))
                for t in dtypes)
-    before = tatt.flash_attention.launches, tatt.flash_attention.wide_launches
+    fa = tatt.flash_attention
+    counters = ("launches", "wide_launches", "wide16_launches",
+                "wide_f32_launches", "mixed_launches", "f32_launches",
+                "f16_launches")
+    before = [getattr(fa, c) for c in counters]
     assert tatt._kernel_dtype_code(q, k, v) == tatt._WIDE
     out = tatt._flash_forward_cuda(q, k, v, True, 0.05)
-    codes = tuple(tatt._KERNEL_DTYPES[getattr(torch, t)] for t in dtypes)
-    assert stub_library.calls == [("flash_attention_wide", d) + codes]
+    route_b = entry == "flash_attention_wide_f32"
+    assert stub_library.calls == [(entry, kernel_d, False)]
+    assert splits == ([(q.dtype, 0.05), (k.dtype, 1.0), (v.dtype, 1.0)]
+                      if route_b else [])
     assert out.dtype == q.dtype and tuple(out.shape) == (1, 2, 8, d)
-    assert (tatt.flash_attention.launches,
-            tatt.flash_attention.wide_launches) == (before[0] + 1,
-                                                    before[1] + 1)
+    mixed = len(set(dtypes)) > 1
+    assert [getattr(fa, c) - b for c, b in zip(counters, before)] == [
+        1, 1, int(not route_b), int(route_b), int(mixed), 0, 0]
 
 
 # each dtype mix, head dim and grad mode takes its backward route: 16-bit at
@@ -459,47 +474,162 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+# head dims above 256: D = 257 (padded to 264), 320 with Sq < Sk and Sq > Sk,
+# 512 (Q resident in route A), and 1100, ragged and past route A's Q
+# residency (12 panels, D <= 768), so Q streams beside K
 WIDE_CARD = [((1, 2, 130, 130, 257), True), ((2, 2, 100, 150, 320), True),
-             ((1, 2, 150, 100, 320), True), ((1, 2, 200, 200, 512), False)]
+             ((1, 2, 150, 100, 320), True), ((1, 2, 200, 200, 512), False),
+             ((1, 2, 100, 130, 1100), True)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+# every 16-bit element within one rounding to the type of the f32 result
+HALF_REL = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+
+
+def _half_violations(got, ref, dtype):
+    """Elements of ``got`` outside rel·|ref| + 5e-5 (rel 2^-8 bf16, 2^-11
+    f16)."""
+    return int(((got.float() - ref).abs() >
+                HALF_REL[dtype] * ref.abs() + 5e-5).sum().item())
+
+
+def _wide_counts():
+    fa = tatt.flash_attention
+    return (fa.wide_launches, fa.wide16_launches, fa.wide_f32_launches,
+            tatt.split_f32.launches)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(TOL), ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("shape,causal", WIDE_CARD,
                          ids=["d257", "d320_sq_lt_sk", "d320_sq_gt_sk",
-                              "d512"])
+                              "d512", "d1100"])
 def test_card_wide_route_matches_plain_and_jax(card, shape, causal, dtype):
-    """The D > 256 kernel against the plain version (f32 from the same
-    inputs) at the route bounds, and against the JAX build at one rounding
-    to the dtype (f32: 2e-5, the CPU comparison's bound)."""
+    """Route A (bf16, f16) and route B (f32) against the plain version (f32
+    from the same inputs) at the route bounds, 16-bit element by element,
+    and against the JAX build at one rounding to the dtype (f32: 2e-5, the
+    CPU comparison's bound)."""
     q, k, v, _ = (torch.from_numpy(x).to(dtype).float().numpy()
                   for x in _inputs(shape, seed=6))
     qt, kt, vt = (torch.from_numpy(x).to(card, dtype) for x in (q, k, v))
-    before = tatt.flash_attention.wide_launches
+    before = _wide_counts()
     got = tatt.flash_attention(qt, kt, vt, causal)
     torch.cuda.synchronize()
-    assert tatt.flash_attention.wide_launches == before + 1
+    b = dtype == torch.float32
+    assert [a - x for a, x in zip(_wide_counts(), before)] == [
+        1, int(not b), int(b), 3 * int(b)]
     assert got.dtype == dtype and tuple(got.shape) == tuple(qt.shape)
     ref = tatt._attention_reference(qt.float(), kt.float(), vt.float(),
                                     causal)
     assert (got.float() - ref).abs().max().item() <= TOL[dtype]
+    if not b:
+        assert _half_violations(got, ref, dtype) == 0
     want = _jax_grads(q, k, v, np.zeros_like(q), causal)[0]
-    atol = 2e-5 if dtype == torch.float32 else TOL[dtype]
+    atol = 2e-5 if b else TOL[dtype]
     np.testing.assert_allclose(got.float().cpu().numpy(), want, rtol=0,
                                atol=atol)
 
 
+WIDE_MIXES = [("bfloat16", "float32", "float16"),
+              ("float16", "float16", "float32"),
+              ("float32", "bfloat16", "bfloat16")]
+
+
 @pytest.mark.cuda
-def test_card_wide_route_mixed_dtypes(card):
-    q, k, v, _ = _inputs((1, 2, 96, 160, 300), seed=7)
-    qt = torch.from_numpy(q).to(card, torch.bfloat16)
-    kt = torch.from_numpy(k).to(card)
-    vt = torch.from_numpy(v).to(card, torch.float16)
+@pytest.mark.parametrize("dtypes", WIDE_MIXES,
+                         ids=["_".join(m) for m in WIDE_MIXES])
+@pytest.mark.parametrize("d", [300, 320, 512])
+def test_card_wide_route_mixed_dtypes(card, d, dtypes):
+    """A mix above D = 256 takes route B (three split launches, each input
+    at its own dtype), q's dtype out, at one rounding to q's dtype of the
+    plain version."""
+    q, k, v, _ = _inputs((1, 2, 96, 160, d), seed=7)
+    qt, kt, vt = (torch.from_numpy(x).to(card, getattr(torch, t))
+                  for x, t in zip((q, k, v), dtypes))
+    before = _wide_counts()
     got = tatt.flash_attention(qt, kt, vt, True)
+    torch.cuda.synchronize()
+    assert [a - x for a, x in zip(_wide_counts(), before)] == [1, 0, 1, 3]
     ref = tatt._attention_reference(qt, kt, vt, True)
-    assert got.dtype == torch.bfloat16
-    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    assert got.dtype == qt.dtype
+    tol = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-3}[dtypes[0]]
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def _sass_functions(opcode):
+    """{function: count of ``opcode``} in the flash library's SASS
+    (cuobjdump -sass)."""
+    import os
+    import re
+    import shutil
+    import subprocess
+    from incubator_mxnet_tpu_torch import cuda_build
+    cuda_build.load("flash_attention")
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass",
+                          str(cuda_build.lib_path("flash_attention"))],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if line.strip().startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            counts[name] = 0
+        elif name and re.search(r"\b%s\b" % opcode, line):
+            counts[name] += 1
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_fwd_wide16_kernelI13__nv_bfloat16",
+                                    "flash_fwd_wide16_kernelI6__half",
+                                    "flash_fwd_wide_f32_kernel"],
+                         ids=["route_a_bf16", "route_a_f16", "route_b"])
+def test_card_wide_kernels_run_on_the_tensor_cores(card, kernel):
+    """Every instance of both wide kernels holds HGMMA (wgmma) in its
+    SASS."""
+    counts = {n: c for n, c in _sass_functions("HGMMA").items()
+              if kernel in n}
+    assert counts and all(counts.values()), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL), ids=["f32", "bf16", "f16"])
+def test_card_wide_route_is_deterministic(card, dtype):
+    """No atomics: two runs of either route give the same bits."""
+    q, k, v = (torch.from_numpy(x).to(card, dtype)
+               for x in _inputs((2, 4, 256, 256, 512), seed=15)[:3])
+    runs = [tatt.flash_attention(q, k, v, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+
+
+@pytest.mark.cuda
+def test_card_wide_routes_run_on_a_thread_without_a_context(card):
+    """Routes A and B encode TMA maps, so they bind the operands' device
+    first: on a thread that has made no CUDA call they give the main
+    thread's bits."""
+    import threading
+    q, k, v = (torch.from_numpy(x).to(card, torch.bfloat16)
+               for x in _inputs((1, 2, 128, 128, 320), seed=16)[:3])
+
+    def run():
+        return [tatt.flash_attention(q, k, v, True),
+                tatt.flash_attention(q.float(), k.float(), v.float(), True)]
+
+    want = run()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    spare = torch.empty(1 << 28, dtype=torch.uint8, device=card)
+    del spare                    # 256 MiB back in the allocator's cache
+    got = []
+    worker = threading.Thread(target=lambda: got.append(run()))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert len(got) == 1
+    for a, b in zip(got[0], want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
