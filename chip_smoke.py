@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 1. device  — the card's name and power limit (nvidia-smi), or exit non-zero
              when torch sees no CUDA device;
 2. build   — every hand-written kernel of the port, from ``csrc/`` with nvcc
-             (one per source, all at once), with ptxas's report (registers,
+             (one per source, all at once), and the launcher of runtime
+             kernels (``csrc/rtc_launch.c``, a CPython extension, with the
+             host C compiler), with ptxas's report (registers,
              shared memory, spills) and the count of HGMMA (wgmma)
              instructions in the SASS of the bf16, f16 and f32 forward
              kernels, of the wide kernels (route A in bf16 and f16, route B)
@@ -73,7 +75,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              sgd_update, held step by step against the same steps with the
              plain versions, launch counts zeroed just before and read just
              after; each kernel's time, bound, plain and library times at
-             the head shape; the host cost of one launch;
+             the head shape; the host cost of one CudaKernel.launch (noop,
+             no arguments; axpy, 4) in rounds, in turns with one torch.neg,
+             the same launches written plainly over ctypes and the floor
+             (cuLaunchKernel of noop in a loop from C), and the parts of
+             axpy's launch, each alone;
 5. timing  — the flash kernel at the serving shape: its time, its bound, the
              plain version's time and one PyTorch library call's time, in
              bf16 (the serving path), f16, and on the f32 route (with the
@@ -891,19 +897,29 @@ def sass_count(lib, opcode, function=""):
     return count
 
 
-def host_us(fn, reps):
-    """Mean host µs of ``fn()`` over ``reps`` calls (enqueue cost: the
-    device is synchronized only after the loop), after 10 warm-up calls."""
+def host_rounds(fns, rounds, reps):
+    """Host µs of one call of each of ``fns`` (name -> fn) in each of
+    ``rounds`` rounds of ``reps`` calls: name -> the rounds' means.  The fns
+    take turns, in order on even rounds and reversed on odd ones (a, b, b,
+    a), and the device is synchronized after every ``reps`` calls (outside
+    the clock), so its queue never holds more than ``reps`` launches and a
+    full queue never blocks the host.  10 warm-up calls of each first."""
     import torch
-    for _ in range(10):
-        fn()
+    names = list(fns)
+    for name in names:
+        for _ in range(10):
+            fns[name]()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    return us
+    out = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            fn = fns[name]
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            out[name].append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+    return out
 
 
 def plain_softmax_output(torch):
@@ -1148,14 +1164,155 @@ def rtc_phase(mx, dev, card):
         entries[-1]["geometry"] = geometry[name]
         check(launches[name] > 0, "%s was not launched on its path" % name)
 
-    noop = kernels["noop"]
-    small = torch.zeros(1, device=dev)
-    launch_us = host_us(lambda: noop.launch([], ctx, (1,), (1,)), 1000)
-    torch_us = host_us(lambda: torch.neg(small), 1000)
-    print("rtc: host cost of one CudaKernel.launch (empty kernel) %.2f us, of "
-          "one torch.neg on a 1-element tensor %.2f us (mean of 1000) | %s"
-          % (launch_us, torch_us, card), flush=True)
+    entries.append(launch_cost(mx, kernels, dev, card, launches))
     return entries
+
+
+# the launch-cost timing: rounds x calls a round (far below the device's
+# launch queue, synchronized between rounds)
+LAUNCH_ROUNDS, LAUNCH_REPS = 20, 200
+
+
+def spread(xs):
+    return {"mean": sum(xs) / len(xs), "min": min(xs), "max": max(xs)}
+
+
+def plain_launch(mx, kernel, args, grid, block):
+    """One launch of ``kernel`` written plainly, the driver reached through
+    ctypes as the port's first launch path reached it: a ctypes holder per
+    argument, the primary context made current, torch's Stream object,
+    cuLaunchKernel through its ctypes binding.  None of the launch's
+    checks: the yardstick of the compiled launcher."""
+    import ctypes
+    import torch
+    from incubator_mxnet_tpu_torch import _cuda_driver as cu
+    from incubator_mxnet_tpu_torch import rtc
+    holders = [ctypes.c_uint64(a._data.data_ptr()) if p.is_pointer
+               else rtc._TYPES[p.ctype][1](a)
+               for p, a in zip(kernel.params, args)]
+    params = (ctypes.c_void_p * max(len(holders), 1))(
+        *[ctypes.addressof(h) for h in holders])
+    cu.use_primary_context(0)
+    cu.check(cu.driver().cuLaunchKernel(
+        kernel._sites[0].func, grid, 1, 1, block, 1, 1, 0,
+        torch.cuda.current_stream(torch.device("cuda", 0)).cuda_stream,
+        params, None), "cuLaunchKernel(%s)" % kernel.name)
+
+
+def launch_cost(mx, kernels, dev, card, path_launches):
+    """The host cost of one CudaKernel.launch: noop (no arguments) and axpy
+    (4 arguments, n = 8, one block), beside one torch.neg on a 1-element
+    tensor, the same launches written plainly over ctypes, and the floor
+    (one cuLaunchKernel of noop issued from C, no Python in the loop),
+    timed in turns; then the parts of axpy's launch, each alone, as the
+    launch runs them.  ``path_launches`` are the user kernels' launches on
+    the main path, all through this launch path.  Returns the rtc_launch
+    entry."""
+    import torch
+    from incubator_mxnet_tpu_torch import _cuda_driver as cu
+    from incubator_mxnet_tpu_torch import rtc
+    ctx = mx.gpu(0)
+    noop, axpy = kernels["noop"], kernels["axpy"]
+    n = 8
+    x = mx.nd.array(list(range(n)), ctx=ctx)
+    y, o = mx.nd.ones(n, ctx=ctx), mx.nd.zeros(n, ctx=ctx)
+    grid, block = axpy_geometry(n)
+    args = [x, y, o, n]
+    small = torch.zeros(1, device=dev)
+    totals = host_rounds({
+        "noop": lambda: noop.launch([], ctx, (1,), (1,)),
+        "torch_neg": lambda: torch.neg(small),
+        "axpy_4_args": lambda: axpy.launch(args, ctx, (grid,), (block,)),
+        "plain_noop": lambda: plain_launch(mx, noop, [], 1, 1),
+        "plain_axpy_4_args": lambda: plain_launch(mx, axpy, args, grid,
+                                                  block),
+    }, LAUNCH_ROUNDS, LAUNCH_REPS)
+    o_err = (o._data - (2 * x._data + y._data)).abs().max().item()
+    check(o_err == 0.0, "axpy through the timed launches != 2x + y")
+    site = noop._sites[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    floor = []
+    for _ in range(LAUNCH_ROUNDS):
+        floor.append(cu.launch_floor_ns(site.func, site.ctx, LAUNCH_REPS,
+                                        stream) / 1e3)
+        torch.cuda.synchronize()
+
+    # the parts of axpy's launch, each alone, as CudaKernel.launch runs them
+    asite = axpy._sites[0]
+    holders, _, params = axpy._buffer()
+    device = axpy._devices[0]
+    grid_t, block_t = (grid,), (block,)
+
+    def checks_and_dims():
+        c = ctx if ctx.__class__ is rtc.Context else rtc.Context(ctx)
+        if c.device_type != "gpu" or len(args) != len(axpy._packers):
+            raise AssertionError
+        rtc._dims(grid_t, "grid_dims")
+        b = rtc._dims(block_t, "block_dims")
+        if b[0] * b[1] * b[2] > 1024 or axpy._devices.get(0) is None:
+            raise AssertionError
+
+    def arguments():
+        for (pack, _), arg, holder in zip(axpy._packers, args, holders):
+            pack(arg, holder, device)
+
+    def bumps():
+        for i in axpy._mutable:
+            rtc._increment_version(args[i]._data)
+
+    xt = x._data
+
+    def getters():
+        # what a pointer argument's check asks of its tensor
+        return (xt.dtype, xt.get_device(), xt.is_contiguous(), xt.data_ptr())
+
+    parts = {k: spread(v)["mean"] for k, v in host_rounds({
+        "checks_and_dims": checks_and_dims,
+        "arguments": arguments,
+        "of_which_tensor_getters_one_pointer": getters,
+        "stream": lambda: asite.stream(0),
+        "launcher": lambda: asite.launch(asite.table, asite.func, asite.ctx,
+                                         grid, 1, 1, block, 1, 1, 0, stream,
+                                         params),
+        "version_bumps": bumps,
+    }, LAUNCH_ROUNDS, LAUNCH_REPS).items()}
+    t = {k: spread(v) for k, v in totals.items()}
+    f = spread(floor)
+    for name, label in (
+            ("noop", "CudaKernel.launch of noop (no arguments)"),
+            ("axpy_4_args", "CudaKernel.launch of axpy (4 arguments, n = 8)"),
+            ("torch_neg", "torch.neg on a 1-element tensor"),
+            ("plain_noop", "noop launched plainly over ctypes"),
+            ("plain_axpy_4_args", "axpy launched plainly over ctypes")):
+        print("rtc: launch host cost, %s: %.3f us (mean of %d rounds of %d "
+              "calls; rounds %.3f-%.3f) | %s" % (
+                  label, t[name]["mean"], LAUNCH_ROUNDS, LAUNCH_REPS,
+                  t[name]["min"], t[name]["max"], card), flush=True)
+    print("rtc: launch floor, one cuLaunchKernel of noop issued from C: "
+          "%.3f us (rounds %.3f-%.3f) | %s" % (f["mean"], f["min"], f["max"],
+                                                card), flush=True)
+    print("rtc: launch parts of axpy (us, each alone): %s; sum %.3f of the "
+          "launch's %.3f | %s" % (
+              ", ".join("%s %.3f" % kv for kv in parts.items()),
+              sum(v for k, v in parts.items() if not k.startswith("of_")),
+              t["axpy_4_args"]["mean"], card), flush=True)
+    return {"name": "rtc_launch", "route": "cuda", "compiler": "cc",
+            "source": "incubator_mxnet_tpu_torch/rtc.py, "
+                      "incubator_mxnet_tpu_torch/csrc/rtc_launch.c",
+            "replaces": "incubator_mxnet_tpu/rtc.py:86",
+            "launches": sum(path_launches.values()), "max_abs_err": o_err,
+            "ms": t["noop"]["mean"] / 1e3,
+            "plain_ms": t["plain_noop"]["mean"] / 1e3,
+            "bound_ms": f["mean"] / 1e3, "bound_by": "operations",
+            "library_ms": t["torch_neg"]["mean"] / 1e3,
+            "host_us": t["noop"]["mean"],
+            "host_us_4_args": t["axpy_4_args"]["mean"],
+            "bound_us": f["mean"], "library_us": t["torch_neg"]["mean"],
+            "plain_us": t["plain_noop"]["mean"],
+            "plain_us_4_args": t["plain_axpy_4_args"]["mean"],
+            "parts_us": parts,
+            "rounds_us": {k: [v["min"], v["max"]] for k, v in t.items()},
+            "bound_rounds_us": [f["min"], f["max"]]}
 
 
 def model_flops_per_step(n_params, tokens, seq_len, d_model, n_layers=1):
@@ -1715,6 +1872,11 @@ def main():
     print("build: %.1f s for %s (nvcc %s) into %s" % (
         time.perf_counter() - t0, sorted(built) or "nothing (cached)",
         " ".join(cuda_build.NVCC_FLAGS), cuda_build.BUILD_DIR), flush=True)
+    t0 = time.perf_counter()
+    cuda_build.load_extension("_rtc_launch")
+    print("build: the rtc launcher %s (%s %s) loaded in %.2f s" % (
+        cuda_build.extension_path("_rtc_launch").name, cuda_build._cc(),
+        " ".join(cuda_build.CC_FLAGS), time.perf_counter() - t0), flush=True)
     for name in cuda_build.KERNELS:
         for line in cuda_build.build_log(name).splitlines():
             if any(t in line for t in ("entry function", "registers",

@@ -28,7 +28,8 @@ import threading
 from .base import MXNetError
 
 __all__ = ["nvrtc", "driver", "compile_to_cubin", "check",
-           "use_primary_context", "CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED"]
+           "primary_context", "use_primary_context", "launcher",
+           "launch_floor_ns", "CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED"]
 
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
@@ -60,6 +61,7 @@ _DRIVER_FUNCS = {
     "cuDeviceGet": (_I, [ctypes.POINTER(_I), _I]),
     "cuDevicePrimaryCtxRetain": (_I, [_PP, _I]),
     "cuCtxSetCurrent": (_I, [_P]),
+    "cuCtxGetCurrent": (_I, [_PP]),
     "cuModuleLoadData": (_I, [_PP, _P]),
     "cuModuleGetFunction": (_I, [_PP, _P, _S]),
     "cuFuncSetAttribute": (_I, [_P, _I, _I]),
@@ -192,12 +194,10 @@ def compile_to_cubin(source: str, options, names):
         lib.nvrtcDestroyProgram(ctypes.byref(prog))
 
 
-def use_primary_context(device_index: int) -> int:
-    """Make the primary context of CUDA device ``device_index`` (the one the
-    CUDA runtime, and so torch, works in) current on the calling thread, and
-    return its handle.  The context is retained once per device and process.
-    It is set on every call, one driver call: torch's device guards may have
-    made another device's context current on this thread since the last."""
+def primary_context(device_index: int) -> int:
+    """The handle of CUDA device ``device_index``'s primary context (the one
+    the CUDA runtime, and so torch, works in), retained once per device and
+    process."""
     lib = driver()
     with _LOCK:
         ctx = _PRIMARY.get(device_index)
@@ -209,5 +209,36 @@ def use_primary_context(device_index: int) -> int:
             check(lib.cuDevicePrimaryCtxRetain(ctypes.byref(handle), dev),
                   "cuDevicePrimaryCtxRetain")
             ctx = _PRIMARY[device_index] = handle.value
-    check(lib.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
     return ctx
+
+
+def use_primary_context(device_index: int) -> int:
+    """Make the primary context of CUDA device ``device_index`` current on
+    the calling thread, and return its handle."""
+    ctx = primary_context(device_index)
+    check(driver().cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+    return ctx
+
+
+def launcher():
+    """``(module, table)``: the compiled launcher ``_rtc_launch``
+    (``csrc/rtc_launch.c``, built at first use by ``cuda_build``) and a
+    table of the loaded driver's ``cuLaunchKernel``, ``cuCtxGetCurrent`` and
+    ``cuCtxSetCurrent`` for its calls.  A launcher that does not build or
+    load raises ``MXNetError``: there is no other launch path."""
+    from . import cuda_build
+    module = cuda_build.load_extension("_rtc_launch")
+    lib = driver()
+    return module, module.driver_table(*(
+        ctypes.cast(getattr(lib, name), ctypes.c_void_p).value
+        for name in ("cuLaunchKernel", "cuCtxGetCurrent", "cuCtxSetCurrent")))
+
+
+def launch_floor_ns(func: int, ctx: int, count: int, stream: int) -> float:
+    """The mean host ns of one ``cuLaunchKernel`` of ``func`` (a kernel with
+    no parameters, launched as one thread) in ``ctx`` on ``stream``, over
+    ``count`` launches issued back to back from C (``rtc_launch_floor_ns``
+    in ``csrc/rtc_launch.c``): the least a launch costs through this driver.
+    Keep ``count`` below the device's launch-queue depth."""
+    module, table = launcher()
+    return module.floor_ns(table, func, ctx, count, stream)

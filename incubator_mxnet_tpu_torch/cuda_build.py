@@ -11,22 +11,31 @@ the checkout, named by a hash of their sources, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
 unchanged one is reused.  ``nvcc``'s resource report (``-Xptxas -v``:
 registers, shared memory, spills) is kept beside each library as ``.log``.
+
+``EXTENSIONS`` are host-only CPython extension modules in plain C (no CUDA
+and no PyTorch header), built the same way at first use by the host C
+compiler (``$CC``, else ``cc``) against this interpreter's ``Python.h`` and
+imported by :func:`load_extension`: ``_rtc_launch``, the host side of a
+runtime kernel's launch (``csrc/rtc_launch.c``).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 import time
 from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["KERNELS", "SOURCES", "BUILD_DIR", "build_all", "load",
-           "build_log", "lib_path"]
+__all__ = ["KERNELS", "SOURCES", "EXTENSIONS", "BUILD_DIR", "build_all",
+           "load", "load_extension", "build_log", "lib_path", "extension_path"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -80,8 +89,12 @@ SOURCES = {
                         "flash_attention_bwd_sm90.cu"),
 }
 
+# module name -> its host-only C source under csrc/
+EXTENSIONS = {"_rtc_launch": "rtc_launch.c"}
+CC_FLAGS = ("-O2", "-shared", "-fPIC", "-Wall")
+
 _LOCK = threading.Lock()
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict = {}     # kernel or extension name -> CDLL or module
 
 
 def _nvcc():
@@ -178,3 +191,55 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
             _LIBS[name] = lib
         return lib
+
+
+def _cc():
+    for cand in (os.environ.get("CC"), "cc", "gcc"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise MXNetError("no C compiler ($CC, cc or gcc) on PATH; the launcher "
+                     "of runtime kernels is built by one")
+
+
+def extension_path(name: str) -> Path:
+    """Where extension ``name`` is (or will be) built: named by a hash of its
+    source, the flags and the interpreter it is built for."""
+    digest = hashlib.sha256((CSRC / EXTENSIONS[name]).read_bytes())
+    digest.update(" ".join(CC_FLAGS).encode() + sys.version.encode() +
+                  sysconfig.get_config_var("EXT_SUFFIX").encode())
+    return BUILD_DIR / ("%s-%s.so" % (name, digest.hexdigest()[:16]))
+
+
+def _build_extension(name: str, target: Path):
+    include = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(include, "Python.h")):
+        raise MXNetError("Python.h not found under %s: building %s needs "
+                         "the interpreter's C headers" % (include, name))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name("%s.tmp-%d" % (target.name, os.getpid()))
+    out = subprocess.run([_cc(), *CC_FLAGS, "-I", include, "-o", str(tmp),
+                          str(CSRC / EXTENSIONS[name])],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    if out.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise MXNetError("building %s failed:\n%s" % (name, out.stdout))
+    target.with_suffix(".log").write_text(out.stdout)
+    os.replace(tmp, target)
+
+
+def load_extension(name: str):
+    """The imported extension module ``name`` of ``EXTENSIONS``, built first
+    if needed; a failed build raises ``MXNetError``."""
+    with _LOCK:
+        module = _LIBS.get(name)
+        if module is None:
+            target = extension_path(name)
+            if not target.exists():
+                _build_extension(name, target)
+            spec = importlib.util.spec_from_file_location(name, target)
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            _LIBS[name] = module
+        return module

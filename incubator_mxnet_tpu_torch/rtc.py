@@ -13,7 +13,8 @@ by ``pl.pallas_call`` at rtc.py:86) and its ``CudaModule`` raises; here
 The source is compiled once, at construction, by NVRTC for ``sm_90a`` into
 a CUBIN (``_cuda_driver``).  The CUBIN is loaded into a device's primary
 context the first time a kernel launches there, and each ``CUfunction`` is
-kept per device.  There is no cache per shape, as the JAX build keeps per
+kept per device.  The driver is called through a compiled launcher
+(``csrc/rtc_launch.c``, built at first use), not through ctypes.  There is no cache per shape, as the JAX build keeps per
 (shapes, dtypes, grid) at rtc.py:81-90: a CUDA C kernel takes its shapes as
 arguments.  A launch writes through the signature's mutable pointers and
 returns ``None``; it runs on the device's current torch stream.  There is no
@@ -21,6 +22,7 @@ interpreter for CUDA C, so a launch on a CPU context raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import re
@@ -154,7 +156,18 @@ class CudaModule:
             return func.value
 
 
+_PAD = {1: (1, 1), 2: (1,), 3: ()}
+
+
 def _dims(dims, what):
+    """``dims`` as a 3-tuple of ints >= 1; a tuple of 1-3 ints takes the
+    fast path."""
+    pad = _PAD.get(len(dims)) if dims.__class__ is tuple else None
+    if pad is not None:
+        x, y, z = full = dims + pad
+        if x.__class__ is int and y.__class__ is int and \
+                z.__class__ is int and x >= 1 and y >= 1 and z >= 1:
+            return full
     dims = (int(dims),) if isinstance(dims, (int, np.integer)) else \
         tuple(int(d) for d in dims)
     if not 1 <= len(dims) <= 3 or any(d < 1 for d in dims):
@@ -163,68 +176,162 @@ def _dims(dims, what):
     return dims + (1,) * (3 - len(dims))
 
 
+# what a kernel's first launch on a device loads: the compiled launcher's
+# launch and driver table, the CUfunction, the primary CUcontext and torch's
+# raw current-stream getter
+_Site = collections.namedtuple("_Site", "launch table func ctx stream")
+
+
+def _raw_stream():
+    """torch's getter of a device's current stream as a raw ``cudaStream_t``
+    (it honours ``torch.cuda.stream(s)`` and builds no ``Stream`` object);
+    looked up at a kernel's first launch on a device, since a CPU build of
+    torch lacks it."""
+    return torch._C._cuda_getCurrentRawStream
+
+
+_increment_version = torch.autograd.graph.increment_version
+
+
 class CudaKernel:
     """One launchable kernel of a :class:`CudaModule` (ref: rtc.py
-    CudaKernel:173).  ``launches`` counts the launches made."""
+    CudaKernel:173).  ``launches`` counts the launches made.
+
+    What the signature fixes is worked out once, here: one packer for each
+    parameter (a pointer's expected ``torch.dtype``, a scalar's ctypes type
+    and integer range) and the mutable pointers' indices.  Each launch then
+    checks and writes the values into a parameter buffer of the calling
+    thread (two threads may launch one kernel at once; ``cuLaunchKernel``
+    copies the values before it returns, so a buffer is refilled by the
+    next launch), and the compiled launcher (``csrc/rtc_launch.c``) makes
+    the device's primary context current where it is not and calls
+    ``cuLaunchKernel``.  The first launch on a device resolves the device
+    (raising as ``Context.torch_device`` does), loads the function and the
+    launcher; later ones reuse them."""
 
     def __init__(self, module, name, params):
         self.module = module
         self.name = name
         self.params = params
         self.launches = 0
-        self._functions = {}    # device index -> CUfunction
+        self._packers = [self._packer(i, p) for i, p in enumerate(params)]
+        self._mutable = [i for i, p in enumerate(params)
+                         if p.is_pointer and not p.is_const]
+        self._local = threading.local()  # .buffer: this thread's arguments
+        self._devices = {}      # device index -> (tensor device index, device)
+        self._sites = {}        # device index -> _Site
         self._shared_set = {}   # device index -> dynamic shared bytes allowed
 
-    def _argument(self, i, param, arg, device):
+    # -- what the signature fixes ------------------------------------------
+    def _packer(self, i, param):
+        """``pack(arg, holder, device)`` for parameter ``i``: checks ``arg``
+        and writes it into ``holder`` (its ctypes slot), else raises
+        through the checks of :meth:`_pointer` / :meth:`_number`."""
+        ctype = _TYPES[param.ctype][1]
         if param.is_pointer:
-            if not isinstance(arg, NDArray):
-                raise MXNetError("%s: argument %d (%r) must be an NDArray, "
-                                 "got %s" % (self.name, i, param, type(arg)))
-            t = arg._data
-            if dtype_name(t.dtype) != param.dtype:
-                raise MXNetError("%s: argument %d (%r) must be %s, got %s"
-                                 % (self.name, i, param, param.dtype,
-                                    dtype_name(t.dtype)))
-            if t.device != device:
-                raise MXNetError("%s: argument %d (%r) lives on %s, not on "
-                                 "the launch context's %s"
-                                 % (self.name, i, param, t.device, device))
-            if not t.is_contiguous():
-                raise MXNetError("%s: argument %d (%r) is not contiguous"
-                                 % (self.name, i, param))
-            return ctypes.c_uint64(t.data_ptr())
+            dtype = getattr(torch, param.dtype)
+
+            def pack(arg, holder, device):
+                if isinstance(arg, NDArray):
+                    t = arg._data
+                    if t.dtype is dtype and t.get_device() == device[0] and \
+                            t.is_contiguous():
+                        holder.value = t.data_ptr()
+                        return
+                self._pointer(i, param, arg, device[1])
+            return pack, ctypes.c_uint64
+        if param.ctype == "__half":
+            def pack(arg, holder, device):
+                holder.value = int(np.float16(self._number(i, param, arg))
+                                   .view(np.uint16))
+        elif param.dtype.startswith(("int", "uint")):
+            info = np.iinfo(param.dtype)
+            lo, hi = int(info.min), int(info.max)
+
+            def pack(arg, holder, device):
+                if arg.__class__ is not int or not lo <= arg <= hi:
+                    arg = self._integer(i, param, arg, lo, hi)
+                holder.value = arg
+        else:
+            def pack(arg, holder, device):
+                if arg.__class__ is not float:
+                    arg = float(self._number(i, param, arg))
+                holder.value = arg
+        return pack, ctype
+
+    # -- the checks, with their errors -------------------------------------
+    def _pointer(self, i, param, arg, device):
+        """Raise for a pointer argument the packer refused."""
+        if not isinstance(arg, NDArray):
+            raise MXNetError("%s: argument %d (%r) must be an NDArray, got %s"
+                             % (self.name, i, param, type(arg)))
+        t = arg._data
+        if dtype_name(t.dtype) != param.dtype:
+            raise MXNetError("%s: argument %d (%r) must be %s, got %s"
+                             % (self.name, i, param, param.dtype,
+                                dtype_name(t.dtype)))
+        if t.device != device:
+            raise MXNetError("%s: argument %d (%r) lives on %s, not on the "
+                             "launch context's %s"
+                             % (self.name, i, param, t.device, device))
+        raise MXNetError("%s: argument %d (%r) is not contiguous"
+                         % (self.name, i, param))
+
+    def _number(self, i, param, arg):
         if isinstance(arg, (NDArray, torch.Tensor)) or \
                 not isinstance(arg, (int, float, np.integer, np.floating)):
             raise MXNetError("%s: argument %d (%r) must be a number, got %s"
                              % (self.name, i, param, type(arg)))
-        ctype = _TYPES[param.ctype][1]
-        if param.ctype == "__half":
-            return ctype(int(np.float16(arg).view(np.uint16)))
-        if param.dtype.startswith(("int", "uint")):
-            if int(arg) != arg:
-                raise MXNetError("%s: argument %d (%r) must be an integer, "
-                                 "got %r" % (self.name, i, param, arg))
-            info = np.iinfo(param.dtype)
-            if not info.min <= int(arg) <= info.max:
-                # ctypes would wrap it without a word
-                raise MXNetError("%s: argument %d (%r) = %d is out of range "
-                                 "for %s [%d, %d]" % (self.name, i, param,
-                                                      int(arg), param.ctype,
-                                                      info.min, info.max))
-            return ctype(int(arg))
-        return ctype(float(arg))
+        return arg
+
+    def _integer(self, i, param, arg, lo, hi):
+        if int(self._number(i, param, arg)) != arg:
+            raise MXNetError("%s: argument %d (%r) must be an integer, got %r"
+                             % (self.name, i, param, arg))
+        if not lo <= int(arg) <= hi:
+            # ctypes would wrap it without a word
+            raise MXNetError("%s: argument %d (%r) = %d is out of range for "
+                             "%s [%d, %d]" % (self.name, i, param, int(arg),
+                                              param.ctype, lo, hi))
+        return int(arg)
+
+    # -- once per thread, once per device ----------------------------------
+    def _buffer(self):
+        """This thread's parameter buffer: a ctypes slot per parameter and
+        the ``void *[]`` of their addresses (kept alive with them)."""
+        holders = [ctype() for _, ctype in self._packers]
+        array = (ctypes.c_void_p * max(len(holders), 1))(
+            *[ctypes.addressof(h) for h in holders])
+        self._local.buffer = buffer = (holders, array, ctypes.addressof(array))
+        return buffer
+
+    def _resolve(self, ctx):
+        device = ctx.torch_device()
+        where = self._devices[ctx.device_id] = (
+            device.index if device.type == "cuda" else -1, device)
+        return where
+
+    def _site(self, index):
+        func = self.module._function(index, self.name)
+        module, table = _cu.launcher()
+        site = self._sites[index] = _Site(module.launch, table, func,
+                                          _cu.primary_context(index),
+                                          _raw_stream())
+        return site
 
     def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
         """Launch on ``ctx`` (a GPU context) with ``args`` matching the
         signature: NDArrays on ``ctx`` for pointers, numbers for scalars.
         Writes through the mutable pointers and returns ``None``
-        (ref: rtc.py CudaKernel.launch:185)."""
-        ctx = Context(ctx)
+        (ref: rtc.py CudaKernel.launch:185).  Every check raises before the
+        driver is called."""
+        if ctx.__class__ is not Context:
+            ctx = Context(ctx)
         if ctx.device_type != "gpu":
             raise MXNetError("rtc kernel %s launched on %s: runtime CUDA "
                              "kernels run only on a GPU context (there is no "
                              "interpreter for CUDA C)" % (self.name, ctx))
-        if len(args) != len(self.params):
+        if len(args) != len(self._packers):
             raise MXNetError("%s takes %d arguments (%s), got %d" % (
                 self.name, len(self.params),
                 ", ".join(map(repr, self.params)), len(args)))
@@ -233,38 +340,37 @@ class CudaKernel:
         if block[0] * block[1] * block[2] > _MAX_THREADS_PER_BLOCK:
             raise MXNetError("block_dims %r: more than %d threads in a block"
                              % (block, _MAX_THREADS_PER_BLOCK))
-        shared_mem = int(shared_mem)
+        if shared_mem.__class__ is not int:
+            shared_mem = int(shared_mem)
         if shared_mem < 0:
             raise MXNetError("shared_mem must be >= 0, got %d" % shared_mem)
-        device = ctx.torch_device()
-        holders = [self._argument(i, p, a, device)
-                   for i, (p, a) in enumerate(zip(self.params, args))]
-        index = device.index
-        func = self._functions.get(index)
-        if func is None:
-            func = self._functions[index] = self.module._function(index,
-                                                                  self.name)
-        else:
+        index = ctx.device_id
+        device = self._devices.get(index) or self._resolve(ctx)
+        try:
+            holders, _, params = self._local.buffer
+        except AttributeError:
+            holders, _, params = self._buffer()
+        for (pack, _), arg, holder in zip(self._packers, args, holders):
+            pack(arg, holder, device)
+        launch, table, func, pctx, stream = \
+            self._sites.get(index) or self._site(index)
+        if shared_mem > _DEFAULT_SHARED and \
+                shared_mem > self._shared_set.get(index, 0):
             _cu.use_primary_context(index)
-        lib = _cu.driver()
-        if shared_mem > max(_DEFAULT_SHARED, self._shared_set.get(index, 0)):
-            _cu.check(lib.cuFuncSetAttribute(
+            _cu.check(_cu.driver().cuFuncSetAttribute(
                 func, _cu.CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED, shared_mem),
                 "cuFuncSetAttribute(%s, %d bytes)" % (self.name, shared_mem))
             self._shared_set[index] = shared_mem
-        params = (ctypes.c_void_p * max(len(holders), 1))(
-            *[ctypes.addressof(h) for h in holders])
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _cu.check(lib.cuLaunchKernel(func, grid[0], grid[1], grid[2], block[0],
-                                     block[1], block[2], shared_mem, stream,
-                                     params, None),
-                  "cuLaunchKernel(%s)" % self.name)
+        failed = launch(table, func, pctx, grid[0], grid[1], grid[2],
+                        block[0], block[1], block[2], shared_mem,
+                        stream(index), params)
+        if failed is not None:
+            _cu.check(failed[1], "%s(%s)" % (failed[0], self.name))
         self.launches += 1
-        for p, a in zip(self.params, args):
-            if p.is_pointer and not p.is_const:
-                # autograd cannot see a write through a raw pointer; bump the
-                # version counter so a tensor saved for backward is checked
-                torch.autograd.graph.increment_version(a._data)
+        for i in self._mutable:
+            # autograd cannot see a write through a raw pointer; bump the
+            # version counter so a tensor saved for backward is checked
+            _increment_version(args[i]._data)
 
 
 def PallasModule(*args, **kwargs):  # noqa: N802 - reference name
