@@ -46,6 +46,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              tokens with each prompt's greedy next token; the kernels' launch
              counts are zeroed just before and read just after; then one more
              request under torch.profiler for its device time by kernel;
+4f. serve  — the serving runtime on the same net: ``mx.serving.Server``
+             (max_batch 8, max_wait 5 ms) loads LastToken(LM) (the last
+             position's bf16 logits and their argmax), captures one CUDA
+             graph per bucket 1, 2, 4, 8 (capture seconds, pool bytes),
+             answers 32 requests of 1024 tokens from 4 closed-loop client
+             threads (each row bit-equal to the bucket-1 program, the SLO
+             components summing exactly to each request's wall; batch
+             sizes, p50/p99, tokens/s, component means), swaps to a second
+             version (HostXavier(SEED + 1), bf16) mid-traffic (every
+             response entirely one version's, monotonic per client),
+             evicts and reloads (bit-equal, same version), serves one
+             fused pass (the probe's verdict; no delivered row differs
+             from the bucket-1 program), traces one exact bucket-8 replay
+             (32 flash_fwd_sm90_kernel launches; busy and idle share) and
+             runs ``python -m incubator_mxnet_tpu_torch.serving --selftest``;
 4e. serve  — the same LM with BENCH_HEADS=8 (D = 512, the same parameter
              shapes) in bf16 answering 2 requests of 8 x 1024 tokens, every
              attention through route A (4 launches a request, counted with
@@ -105,6 +120,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak (NVIDIA data sheet)
@@ -287,6 +303,9 @@ WIDE_F32_DESIGN = ("route B, f32 and mixes at head dims above 256: the split "
 # the LM served at head dim 512 (phase 4e): bench_transformer.py's widths
 # with BENCH_HEADS=8, the same parameter shapes; route A, 4 launches a request
 WIDE_LM_HEADS, WIDE_LM_REQUESTS = 8, 2
+# phase 4f: the serving runtime's requests (1024 tokens each), closed-loop
+# client threads and batch buckets
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_BUCKETS = 32, 4, (1, 2, 4, 8)
 # flash_attention's launch counters: all routes, then those of head dims
 # above 256
 WIDE_COUNTERS = ("launches", "wide_launches", "wide16_launches",
@@ -836,29 +855,94 @@ def time_flash(q, k, v, causal, card, torch):
 GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
 
 
-def profile_device(run, what, kernel_groups, gemm_flops, card):
-    """Where one call of ``run`` spends its time: device time by kernel
-    (torch.profiler, CUPTI), grouped by ``kernel_groups`` ({group: kernel
-    name substring}), GEMMs and the rest, against the call's wall time; the
-    remainder is the device's idle share.  ``gemm_flops`` is the call's
-    matrix-product work, for the GEMMs' achieved rate."""
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# the record_function span around the timed call of ``profiled``
+PROFILED_SPAN = "chip_smoke.profiled"
+
+
+def timed_device_work(prof, spans=()):
+    """The device activities (kernels, copies, fills) of a :func:`profiled`
+    session that its timed call launched: those whose launching runtime or
+    driver call (by correlation id) lies inside the span PROFILED_SPAN,
+    whichever thread made it; CUDA graph replays' kernels included.
+    Returns ([(name, us, launch ts)], [(start, end, name)] of the
+    record_function spans named in ``spans``), from the exported trace."""
+    from incubator_mxnet_tpu_torch import cuda_build
+    path = cuda_build.BUILD_DIR.parent / ("trace-%d.json" % os.getpid())
+    prof.export_chrome_trace(str(path))
+    try:
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        path.unlink()
+    launch_ts, timed, named, device = {}, [], [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, args = e.get("cat", ""), e.get("args") or {}
+        interval = (e["ts"], e["ts"] + e.get("dur", 0), e.get("name"))
+        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch_ts[args["correlation"]] = e["ts"]
+        elif cat == "user_annotation" and e.get("name") == PROFILED_SPAN:
+            timed.append(interval)
+        elif cat == "user_annotation" and e.get("name") in spans:
+            named.append(interval)
+        elif cat in DEVICE_CATEGORIES:
+            device.append((e.get("name", ""), float(e.get("dur", 0)),
+                           args.get("correlation")))
+    work = []
+    for name, us, corr in device:
+        ts = launch_ts.get(corr)
+        if ts is not None and any(a <= ts <= b for a, b, _ in timed):
+            work.append((name, us, ts))
+    return work, named
+
+
+def trace_kernels(prof):
+    """{name: [device us, count]} of :func:`timed_device_work`."""
+    kernels = {}
+    for name, us, _ts in timed_device_work(prof)[0]:
+        k = kernels.setdefault(name, [0.0, 0])
+        k[0] += us
+        k[1] += 1
+    return kernels
+
+
+def profiled(run):
+    """One call of ``run`` under torch.profiler, after one untimed call in
+    the same window: (the profile, the timed call's wall us by the host
+    clock, device synchronized at both ends).  The timed call runs inside
+    the record_function span PROFILED_SPAN, by which :func:`trace_kernels`
+    keeps its device work.  Late in this script the profiler dropped the
+    first kernels a window saw (the head step's forward GEMM and
+    softmax_fwd, launched from the main thread before its backward, whose
+    kernels it kept); the untimed call takes that loss."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", 0) or 0
-        if str(evt.device_type).endswith("CUDA") and us > 0:
-            kernels[evt.key] = (us, evt.count)
+        with record_function(PROFILED_SPAN):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    return prof, wall_us
+
+
+def profile_device(run, what, kernel_groups, gemm_flops, card):
+    """Where one call of ``run`` spends its time: device time by kernel
+    (torch.profiler, CUPTI; :func:`profiled`, :func:`trace_kernels`),
+    grouped by ``kernel_groups`` ({group: kernel name substring}), GEMMs and
+    the rest, against the call's wall time; the remainder is the device's
+    idle share.  ``gemm_flops`` is the call's matrix-product work, for the
+    GEMMs' achieved rate."""
+    prof, wall_us = profiled(run)
+    kernels = trace_kernels(prof)
     if not kernels:
         print("profile: torch.profiler recorded no device time: not measured")
-        return
+        return None
     groups = dict.fromkeys(list(kernel_groups) + ["gemm", "other"], 0.0)
     for name, (us, _) in kernels.items():
         low = name.lower()
@@ -869,8 +953,9 @@ def profile_device(run, what, kernel_groups, gemm_flops, card):
         groups[group] += us
     busy = sum(groups.values())
     print("profile: %s under torch.profiler: wall %.1f us, device busy %.1f "
-          "us, idle share %.4f | %s" % (what, wall_us, busy,
-                                         max(0.0, 1 - busy / wall_us), card))
+          "us (%d device activities), idle share %.4f | %s"
+          % (what, wall_us, busy, sum(n for _, n in kernels.values()),
+             max(0.0, 1 - busy / wall_us), card))
     print("profile: device us by group %s; GEMMs %.4e flop at %.1f TFLOP/s"
           % (json.dumps({k: round(v, 1) for k, v in groups.items()}),
              gemm_flops, gemm_flops / groups["gemm"] / 1e6 if groups["gemm"]
@@ -1324,32 +1409,18 @@ def model_flops_per_step(n_params, tokens, seq_len, d_model, n_layers=1):
     return dense + attn
 
 
-def kernels_by_span(trace_path, spans):
-    """Device time from a torch.profiler chrome trace, by named span: a
-    kernel belongs to the innermost span (a record_function of ``spans``)
-    whose CPU interval holds the runtime call that launched it.  Returns
-    ({span: [us, GEMM us]}, [(kernel name, us) outside every span])."""
-    with open(trace_path) as f:
-        events = json.load(f).get("traceEvents", [])
-    launch_ts, intervals, kernels = {}, [], []
-    for e in events:
-        if e.get("ph") != "X":
-            continue
-        cat, args = e.get("cat", ""), e.get("args") or {}
-        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
-            launch_ts[args["correlation"]] = e["ts"]
-        elif cat == "user_annotation" and e.get("name") in spans:
-            intervals.append((e["ts"], e["ts"] + e.get("dur", 0), e["name"]))
-        elif cat == "kernel":
-            kernels.append((e.get("name", ""), float(e.get("dur", 0)),
-                            args.get("correlation")))
+def kernels_by_span(prof, spans):
+    """Device time of the timed call of a :func:`profiled` session, by named
+    span: a kernel belongs to the innermost span (a record_function of
+    ``spans``) whose CPU interval holds the runtime call that launched it.
+    Returns ({span: [us, GEMM us]}, [(kernel name, us) outside every
+    span])."""
+    work, intervals = timed_device_work(prof, spans)
     intervals.sort(key=lambda iv: iv[1] - iv[0])      # innermost first
     by_span = {name: [0.0, 0.0] for name in spans}
     outside = []
-    for name, us, corr in kernels:
-        ts = launch_ts.get(corr)
-        span = None if ts is None else next(
-            (n for a, b, n in intervals if a <= ts <= b), None)
+    for name, us, ts in work:
+        span = next((n for a, b, n in intervals if a <= ts <= b), None)
         if span is None:
             outside.append((name, us))
             continue
@@ -1366,23 +1437,9 @@ def profile_training_step(run, gemm_flops, card):
     flash_attention_backward), the optimizer update (the span
     DataParallelTrainer.update) and the rest, against the step's wall time;
     the remainder is the device's idle share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from incubator_mxnet_tpu_torch import cuda_build
     spans = ("flash_attention_backward", "DataParallelTrainer.update")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    path = cuda_build.BUILD_DIR.parent / ("train_trace-%d.json" % os.getpid())
-    prof.export_chrome_trace(str(path))
-    try:
-        by_span, outside = kernels_by_span(path, spans)
-    finally:
-        path.unlink()
+    prof, wall_us = profiled(run)
+    by_span, outside = kernels_by_span(prof, spans)
     if not outside and not any(v[0] for v in by_span.values()):
         print("profile: torch.profiler recorded no device time: not measured")
         return None
@@ -1673,6 +1730,387 @@ def serve_wide_lm(mx, card, rs, d128_request_ms):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(request_ms=request_ms, launches=launches["wide16_launches"])
+
+
+def last_token(mx, lm):
+    """The served model of phase 4f: ``lm``'s last position, as a tuple of
+    its logits (vocab,) in the LM's dtype and their argmax, so a response
+    row is 64 KB rather than the whole (seq, vocab) logits."""
+
+    class LastToken(mx.gluon.HybridBlock):
+        def __init__(self, lm, **kwargs):
+            super().__init__(**kwargs)
+            self.lm = lm
+
+        def hybrid_forward(self, F, tokens):
+            last = F.slice_axis(self.lm(tokens), axis=1, begin=-1, end=None)
+            last = F.reshape(last, shape=(0, -1))
+            return last, F.argmax(last, axis=-1)
+
+    return LastToken(lm)
+
+
+def graph_pool_bytes(torch, pool):
+    """Bytes of the caching allocator's segments in a CUDA graph memory
+    pool (torch.cuda.memory_snapshot), or None when the snapshot does not
+    name pools."""
+    segs = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in seg for seg in segs):
+        return None
+    return sum(seg["total_size"] for seg in segs
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def closed_loop(srv, prompts, clients, until=None):
+    """``clients`` threads, each sending its share of ``prompts`` one after
+    another (the next when the last answered): once, or round and round
+    until ``until(answers so far)`` is true.  Returns ([(request, row,
+    record, client)] in answer order, errors, wall s)."""
+    results, errors, lock = [], [], threading.Lock()
+
+    def client(k):
+        try:
+            while True:
+                for i in range(k, len(prompts), clients):
+                    with lock:
+                        if until is not None and until(len(results)):
+                            return
+                    fut = srv.submit("lm", prompts[i])
+                    row = fut.get(timeout=600.0)
+                    with lock:
+                        results.append((i, row, fut.record, k))
+                if until is None:
+                    return
+        except Exception as exc:
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900.0)
+    return results, errors, time.perf_counter() - t0
+
+
+def traffic_report(what, results, wall_s, card):
+    """Print and check one traffic run's SLO records: the exact sum, the
+    batch sizes, latency quantiles, tokens/s and each component's mean."""
+    from incubator_mxnet_tpu_torch.serving import slo
+    recs = [r for _, _, r, _ in results]
+    for r in recs:
+        check(sum(r["components"][c] for c in slo.COMPONENTS) == r["wall_s"],
+              "%s: SLO components do not sum to the wall exactly: %r"
+              % (what, r))
+    hist = {}
+    for r in recs:
+        hist[r["batch_size"]] = hist.get(r["batch_size"], 0) + 1
+    batches = {b: n // b for b, n in sorted(hist.items())}
+    p50, p99 = slo.quantiles(recs)
+    means = {c: round(sum(r["components"][c] for r in recs) / len(recs) * 1e3,
+                      3) for c in slo.COMPONENTS}
+    tokens = len(recs) * LM_CONFIG["seq_len"]
+    print("serve 4f: %s: %d requests in %.3f s, %.1f tokens/s; batches by "
+          "size %s; latency p50 %.3f ms p99 %.3f ms; mean ms by component "
+          "%s (their sum equals each request's wall exactly) | %s"
+          % (what, len(recs), wall_s, tokens / wall_s, batches, p50 * 1e3,
+             p99 * 1e3, json.dumps(means), card), flush=True)
+    return dict(requests=len(recs), wall_s=wall_s,
+                tokens_per_s=tokens / wall_s, batches_by_size=batches,
+                p50_ms=p50 * 1e3, p99_ms=p99 * 1e3, component_ms=means)
+
+
+def serve_runtime(mx, net, card, rs):
+    """Phase 4f: the serving runtime (``mx.serving.Server``) serving the
+    full-width LM through per-bucket CUDA-graph programs.  The flash
+    launch counter is zeroed just before and read just after (it counts at
+    eager runs and captures; a replay launches no Python); the trace of
+    one bucket-8 replay proves the kernel runs in the served path."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import serving
+    from incubator_mxnet_tpu_torch.serving.batcher import host_rows
+    from incubator_mxnet_tpu_torch.models import TransformerLM, HostXavier
+    from incubator_mxnet_tpu_torch.ops.attention import flash_attention
+    cfg = LM_CONFIG
+    dev = torch.device("cuda", 0)
+    lm = last_token(mx, net)
+    prompts = [rs.randint(0, cfg["vocab"], (cfg["seq_len"],)).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    out = {}
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    srv = serving.Server(max_batch=max(SERVE_BUCKETS), max_wait_ms=5)
+    # 1. load: the registry's own copy of the weights and a pinned host copy
+    t0 = time.perf_counter()
+    h = srv.load("lm", block=lm, example=mx.nd.array(
+        prompts[0][None], ctx=mx.gpu(0), dtype="int32"))
+    out["load_s"] = time.perf_counter() - t0
+    print("serve 4f: Server(max_batch=%d, max_wait_ms=5).load(\"lm\", "
+          "LastToken(TransformerLM %s), bf16): %d bytes of weights in %.3f s "
+          "| %s" % (max(SERVE_BUCKETS), cfg, h.nbytes, out["load_s"], card),
+          flush=True)
+    # 2. warmup: one program per bucket, captured off the hot path
+    out["buckets"] = {}
+    for b in SERVE_BUCKETS:
+        n0 = len(h.capture_log)
+        t0 = time.perf_counter()
+        srv.warmup("lm", prompts[0], buckets=[b])
+        warm_s = time.perf_counter() - t0
+        cap_s = sum(sec for _, _, sec in h.capture_log[n0:])
+        pool = graph_pool_bytes(torch, h._pool)
+        out["buckets"][b] = dict(capture_s=cap_s, warmup_s=warm_s,
+                                 pool_bytes=pool)
+        print("serve 4f: bucket %d: capture %.3f s (warmup with its eager "
+              "run and probe %.3f s); the handle's graph pool %s bytes | %s"
+              % (b, cap_s, warm_s, "not measured" if pool is None else pool,
+                 card), flush=True)
+    check(h.captures == len(SERVE_BUCKETS), "warmup captured %d programs for "
+          "%d buckets" % (h.captures, len(SERVE_BUCKETS)))
+
+    def oracle():
+        """Every request's answer by the bucket-1 program of the current
+        version (host rows: logits as f32, the argmax)."""
+        _e, params, version = srv.registry.acquire("lm")
+        rows = []
+        for x in prompts:
+            logits, ids = h.jit_for(1)(params, torch.from_numpy(x[None]).to(
+                dev))
+            rows.append((host_rows(logits)[0], host_rows(ids)[0]))
+        return rows, version
+
+    def same(row, ref):
+        return row[0].tobytes() == ref[0].tobytes() and \
+            row[1].tobytes() == ref[1].tobytes()
+
+    # 3. the oracle, and the eager batch-1 forward against it
+    v1, version = oracle()
+    check(version == 1, "version %d before any swap" % version)
+    eager_err = 0.0
+    with mx.autograd.predict_mode():
+        for x, ref in zip(prompts, v1):
+            logits, ids = lm(mx.nd.array(x[None], ctx=mx.gpu(0),
+                                         dtype="int32"))
+            eager_err = max(eager_err, float(np.abs(
+                logits.asnumpy()[0] - ref[0]).max()))
+    out["eager_vs_graph_max_abs"] = eager_err
+    print("serve 4f: the bucket-1 program's answers (oracle) for %d "
+          "requests; the eager batch-1 forward differs by max |d| %.3e "
+          "(reported, not required to be 0)" % (len(prompts), eager_err),
+          flush=True)
+    # bucket-1 replay against the eager batch-1 forward, in turns
+    _e, params, _v = srv.registry.acquire("lm")
+    x1 = torch.from_numpy(prompts[0][None]).to(dev)
+    x1_nd = mx.nd.NDArray(x1)
+
+    def replay1():
+        h.jit_for(1)(params, x1)
+
+    def eager1():
+        with mx.autograd.predict_mode():
+            lm(x1_nd)
+
+    times = {"graph": [], "eager": []}
+    for r in range(6):
+        for name, fn in (("graph", replay1), ("eager", eager1)) if r % 2 \
+                else (("eager", eager1), ("graph", replay1)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    out["bucket1_graph_ms"] = sum(times["graph"][1:]) / 5
+    out["bucket1_eager_ms"] = sum(times["eager"][1:]) / 5
+    print("serve 4f: one batch-1 request (%d tokens): bucket-1 graph "
+          "replay %.3f ms, eager forward %.3f ms (host clock to "
+          "synchronize, mean of 5 after one, in turns) | %s"
+          % (cfg["seq_len"], out["bucket1_graph_ms"],
+             out["bucket1_eager_ms"], card), flush=True)
+    del params, _e
+    # 4. closed-loop traffic
+    results, errors, wall = closed_loop(srv, prompts, SERVE_CLIENTS)
+    check(not errors and len(results) == len(prompts),
+          "traffic: %d answers, errors %s" % (len(results), errors))
+    for i, row, rec, _k in results:
+        check(same(row, v1[i]) and rec["version"] == 1, "traffic: request %d "
+              "differs from the bucket-1 program" % i)
+    out["traffic"] = traffic_report("closed loop, %d clients" % SERVE_CLIENTS,
+                                    results, wall, card)
+    # 5. a swap mid-traffic to a second version (HostXavier(SEED + 1), bf16)
+    v2net = TransformerLM(**cfg)
+    v2net.pos_embed.init = None
+    v2net.initialize(HostXavier(SEED + 1), ctx=mx.gpu(0))
+    v2net.cast("bfloat16")
+    v2net.collect_params().setattr("grad_req", "null")
+    with mx.autograd.predict_mode():
+        v2net(mx.nd.array(prompts[0][None], ctx=mx.gpu(0),
+                          dtype="int32")).wait_to_read()
+    names = sorted(lm.collect_params().keys())
+    v2names = sorted(v2net.collect_params().keys())
+    check([n[len(net.prefix):] for n in names] ==
+          [n[len(v2net.prefix):] for n in v2names],
+          "the second version's parameters do not match the served ones")
+    new_params = {n: v2net.collect_params()[m].data()._data.cpu()
+                  for n, m in zip(names, v2names)}
+    del v2net
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the clients go round until SERVE_REQUESTS answers came after the
+    # commit; the swap starts after SERVE_REQUESTS // 4 answers
+    swap_at = SERVE_REQUESTS // 4
+    box = {}
+
+    def until(n):       # called under closed_loop's lock
+        if n >= swap_at and "thread" not in box:
+            box["thread"] = threading.Thread(target=swapper)
+            box["thread"].start()
+        if "version" not in box:
+            return False
+        return n >= box.setdefault("answers_at_commit", n) + SERVE_REQUESTS
+
+    def swapper():
+        t0 = time.perf_counter()
+        version = srv.swap("lm", new_params)
+        box["swap_s"] = time.perf_counter() - t0
+        box["version"] = version
+
+    results, errors, wall = closed_loop(srv, prompts, SERVE_CLIENTS, until)
+    box.pop("thread").join(600.0)
+    check(not errors and box.get("version") == 2, "swap traffic: %d answers, "
+          "errors %s, swap %s" % (len(results), errors, box))
+    v2, version = oracle()
+    check(version == 2, "version %d after the swap" % version)
+    by_version = {1: 0, 2: 0}
+    per_client = {}
+    for i, row, rec, k in results:
+        ref = v1[i] if rec["version"] == 1 else v2[i]
+        check(same(row, ref), "swap traffic: request %d is not entirely "
+              "version %d's answer" % (i, rec["version"]))
+        check(not same(v1[i], v2[i]), "the two versions answer request %d "
+              "alike" % i)
+        by_version[rec["version"]] += 1
+        per_client.setdefault(k, []).append(rec["version"])
+    for k, vs in per_client.items():
+        check(vs == sorted(vs), "client %d saw versions %s: not monotonic"
+              % (k, vs))
+    check(by_version[1] > 0 and by_version[2] > 0, "responses by version %s: "
+          "the swap did not land mid-traffic" % by_version)
+    out["swap"] = dict(box, by_version=by_version, traffic=traffic_report(
+        "closed loop with a swap after %d answers" % swap_at, results, wall,
+        card))
+    print("serve 4f: swap to version 2 (HostXavier(%d), bf16) in %.3f s "
+          "mid-traffic; responses by version %s, every one entirely its "
+          "version's, monotonic per client | %s"
+          % (SEED + 1, box["swap_s"], by_version, card), flush=True)
+    del new_params
+    # 6. eviction, then one request: a transparent reload, bit for bit
+    loader, reload_s = h._loader, []
+
+    def timed_loader():
+        t0 = time.perf_counter()
+        params = loader()
+        reload_s.append(time.perf_counter() - t0)
+        return params
+
+    h._loader = timed_loader
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    check(srv.registry.evict("lm") and not h.resident and
+          not h.graph_keys(), "evict kept the weights or the graphs")
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = held - torch.cuda.memory_allocated()
+    captures = h.captures
+    t0 = time.perf_counter()
+    row = srv.predict("lm", prompts[0], timeout=600.0)
+    request_s = time.perf_counter() - t0
+    check(len(reload_s) == 1 and h.resident and h.version == 2 and
+          srv.registry.reloads_total == 1 and same(row, v2[0]),
+          "the evicted model did not reload to version 2 bit for bit")
+    out["reload"] = dict(reload_s=reload_s[0], request_s=request_s,
+                         freed_bytes=freed,
+                         recaptures=h.captures - captures)
+    print("serve 4f: evict freed %d bytes (weights and graphs); the next "
+          "request reloaded version 2 in %.3f s (request %.3f s with its "
+          "bucket-1 capture), bit-equal | %s"
+          % (freed, reload_s[0], request_s, card), flush=True)
+    # 7. one fused pass: the probe decides, no delivered row may differ
+    os.environ["GRAFT_SERVE_BATCH_MODE"] = "fused"
+    try:
+        futs = [srv.submit("lm", prompts[i]) for i in range(8)]
+        rows = [f.get(timeout=600.0) for f in futs]
+    finally:
+        del os.environ["GRAFT_SERVE_BATCH_MODE"]
+    for i, (f, row) in enumerate(zip(futs, rows)):
+        check(same(row, v2[i]), "fused pass: request %d differs from the "
+              "bucket-1 program" % i)
+    demoted = bool(h.no_batch)
+    _e, params, _v = srv.registry.acquire("lm")
+    x8 = torch.from_numpy(np.stack(prompts[:8])).to(dev)
+    logits8, _ids8 = h.jit_for(8, "fused")(params, x8)
+    fused_err = float(np.abs(host_rows(logits8) - np.stack(
+        [r[0] for r in v2[:8]])).max())
+    out["fused"] = dict(demoted=demoted, sizes=sorted(
+        {f.record["batch_size"] for f in futs}), max_abs_vs_bucket1=fused_err)
+    print("serve 4f: fused pass (GRAFT_SERVE_BATCH_MODE=fused), batch sizes "
+          "%s: the probe %s; the fused bucket-8 program differs from the "
+          "bucket-1 program by max |d| %.3e; every delivered row bit-equal "
+          "to the bucket-1 program | %s"
+          % (out["fused"]["sizes"], "demoted the shape to per-request "
+             "dispatch" if demoted else "found row 0 bit-equal (kept)",
+             fused_err, card), flush=True)
+    # 8. the kernel in the served path: one exact bucket-8 replay, traced
+    program = h.jit_for(8, "exact")
+    got = [program(params, x8)]
+    prof, wall_us = profiled(lambda: got.__setitem__(0, program(params, x8)))
+    got = got[0]
+    kernels = trace_kernels(prof)
+    flash = sum(n for name, (_, n) in kernels.items()
+                if "flash_fwd_sm90_kernel" in name)
+    busy = sum(us for us, _ in kernels.values())
+    for i in range(8):
+        check(same((host_rows(got[0])[i], host_rows(got[1])[i]), v2[i]),
+              "the traced bucket-8 replay differs from the bucket-1 program "
+              "on row %d" % i)
+    out["replay8"] = dict(flash_fwd_sm90_kernel=flash, wall_us=wall_us,
+                          busy_us=busy, busy_share=busy / wall_us,
+                          idle_share=max(0.0, 1 - busy / wall_us))
+    print("serve 4f: one exact bucket-8 replay under torch.profiler: %d "
+          "flash_fwd_sm90_kernel launches (expected %d), %d device "
+          "activities, wall "
+          "%.1f us, device busy %.1f us, busy share %.4f, idle share %.4f "
+          "| %s" % (flash, 8 * cfg["n_layers"], sum(
+              n for _, n in kernels.values()), wall_us, busy,
+                    busy / wall_us, out["replay8"]["idle_share"], card),
+          flush=True)
+    check(flash == 8 * cfg["n_layers"], "the bucket-8 replay's trace lists "
+          "%d flash_fwd_sm90_kernel launches, expected %d"
+          % (flash, 8 * cfg["n_layers"]))
+    del got, logits8, _ids8, params, _e, x8, program
+    out["launches"] = flash_attention.launches
+    out["captures"] = h.captures
+    out["stats"] = srv.stats()["registry"]["models"]["lm"]
+    srv.close()
+    srv.registry.unload("lm")
+    print("serve 4f: flash_attention launches counted on the path (eager "
+          "runs and captures; replays launch no Python) %d; captures %d "
+          "| %s" % (out["launches"], out["captures"], card), flush=True)
+    check(out["launches"] > 0, "phase 4f launched no flash kernel")
+    # 9. the CLI's selftest on the card, as a subprocess
+    proc = subprocess.run([sys.executable, "-m",
+                           "incubator_mxnet_tpu_torch.serving", "--selftest"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        print("serve 4f: selftest: " + line)
+    check(proc.returncode == 0 and "selftest OK" in proc.stdout,
+          "python -m incubator_mxnet_tpu_torch.serving --selftest exited %d: "
+          "%s" % (proc.returncode, proc.stderr[-2000:]))
+    del srv, h, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_small_lm(mx, card):
@@ -2127,6 +2565,9 @@ def main():
     profile_device(request, "one request",
                    {"flash_attention_fwd": "flash_fwd"}, gemm_flops,
                    card)
+
+    # phase 4f: the serving runtime on the same net (Server, CUDA graphs)
+    runtime = serve_runtime(mx, net, card, rs)
     del net, requests
     gc.collect()
 
@@ -2238,6 +2679,8 @@ def main():
     wide_key = case_key(*WIDE_CASES[-1], "%s")
     wider_key = case_key(*WIDER_CASES[-1], "%s")
     build_log = cuda_build.build_log("flash_attention")
+    print("serve 4f: summary " + json.dumps(runtime, default=str),
+          flush=True)
     print("train: summary " + json.dumps({
         k_: v_ for k_, v_ in train.items() if k_ != "losses"}), flush=True)
     print("backward: " + json.dumps(dict(backward, max_abs_err_cases=
@@ -2248,6 +2691,9 @@ def main():
               max_abs_err_cases=errs, half_violations_cases=violations,
               tflops=bf16["tflops"],
               training_launches=train["launches"]["flash_attention_fwd"],
+              serving_runtime_launches=runtime["launches"],
+              serving_runtime_replay8_trace_launches=runtime["replay8"][
+                  "flash_fwd_sm90_kernel"],
               training_steps=TRAIN_STEPS,
               small_training_launches=small_train_launches),
         entry("flash_attention_fwd_f16", BF16_SOURCE, F16_DESIGN,

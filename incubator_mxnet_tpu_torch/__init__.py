@@ -38,3 +38,5 @@ from . import gluon  # noqa: F401
 from . import parallel  # noqa: F401
 from . import models  # noqa: F401
 from . import convert  # noqa: F401
+from . import telemetry  # noqa: F401
+from . import serving  # noqa: F401

@@ -32,9 +32,10 @@ __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "backward", "grad", "head_seed", "Function"]
 
 _state = threading.local()
-# every array with a grad buffer; backward delivers into those its heads
-# reach (weak: dropping an array unmarks it)
-_variables = weakref.WeakSet()
+# every array with a grad buffer, by id; backward delivers into those its
+# heads reach (weak: dropping an array unmarks it).  Keyed by id, not a
+# WeakSet: NDArray's ``==`` is elementwise, and a set would call it
+_variables = weakref.WeakValueDictionary()
 _variables_lock = threading.Lock()
 
 
@@ -123,7 +124,7 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         v._grad = g
         v._grad_req = req
         with _variables_lock:
-            _variables.add(v)
+            _variables[id(v)] = v
 
 
 def _head_tensors(heads, head_grads):
@@ -149,7 +150,7 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         head_grads = None if head_grads is None else (
             [head_grads] if isinstance(head_grads, NDArray) else head_grads)
     with _variables_lock:
-        variables = [v for v in _variables
+        variables = [v for v in _variables.values()
                      if v._grad_req != "null" and v._data.requires_grad]
     outs, seeds = _head_tensors(heads, head_grads)
     if not variables:

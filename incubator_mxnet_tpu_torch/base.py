@@ -22,6 +22,8 @@ _TORCH_DTYPES = {
     "float64": torch.float64,
     "bfloat16": torch.bfloat16,
     "uint8": torch.uint8,
+    "uint16": torch.uint16,
+    "uint32": torch.uint32,
     "int8": torch.int8,
     "int16": torch.int16,
     "int32": torch.int32,

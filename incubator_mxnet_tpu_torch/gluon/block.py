@@ -5,7 +5,9 @@ Same prefix scoping (``_BlockScope``), child and parameter registration,
 model's parameter names match it one to one.  ``HybridBlock`` runs
 ``hybrid_forward(F, x, **params)`` eagerly with ``F`` the port's
 ``ndarray`` module and its parameters passed by name; ``hybridize()`` is
-accepted and changes nothing yet (the CachedOp analogue is a later slice).
+accepted and changes nothing yet (a general CachedOp is a later slice).
+:func:`functionalize` (``HybridBlock.serving_fn``) gives the pure forward
+``fn(param_vals, *inputs)`` the serving runtime captures per batch bucket.
 Deferred parameter shapes are resolved layer by layer from the first
 input, as in the JAX build (``_pre_infer``).  ``_trace_params`` installs
 shadow arrays for a subtree's parameters (by name, thread-local), so a
@@ -17,10 +19,12 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 
-from .. import autograd
+import torch
+
+from .. import autograd, random_state
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "functionalize"]
 
 
 class _BlockScope(object):
@@ -262,3 +266,55 @@ class HybridBlock(Block):
     def hybrid_forward(self, F, x, *args, **kwargs):
         """Override to define the computation (ref: block.py hybrid_forward)."""
         raise NotImplementedError
+
+    def serving_fn(self, *example_args, train=False):
+        """The serving runtime's forward entry point (ref: block.py:593):
+        ``(fn, param_vals)`` where ``fn(param_vals, *input_tensors)`` is the
+        pure inference forward and ``param_vals`` the name → tensor weight
+        snapshot the serving registry treats as its residency unit."""
+        return functionalize(self, *example_args, train=train)
+
+
+def _flatten_outputs(out):
+    if isinstance(out, (list, tuple)):
+        flat = []
+        for o in out:
+            flat.extend(_flatten_outputs(o))
+        return flat
+    return [out]
+
+
+def functionalize(block, *example_args, train=False):
+    """The pure forward of a HybridBlock (ref: block.py:646-700).
+
+    Returns ``(fn, param_vals)``: ``fn(param_vals, *input_tensors, rng=None)``
+    maps tensors to a tensor (or a tuple of tensors when the block returns
+    several) by running ``hybrid_forward_dispatch`` with the block's
+    parameters shadowed by ``param_vals`` ({full name: tensor}, the
+    thread-local ``_trace_params``), recording off and ``train`` picking the
+    training or inference mode.  ``param_vals`` holds the block's own
+    tensors now.  ``example_args`` resolve deferred shapes with one pass.
+
+    Random ops draw from ``rng``, a ``torch.Generator`` on the inputs'
+    device; by default from generators seeded 0 afresh in every call (the
+    JAX build's default key is fixed too), so a stochastic block must pass
+    its own ``rng`` per call.
+    """
+    from ..ndarray import NDArray
+
+    block(*[a if isinstance(a, NDArray) else NDArray(torch.as_tensor(a))
+            for a in example_args])        # resolve deferred init
+    param_vals = {name: p.data()._data
+                  for name, p in block.collect_params().items()}
+
+    def fn(param_vals, *input_vals, rng=None):
+        shadows = {name: NDArray(v) for name, v in param_vals.items()}
+        nd_in = [NDArray(v) for v in input_vals]
+        with random_state.use_generator(0 if rng is None else rng), \
+                autograd._scope(recording=False, training=train), \
+                block._trace_params(shadows):
+            out = block.hybrid_forward_dispatch(*nd_in)
+        vals = tuple(o._data for o in _flatten_outputs(out))
+        return vals[0] if len(vals) == 1 else vals
+
+    return fn, param_vals

@@ -239,6 +239,40 @@ class NDArray:
     def __neg__(self):
         return invoke(get_op("negative"), [self], {})
 
+    # comparisons give 0/1 arrays in this array's dtype, as the JAX build's
+    # (ndarray.py:569-591); ``== None`` is False and ``!= None`` True
+    def __eq__(self, o):
+        if o is None:
+            return False
+        return self._binop(o, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        if o is None:
+            return True
+        return self._binop(o, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, o):
+        return self._binop(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binop(o, "broadcast_greater_equal",
+                           "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binop(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binop(o, "broadcast_lesser_equal", "_lesser_equal_scalar")
+
+    def __bool__(self):
+        """The value of a one-element array; more elements raise, so a
+        comparison's result in an ``if`` is never silently true."""
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("The truth value of an NDArray with multiple "
+                         "elements is ambiguous.")
+
+    # the identity hash, as the JAX build keeps beside its __eq__
     __hash__ = object.__hash__
 
     def _inplace(self, other, op_name, scalar_op):
@@ -315,9 +349,23 @@ def imperative_invoke(op_name, *inputs, out=None, **params):
 # creation & utilities (parity: python/mxnet/ndarray/utils.py + ndarray.py)
 # ---------------------------------------------------------------------------
 
+# the JAX build runs without x64: 64-bit numpy input narrows to 32 bits
+_NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+           np.dtype(np.uint64): np.uint32}
+
+
+def narrow_dtype(dtype):
+    """The dtype a host array of ``dtype`` takes on a device (float64,
+    int64 and uint64 become their 32-bit kinds, as ``jnp.asarray`` stores
+    them)."""
+    dtype = np.dtype(dtype)
+    return np.dtype(_NARROW.get(dtype, dtype))
+
+
 def array(source_array, ctx=None, dtype=None):
-    """ref: python/mxnet/ndarray/utils.py array.  float64 numpy input
-    becomes float32, as in the JAX build without x64."""
+    """ref: python/mxnet/ndarray/utils.py array.  float64, int64 and uint64
+    numpy input become float32, int32 and uint32, as in the JAX build
+    without x64 (an explicit ``dtype`` is kept)."""
     if isinstance(source_array, NDArray):
         src = source_array.asnumpy()
         if dtype is None:
@@ -325,7 +373,7 @@ def array(source_array, ctx=None, dtype=None):
     elif isinstance(source_array, np.ndarray):
         src = source_array
         if dtype is None:
-            dtype = np.float32 if src.dtype == np.float64 else src.dtype
+            dtype = narrow_dtype(src.dtype)
     else:
         # python lists/scalars default to float32, like the reference
         src = np.asarray(source_array)

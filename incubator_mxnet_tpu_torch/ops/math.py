@@ -3,8 +3,9 @@
 Counterpart of the binary broadcast family of
 ``incubator_mxnet_tpu/ops/math.py`` (:22, aliases :45), its scalar ops
 (:87), ``square``, the reductions ``sum`` and ``mean`` with ``axis``,
-``keepdims`` and ``exclude`` (``_reg_reduce`` :220) and
-``argmax`` (:246) — the ops the NDArray operators, the decoder LM's
+``keepdims`` and ``exclude`` (``_reg_reduce`` :220),
+``argmax`` (:246), and the comparisons (``_BINARY_CMP`` :33-38,
+``_SCALAR_CMP`` :100-107) — the ops the NDArray operators, the decoder LM's
 residual adds and greedy decode, and the Gluon losses use.
 """
 from __future__ import annotations
@@ -72,6 +73,55 @@ for _n, _f in _SCALAR.items():
     _reg_scalar(_n, _f)
 
 
+# MXNet's comparisons return 0/1 in the left operand's dtype, not bools
+_BINARY_CMP = {
+    "broadcast_equal": (torch.eq, ("_equal",)),
+    "broadcast_not_equal": (torch.ne, ("_not_equal",)),
+    "broadcast_greater": (torch.gt, ("_greater",)),
+    "broadcast_greater_equal": (torch.ge, ("_greater_equal",)),
+    "broadcast_lesser": (torch.lt, ("_lesser",)),
+    "broadcast_lesser_equal": (torch.le, ("_lesser_equal",)),
+}
+_SCALAR_CMP = {
+    "_equal_scalar": torch.eq,
+    "_not_equal_scalar": torch.ne,
+    "_greater_scalar": torch.gt,
+    "_greater_equal_scalar": torch.ge,
+    "_lesser_scalar": torch.lt,
+    "_lesser_equal_scalar": torch.le,
+}
+
+
+def _reg_compare(name, fn, aliases):
+    def fcompute(lhs, rhs, _fn=fn):
+        # both operands promote as in jnp (f16 with bf16 meets in f32)
+        return _fn(lhs, rhs).to(lhs.dtype)
+    fcompute.__doc__ = "Broadcasting comparison %s (ref: elemwise_binary_broadcast_op_logic.cc)" % name
+    register(name, num_inputs=2, aliases=aliases,
+             differentiable=False)(fcompute)
+
+
+def _reg_scalar_compare(name, fn):
+    def fcompute(data, scalar=0.0, _fn=fn):
+        """The JAX build compares with ``float(scalar)``, a weak float: a
+        floating array meets it rounded to its own dtype, an integer or bool
+        array meets it in float32, as jnp promotes ``int32`` with a Python
+        float."""
+        if data.is_floating_point():
+            return _fn(data, scalar_like(data, scalar)).to(data.dtype)
+        s = torch.full((), float(scalar), dtype=torch.float32,
+                       device=data.device)
+        return _fn(data.to(torch.float32), s).to(data.dtype)
+    fcompute.__doc__ = "Scalar comparison %s (ref: elemwise_binary_scalar_op_logic.cc)" % name
+    register(name, num_inputs=1, differentiable=False)(fcompute)
+
+
+for _n, (_f, _a) in _BINARY_CMP.items():
+    _reg_compare(_n, _f, _a)
+for _n, _f in _SCALAR_CMP.items():
+    _reg_scalar_compare(_n, _f)
+
+
 @register("negative", num_inputs=1)
 def _negative(data):
     return -data
@@ -95,12 +145,24 @@ def _norm_axis(axis, ndim, exclude=False):
     return ax
 
 
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+
 def _sum(data, ax, keepdims):
     """A sum over ``ax`` as ``jnp.sum``: a 16-bit array accumulates in f32
-    and rounds once to its dtype."""
+    and rounds once to its dtype; a signed integer or bool array sums to
+    int32 and an unsigned one to uint32 (the JAX build's default integer
+    widths, wrapping as they do); int64 stays int64."""
     if data.dtype in (torch.bfloat16, torch.float16):
         return data.sum(dim=ax, keepdim=keepdims,
                         dtype=torch.float32).to(data.dtype)
+    if data.dtype in _UNSIGNED:
+        # torch has no uint32 accumulator: int64 holds the sum, and the
+        # cast wraps it modulo 2^32 as a uint32 accumulator would
+        return data.sum(dim=ax, keepdim=keepdims,
+                        dtype=torch.int64).to(torch.uint32)
+    if not data.is_floating_point() and data.dtype != torch.int64:
+        return data.sum(dim=ax, keepdim=keepdims, dtype=torch.int32)
     return data.sum(dim=ax, keepdim=keepdims)
 
 

@@ -113,14 +113,38 @@ def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
     return weight[idx]
 
 
+def _fill_value(dtype):
+    """What ``jnp.take_along_axis`` (mode "fill") returns for an index out
+    of range: NaN for floats, the lowest value of a signed integer type, the
+    highest of an unsigned one, True for bool."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
 @register("batch_take", num_inputs=2, nograd_inputs=(1,), aliases=("pick",))
 def _pick(data, index, axis=1, keepdims=False):
     """ref: indexing_op.cc pick/batch_take — ``data`` at ``index`` along
-    ``axis`` (the JAX build's ``take_along_axis``, ops/tensor.py:238);
-    ``index`` holds floats or ints, one per position of the other axes."""
+    ``axis``, as the JAX build's ``take_along_axis`` (ops/tensor.py:238-245):
+    ``index`` holds floats (truncated, NaN as 0) or ints, one per position of
+    the other axes; an index in [-n, -1] counts from the end, and one outside
+    [-n, n) gives :func:`_fill_value` (NaN for floats).  The range check is
+    elementwise on the device, so it never waits for the card."""
     axis = axis % data.ndim
+    n = data.shape[axis]
+    if index.is_floating_point():
+        index = torch.nan_to_num(index, nan=0.0).clamp(-2.0 ** 31,
+                                                       2.0 ** 31 - 1)
     idx = index.to(torch.int64).unsqueeze(axis)
-    out = torch.take_along_dim(data, idx, dim=axis)
+    valid = (idx >= -n) & (idx < n)
+    safe = torch.where(valid, torch.where(idx < 0, idx + n, idx), 0)
+    out = torch.take_along_dim(data, safe, dim=axis)
+    out = torch.where(valid, out, torch.full((), _fill_value(data.dtype),
+                                             dtype=data.dtype,
+                                             device=data.device))
     return out if keepdims else out.squeeze(axis)
 
 

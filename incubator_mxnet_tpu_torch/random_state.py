@@ -10,10 +10,13 @@ their inputs and weights with numpy.
 from __future__ import annotations
 
 import threading
+from contextlib import contextmanager
 
 import torch
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "use_generator"]
+
+_override = threading.local()     # .scope: (generator, seed, made)
 
 
 class _GeneratorTable:
@@ -50,5 +53,40 @@ def seed(seed_state):
 
 
 def generator(device: torch.device) -> torch.Generator:
-    """The framework generator of ``device``."""
+    """The framework generator of ``device``, or the one :func:`use_generator`
+    installed on this thread for that device."""
+    scope = getattr(_override, "scope", None)
+    if scope is not None:
+        gen, seed_value, made = scope
+        if gen is not None:
+            if gen.device.type == device.type and \
+                    (gen.device.index or 0) == (device.index or 0):
+                return gen
+        else:
+            key = (device.type, device.index or 0)
+            g = made.get(key)
+            if g is None:
+                g = made[key] = torch.Generator(device=device)
+                g.manual_seed(seed_value)
+            return g
     return _TABLE.generator(device)
+
+
+@contextmanager
+def use_generator(gen):
+    """Draw from ``gen`` on this thread inside the block (the counterpart of
+    the JAX build's ``use_key``: a functionalized forward takes its
+    randomness as an argument).  ``gen`` is a ``torch.Generator`` (used on
+    its device) or a seed: then each device's generator is made, seeded,
+    the first time a draw asks for it in this block, so every block with
+    the same seed draws the same values, and a block that draws nothing
+    makes no generator (none may be made while a CUDA graph captures)."""
+    prev = getattr(_override, "scope", None)
+    if isinstance(gen, torch.Generator):
+        _override.scope = (gen, None, None)
+    else:
+        _override.scope = (None, int(gen), {})
+    try:
+        yield
+    finally:
+        _override.scope = prev

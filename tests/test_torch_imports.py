@@ -55,6 +55,8 @@ def test_port_imports_with_jax_blocked():
             "from incubator_mxnet_tpu_torch.ops import optimizer_ops\n"
             "from incubator_mxnet_tpu_torch import optimizer, parallel\n"
             "from incubator_mxnet_tpu_torch.gluon import loss, trainer\n"
+            "from incubator_mxnet_tpu_torch import serving, telemetry\n"
+            "from incubator_mxnet_tpu_torch.serving import __main__ as cli\n"
             "chip_smoke.register_rtc_softmax(mx)\n"
             "with mx.cpu():\n"
             "    x = mx.nd.ones((2, 3)) + 1\n"
@@ -68,6 +70,9 @@ def test_port_imports_with_jax_blocked():
             "    dpt = parallel.DataParallelTrainer(\n"
             "        net, loss.SoftmaxCrossEntropyLoss(), 'adam')\n"
             "    dpt.step(mx.nd.ones((4, 3)), mx.nd.zeros(4))\n"
+            "    with serving.Server(max_wait_ms=0) as srv:\n"
+            "        srv.load('d', block=net, example=mx.nd.ones((1, 3)))\n"
+            "        assert srv.predict('d', mx.nd.ones((3,))).shape == (2,)\n"
             "print(mx.current_context(), float(x.asnumpy().sum()))\n"
             "assert not [m for m in sys.modules if m.startswith('jax')\n"
             "            and sys.modules[m] is not None]\n")
