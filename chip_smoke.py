@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card: serve the decoder-transformer LM,
-train it at full width through DataParallelTrainer, then train its
-vocabulary head through runtime-compiled user kernels.
+train it at full width through DataParallelTrainer, train its vocabulary
+head through runtime-compiled user kernels, then serve and train ResNet-50
+v1 at bench.py's shape.
 
 Run from the root of a checkout, with one CUDA card and the CUDA toolkit:
 
@@ -107,11 +108,42 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              TFLOP/s); the backward kernel at the training
              shape beside the torch ops it replaced, the plain version and
              SDPA's backward, with the card's bound and the design's floor;
-6. one JSON ``kernels`` line, then the card's name and power limit, and last
+6. resnet  — ResNet-50 v1 of the model zoo, whose path reaches no hand
+             kernel (convolutions on cuDNN, TF32 off in f32; Pooling and
+             BatchNorm in torch ops):
+             6a: resnet50_v1(thumbnail=True, classes=10), batch 4 of 32x32,
+             the same seeded weights on the card and on the CPU: the
+             inference forward, the training-mode forward and loss in f32
+             with torch's TF32 default on (within 1e-4; the same forward
+             with TF32 convolutions must break that bound, and both errors
+             are printed), then 3 DataParallelTrainer steps in f32 and in
+             bf16 compute, each taken on the card from the CPU's state
+             before it (loss, running statistics, every update and
+             momentum);
+             6b: resnet50_v1(classes=1000) in bf16, inference mode, batch 32
+             of 3x224x224 (BASELINE.md:17), one warm-up and 4 timed
+             batches: ms a batch, img/s, peak memory, the bf16 logits
+             against the f32 net's, and one batch under torch.profiler by
+             group (cuDNN convolutions, layout transposes, BatchNorm,
+             relu/add, pooling, other) with the idle share;
+             6c: bench.py's training run (:199-211): resnet50_v1(classes=
+             1000), Xavier, DataParallelTrainer with SoftmaxCrossEntropyLoss,
+             SGD momentum 0.9 at lr 0.1, bf16 compute over f32 master
+             weights, batch 256 of 3x224x224 from np.random.RandomState(0);
+             3 warm-up and 5 timed steps on the same batch: step ms (mean,
+             spread), img/s, MFU (the convolutions' and the dense layer's
+             flop counted from the net's own shapes, x3, over 989 TFLOP/s),
+             peak memory; it fails unless every loss is finite, the last
+             below the first, and the running statistics moved and stayed
+             finite; then one step under torch.profiler by group (adding
+             cuDNN dgrad/wgrad and the optimizer update);
+7. one JSON ``kernels`` line (the hand kernels of phases 2-5; phase 6
+   launches none), then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
+import contextlib
 import gc
 import json
 import math
@@ -2280,6 +2312,532 @@ def train_full_lm(mx, card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 6: ResNet-50 v1, the model of bench.py (:199-211) and of
+# BASELINE.json's config 2: convolutions on cuDNN (aten.convolution, TF32
+# off for f32), Pooling and BatchNorm in torch ops; no hand kernel
+# ---------------------------------------------------------------------------
+RESNET_SMALL = dict(thumbnail=True, classes=10)
+RESNET_SMALL_BATCH, RESNET_SMALL_STEPS = 4, 3
+RESNET_SMALL_OPT = {"learning_rate": 0.01, "momentum": 0.9}
+# card vs CPU in f32 (6a): the same f32 operations summed in other orders
+# (cuDNN's convolutions, the CPU's), ~1e-7 each, carried through 49
+# (batch-)normalized layers: ~1e-5 of the largest logit (the CPU tests
+# measure 2.4e-5 between the port and the JAX build in training mode).  A
+# TF32 convolution rounds its inputs to 10 mantissa bits (~5e-4 each), so
+# this bound must fail for it; the smoke runs the same forward with TF32 on
+# and checks that it does
+RESNET_F32_REL = 1e-4
+# a trainer step taken on the card from the CPU's state: the loss and the
+# running statistics to RESNET_F32_REL, each weight's update and momentum
+# to a relative L2 distance of 0.1 (the gradients: relu's derivative jumps
+# at 0, and the JAX build's own gradients move by 2-2.5% when its input
+# moves by one ulp, tests/test_torch_resnet.py); in bf16 each to twice the
+# CPU's own bf16-to-f32 distance after its first step, or those floors
+RESNET_UPDATE_L2 = 0.1
+# 6b: BASELINE.md:17's ResNet-50 inference batch, bf16, 224x224
+RESNET_IMAGE = 224
+RESNET_SERVE_BATCH, RESNET_SERVE_BATCHES = 32, 4
+# 6c: bench.py's step: batch 256 of 3x224x224, bf16 compute over f32
+# master weights, SGD momentum 0.9 at lr 0.1
+RESNET_TRAIN_BATCH, RESNET_TRAIN_WARMUP, RESNET_TRAIN_STEPS = 256, 3, 5
+RESNET_TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9}
+# the ops whose calls a profile attributes by span (smoke-side
+# record_function wrappers, installed only around a profiled call), and the
+# autograd nodes of their backward
+RESNET_OP_SPANS = ("Convolution", "BatchNorm", "Pooling", "Activation",
+                   "broadcast_add", "FullyConnected")
+RESNET_GROUPS = (
+    ("conv_layout_transpose", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("conv_fwd", ("op:Convolution",)),
+    ("conv_dgrad_wgrad", ("_ConvolutionFunctionBackward",)),
+    ("batchnorm", ("op:BatchNorm", "_BatchNormTrainFunction")),
+    ("relu_add", ("op:Activation", "op:broadcast_add", "ReluBackward",
+                  "ThresholdBackward", "AddBackward")),
+    ("pooling", ("op:Pooling", "MaxPool2DWithIndicesBackward",
+                 "AvgPool2DBackward", "ConstantPadNdBackward")),
+    ("optimizer_update", ("DataParallelTrainer.update",)),
+)
+
+
+def op_device_work(prof):
+    """The device work of a :func:`profiled` session's timed call, each
+    item with the names of the CPU spans (record_function spans and torch
+    ops, autograd nodes included) that enclose its launch on the launching
+    thread: [(kernel name, us, [span names])]."""
+    from incubator_mxnet_tpu_torch import cuda_build
+    path = cuda_build.BUILD_DIR.parent / ("trace-op-%d.json" % os.getpid())
+    prof.export_chrome_trace(str(path))
+    try:
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        path.unlink()
+    launches, spans, timed, device = {}, {}, [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, args = e.get("cat", ""), e.get("args") or {}
+        a, b = e["ts"], e["ts"] + e.get("dur", 0)
+        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launches[args["correlation"]] = (a, e.get("tid"))
+        elif cat in ("cpu_op", "user_annotation"):
+            if e.get("name") == PROFILED_SPAN:
+                timed.append((a, b))
+            spans.setdefault(e.get("tid"), []).append((a, b, e.get("name")))
+        elif cat in DEVICE_CATEGORIES:
+            device.append((e.get("name", ""), float(e.get("dur", 0)),
+                           args.get("correlation")))
+    work = []
+    for name, us, corr in device:
+        ts, tid = launches.get(corr, (None, None))
+        if ts is None or not any(a <= ts <= b for a, b in timed):
+            continue
+        work.append((name, us, [n for a, b, n in spans.get(tid, ())
+                                if a <= ts <= b]))
+    return work
+
+
+@contextlib.contextmanager
+def wrapped_ops(names, wrap):
+    """While active, the fcompute of each registered op in ``names`` is
+    ``wrap(name, fcompute)``; the originals come back on the way out."""
+    from incubator_mxnet_tpu_torch.ops.registry import get_op
+    saved = [(get_op(n), get_op(n).fcompute) for n in names]
+    for (op, real), n in zip(saved, names):
+        op.fcompute = wrap(n, real)
+    try:
+        yield
+    finally:
+        for op, real in saved:
+            op.fcompute = real
+
+
+def _in_span(name, real):
+    """``real`` inside a record_function span ``op:<name>``."""
+    import torch
+
+    def call(*a, **k):
+        with torch.profiler.record_function("op:" + name):
+            return real(*a, **k)
+    return call
+
+
+def resnet_profile(run, what, card):
+    """One call of ``run`` under torch.profiler (:func:`profiled`), device
+    time by RESNET_GROUPS (a kernel joins the first group one of whose keys
+    is in its name or in a span around its launch), with the idle share."""
+    with wrapped_ops(RESNET_OP_SPANS, _in_span):
+        prof, wall_us = profiled(run)
+    work = op_device_work(prof)
+    if not work:
+        print("profile: torch.profiler recorded no device time: not measured")
+        return None
+    groups = dict.fromkeys([g for g, _ in RESNET_GROUPS] + ["other"], 0.0)
+    top = {}
+    for name, us, names in work:
+        low = name.lower()
+        group = next((g for g, keys in RESNET_GROUPS
+                      if any(k in low for k in keys) or
+                      any(k in n for k in keys for n in names if n)), "other")
+        groups[group] += us
+        top[(group, name)] = top.get((group, name), 0.0) + us
+    busy = sum(groups.values())
+    out = dict(groups, wall_us=wall_us, busy_us=busy,
+               idle_share=max(0.0, 1 - busy / wall_us))
+    print("profile: %s under torch.profiler: wall %.1f us, device busy %.1f "
+          "us, idle share %.4f | %s" % (what, wall_us, busy,
+                                        out["idle_share"], card))
+    print("profile: device us by group %s" % json.dumps(
+        {k: round(v, 1) for k, v in groups.items()}), flush=True)
+    for (group, name), us in sorted(top.items(), key=lambda kv: -kv[1])[:10]:
+        print("profile:   %10.1f us  %-22s %s" % (us, group, name[:90]))
+    return out
+
+
+@contextlib.contextmanager
+def conv_flops():
+    """While active, counts into the yielded list's one item the flop (2 a
+    multiply-add) of every Convolution and FullyConnected call, from its
+    own shapes."""
+    count = [0]
+
+    def wrap(_name, real):
+        def call(data, weight, *a, **k):
+            out = real(data, weight, *a, **k)
+            count[0] += 2 * out.numel() * int(math.prod(weight.shape[1:]))
+            return out
+        return call
+    with wrapped_ops(("Convolution", "FullyConnected"), wrap):
+        yield count
+
+
+def _resnet_weights(mx, np, rs):
+    """The small ResNet's f32 weights by name: the port's Xavier draws
+    (seeded) with BatchNorm's gamma, beta and running statistics drawn away
+    from their init."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    from incubator_mxnet_tpu_torch.convert import numpy_params
+    mx.random.seed(SEED)
+    with mx.cpu():
+        net = vision.resnet50_v1(**RESNET_SMALL)
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.predict_mode():
+            net(mx.nd.array(np.zeros((1, 3, 32, 32), np.float32)))
+        weights = numpy_params(net)
+    for name, v in weights.items():
+        if name.endswith("gamma") or name.endswith("running_var"):
+            weights[name] = rs.uniform(0.5, 1.5, v.shape).astype(np.float32)
+        elif name.endswith("beta") or name.endswith("running_mean"):
+            weights[name] = (0.1 * rs.standard_normal(v.shape)).astype(
+                np.float32)
+    return weights
+
+
+def _resnet_forward(mx, weights, x, y, ctx):
+    """The small ResNet from ``weights`` on ``ctx``: (inference logits,
+    training-mode logits, the loss of that forward)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    from incubator_mxnet_tpu_torch.convert import load_numpy_params
+    with ctx:
+        net = vision.resnet50_v1(**RESNET_SMALL)
+        load_numpy_params(net, weights, ctx)
+        xs, ys = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+        with mx.autograd.predict_mode():
+            infer = net(xs).asnumpy()
+        with mx.autograd.train_mode():
+            logits = net(xs)
+            loss = mx.nd.mean(mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+                logits, ys)).asscalar()
+        return infer, logits.asnumpy(), float(loss)
+
+
+class _SmallTrainer(object):
+    """A DataParallelTrainer of the small ResNet on ``ctx`` whose state (f32
+    master weights and momenta, by short name) can be read and set, so the
+    card can take each step from the CPU's state before it."""
+
+    def __init__(self, mx, weights, x, y, ctx, dtype):
+        from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+        from incubator_mxnet_tpu_torch.convert import load_numpy_params
+        self.ctx = ctx
+        with ctx:
+            self.net = vision.resnet50_v1(**RESNET_SMALL)
+            load_numpy_params(self.net, weights, ctx)
+            self.x, self.y = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+            self.tr = mx.parallel.DataParallelTrainer(
+                self.net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                dict(RESNET_SMALL_OPT), dtype=dtype)
+            self.tr._gather_params(self.x._data)
+
+    def state(self):
+        cut = len(self.net.prefix)
+        return ({n[cut:]: v.cpu().numpy().copy()
+                 for n, v in self.tr._params.items()},
+                {n[cut:]: s[0].cpu().numpy().copy()
+                 for n, s in self.tr._opt_state.items()})
+
+    def load(self, state):
+        import torch
+        weights, moms = state
+        cut = len(self.net.prefix)
+        with torch.no_grad():
+            for n, v in self.tr._params.items():
+                v.copy_(torch.from_numpy(weights[n[cut:]]))
+            for n, (mom,) in self.tr._opt_state.items():
+                mom.copy_(torch.from_numpy(moms[n[cut:]]))
+
+    def step(self):
+        with self.ctx:
+            return float(self.tr.step(self.x, self.y).asscalar())
+
+
+def _step_errors(before, got, want, loss_got, loss_want):
+    """One step taken from the same state: the loss's relative error, the
+    running statistics' largest error over each one's largest value (the
+    forward's), and the largest relative L2 distance of a weight's update or
+    momentum (the gradient's); the 1x1 convolutions' biases, which feed
+    BatchNorm and have no true gradient, as their largest |update|."""
+    (w0, _), (g1, gm), (w1, m1) = before, got, want
+    out = dict(loss=abs(loss_got - loss_want) / abs(loss_want), stats=0.0,
+               update=0.0, pre_bn_bias=0.0, update_name="")
+
+    def l2(a, b):
+        return float(((a - b) ** 2).sum() ** 0.5 /
+                     max(float((b ** 2).sum() ** 0.5), 1e-30))
+    for n in w1:
+        if "running" in n:
+            out["stats"] = max(out["stats"], float(abs(g1[n] - w1[n]).max()
+                                                   / abs(w1[n]).max()))
+        elif n.endswith("bias") and not n.startswith("dense"):
+            out["pre_bn_bias"] = max(out["pre_bn_bias"],
+                                     float(abs(g1[n] - w0[n]).max()))
+        else:
+            e = max(l2(g1[n] - w0[n], w1[n] - w0[n]), l2(gm[n], m1[n]))
+            if e > out["update"]:
+                out["update"], out["update_name"] = e, n
+    return out
+
+
+def resnet_small(mx, card):
+    """Phase 6a: resnet50_v1(thumbnail=True, classes=10), batch 4 of 32x32,
+    the same weights on the card and on the CPU: the inference forward, the
+    training-mode forward and loss in f32 (TF32 on by torch's default: the
+    op's guard must keep f32), and once more with TF32 convolutions, which
+    must break the f32 bound; then RESNET_SMALL_STEPS DataParallelTrainer
+    steps in f32 and in bf16 compute, each taken on the card from the CPU's
+    state before it (two runs from one start part after a step: relu's
+    derivative jumps at 0 and the net amplifies rounding differences,
+    tests/test_torch_resnet.py)."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch.ops import nn as tnn
+    rs = np.random.RandomState(SEED + 6)
+    weights = _resnet_weights(mx, np, rs)
+    x = rs.standard_normal((RESNET_SMALL_BATCH, 3, 32, 32)).astype(
+        np.float32)
+    y = rs.randint(0, RESNET_SMALL["classes"], RESNET_SMALL_BATCH).astype(
+        np.float32)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True      # torch's default
+    try:
+        cpu_fwd = _resnet_forward(mx, weights, x, y, mx.cpu())
+        card_fwd = _resnet_forward(mx, weights, x, y, mx.gpu(0))
+
+        @contextlib.contextmanager
+        def tf32_convolutions():
+            yield                       # the guard left out: TF32 stays on
+        real_guard = tnn._f32_convolutions
+        tnn._f32_convolutions = tf32_convolutions
+        try:
+            tf32_fwd = _resnet_forward(mx, weights, x, y, mx.gpu(0))
+        finally:
+            tnn._f32_convolutions = real_guard
+        steps = {}
+        for dtype in (None, "bfloat16"):
+            cpu = _SmallTrainer(mx, weights, x, y, mx.cpu(), dtype)
+            gpu = _SmallTrainer(mx, weights, x, y, mx.gpu(0), dtype)
+            rows = []
+            for _ in range(RESNET_SMALL_STEPS):
+                before = cpu.state()
+                loss_want = cpu.step()
+                gpu.load(before)
+                loss_got = gpu.step()
+                rows.append((before, gpu.state(), cpu.state(), loss_got,
+                             loss_want))
+            steps[dtype] = rows
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+    def rel(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+    errs = {"infer_f32": rel(card_fwd[0], cpu_fwd[0]),
+            "infer_tf32": rel(tf32_fwd[0], cpu_fwd[0]),
+            "train_logits_f32": rel(card_fwd[1], cpu_fwd[1]),
+            "train_logits_tf32": rel(tf32_fwd[1], cpu_fwd[1]),
+            "train_loss_f32": abs(card_fwd[2] - cpu_fwd[2]) / cpu_fwd[2]}
+    print("resnet 6a: resnet50_v1%s, batch %d: card vs CPU, max |d| / max "
+          "|CPU|: %s; f32 bound %.0e, which TF32 must break | %s"
+          % (RESNET_SMALL, RESNET_SMALL_BATCH, json.dumps(
+              {k: "%.3e" % v for k, v in errs.items()}), RESNET_F32_REL,
+             card), flush=True)
+    check(errs["infer_f32"] <= RESNET_F32_REL and
+          errs["train_logits_f32"] <= RESNET_F32_REL and
+          errs["train_loss_f32"] <= RESNET_F32_REL,
+          "6a: card and CPU disagree in f32: %s" % errs)
+    check(errs["infer_tf32"] > RESNET_F32_REL and
+          errs["train_logits_tf32"] > RESNET_F32_REL,
+          "6a: TF32 convolutions do not break the f32 bound, so it does not "
+          "show that f32 stays f32: %s" % errs)
+    # bf16: the CPU's own bf16-to-f32 distance after the first step (both
+    # from the same start) is the scale of bf16's differences
+    (w0, m0), _, f1, _, f_loss = steps[None][0]
+    _, _, b1, _, b_loss = steps["bfloat16"][0]
+    noise = _step_errors((w0, m0), b1, f1, b_loss, f_loss)
+    out = dict(errs, bf16_noise=noise)
+    for dtype in (None, "bfloat16"):
+        tag = "f32" if dtype is None else "bf16"
+        if dtype is None:
+            bounds = dict(loss=RESNET_F32_REL, stats=RESNET_F32_REL,
+                          update=RESNET_UPDATE_L2, pre_bn_bias=1e-6)
+        else:
+            bounds = {k: max(floor, 2 * noise[k]) for k, floor in
+                      (("loss", RESNET_F32_REL), ("stats", RESNET_F32_REL),
+                       ("update", RESNET_UPDATE_L2), ("pre_bn_bias", 1e-6))}
+        for k, (before, got, want, loss_got, loss_want) in enumerate(
+                steps[dtype]):
+            e = _step_errors(before, got, want, loss_got, loss_want)
+            out["%s_step%d" % (tag, k)] = e
+            print("resnet 6a: %s step %d from the CPU's state: loss card %.6f "
+                  "CPU %.6f; errors %s; bounds %s"
+                  % (tag, k, loss_got, loss_want, json.dumps(
+                      {k_: ("%.3e" % v if isinstance(v, float) else v)
+                       for k_, v in e.items()}), json.dumps(
+                      {k_: "%.3e" % v for k_, v in bounds.items()})),
+                  flush=True)
+            check(math.isfinite(loss_got), "6a: a loss is not finite")
+            for k_, bound in bounds.items():
+                check(e[k_] <= bound, "6a: %s step %d: %s %.3e above %.3e"
+                      % (tag, k, k_, e[k_], bound))
+    return out
+
+
+def _resnet_full(mx, np):
+    """resnet50_v1(classes=1000) on the card, Xavier (seeded), its deferred
+    shapes resolved."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    with mx.autograd.predict_mode():
+        net(mx.nd.array(np.zeros((1, 3, RESNET_IMAGE, RESNET_IMAGE),
+                                 np.float32), ctx=mx.gpu(0)))
+    return net
+
+
+def resnet_serve(mx, card):
+    """Phase 6b: resnet50_v1(classes=1000) in bf16, inference mode, batch
+    RESNET_SERVE_BATCH of 3x224x224 (seeded): one warm-up batch, then
+    RESNET_SERVE_BATCHES timed ones (host clock to synchronize); the bf16
+    logits against the f32 net's on the same batch; one batch under the
+    profiler by group."""
+    import numpy as np
+    import torch
+    net = _resnet_full(mx, np)
+    net.collect_params().setattr("grad_req", "null")
+    rs = np.random.RandomState(SEED + 7)
+    x32 = mx.nd.array(rs.rand(RESNET_SERVE_BATCH, 3, RESNET_IMAGE,
+                              RESNET_IMAGE).astype(np.float32), ctx=mx.gpu(0))
+    with mx.autograd.predict_mode():
+        ref = net(x32).asnumpy()
+    net.cast("bfloat16")
+    x = x32.astype("bfloat16")
+    del x32
+
+    def batch():
+        with mx.autograd.predict_mode():
+            return net(x)
+    out = batch().asnumpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(RESNET_SERVE_BATCHES):
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    with conv_flops() as flop:
+        batch()
+    flop = flop[0]
+    mean = sum(ms) / len(ms)
+    err = float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+    result = dict(batch_ms=ms, batch_ms_mean=mean,
+                  img_per_s=RESNET_SERVE_BATCH / mean * 1e3,
+                  peak_memory_bytes=peak, flop=flop,
+                  tflops=flop / mean / 1e9, bf16_vs_f32_rel_l2=err)
+    print("resnet 6b: resnet50_v1(classes=1000) bf16 inference, batch %d x "
+          "3x%dx%d: %s ms a batch (mean %.3f), %.1f img/s, %.4e conv and "
+          "dense flop a batch (%.1f TFLOP/s), peak memory allocated %d "
+          "bytes; bf16 logits vs the f32 net's, relative L2 %.3e | %s"
+          % (RESNET_SERVE_BATCH, RESNET_IMAGE, RESNET_IMAGE,
+             ["%.3f" % v for v in ms], mean, result["img_per_s"], flop,
+             result["tflops"], peak, err, card), flush=True)
+    check(out.shape == (RESNET_SERVE_BATCH, 1000) and
+          np.isfinite(out).all(), "6b: logits of shape %s, finite %s"
+          % (out.shape, np.isfinite(out).all()))
+    check(err <= 0.1, "6b: bf16 logits %.3e (relative L2) from the f32 "
+          "net's" % err)
+    result["profile"] = resnet_profile(batch, "6b one inference batch", card)
+    del net, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def resnet_train(mx, card):
+    """Phase 6c: bench.py's training run on the card: resnet50_v1(classes=
+    1000), Xavier, DataParallelTrainer with SoftmaxCrossEntropyLoss, SGD
+    momentum 0.9 at lr 0.1, bf16 compute over f32 master weights, batch
+    RESNET_TRAIN_BATCH from np.random.RandomState(0) as bench.py makes it;
+    RESNET_TRAIN_WARMUP warm-up and RESNET_TRAIN_STEPS timed steps on the
+    same batch; one more under the profiler."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    net = _resnet_full(mx, np)
+    rs = np.random.RandomState(0)
+    x = mx.nd.array(rs.rand(RESNET_TRAIN_BATCH, 3, RESNET_IMAGE,
+                            RESNET_IMAGE).astype(np.float32), ctx=mx.gpu(0))
+    y = mx.nd.array((rs.rand(RESNET_TRAIN_BATCH) * 1000).astype(np.float32),
+                    ctx=mx.gpu(0))
+    trainer = mx.parallel.DataParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        dict(RESNET_TRAIN_OPT), dtype="bfloat16")
+    running = [n for n in net.collect_params().keys() if "running" in n]
+    losses, step_ms, start = [], [], None
+    for i in range(RESNET_TRAIN_WARMUP + RESNET_TRAIN_STEPS):
+        if i == RESNET_TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if i == 0:
+            with conv_flops() as forward_flop:
+                loss = trainer.step(x, y)
+            start = {n: trainer._params[n].clone() for n in running}
+        else:
+            loss = trainer.step(x, y)
+        losses.append(float(loss.asscalar()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if i == 0:
+            print("resnet 6c: built, initialized and the first step in %.1f "
+                  "s" % (time.perf_counter() - t0), flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    timed = step_ms[RESNET_TRAIN_WARMUP:]
+    mean = sum(timed) / len(timed)
+    std = (sum((v - mean) ** 2 for v in timed) / len(timed)) ** 0.5
+    flop = 3 * forward_flop[0]
+    moved = max(float((trainer._params[n] - start[n]).abs().max())
+                for n in running)
+    finite = all(bool(torch.isfinite(trainer._params[n]).all())
+                 for n in running)
+    result = dict(step_ms=timed, step_ms_mean=mean, step_ms_std=std,
+                  step_ms_min=min(timed), step_ms_max=max(timed),
+                  img_per_s=RESNET_TRAIN_BATCH / mean * 1e3,
+                  flop_per_step=flop, mfu=flop / (mean / 1e3) /
+                  H100_BF16_FLOPS, floor_ms=flop / H100_BF16_FLOPS * 1e3,
+                  peak_memory_bytes=peak, losses=losses,
+                  running_stats_max_move=moved)
+    for i, (ms, loss) in enumerate(zip(step_ms, losses)):
+        print("resnet 6c: step %d%s: %.3f ms, loss %.6f | %s"
+              % (i, " (warm-up)" if i < RESNET_TRAIN_WARMUP else "", ms, loss,
+                 card))
+    print("resnet 6c: resnet50_v1(classes=1000), DataParallelTrainer(sgd %s, "
+          "dtype=bfloat16), batch %d x 3x%dx%d: %d timed steps, mean %.3f "
+          "ms (std %.3f, %.3f-%.3f), %.1f img/s, MFU %.4f (%.4e conv and "
+          "dense flop a step, 3x the forward's, over 989 TFLOP/s; floor "
+          "%.3f ms), peak memory allocated %d bytes; running statistics "
+          "moved by up to %.3e, finite %s | %s"
+          % (RESNET_TRAIN_OPT, RESNET_TRAIN_BATCH, RESNET_IMAGE, RESNET_IMAGE,
+             RESNET_TRAIN_STEPS, mean,
+             std, min(timed), max(timed), result["img_per_s"], result["mfu"],
+             flop, result["floor_ms"], peak, moved, finite, card),
+          flush=True)
+    check(all(math.isfinite(v) for v in losses), "6c: a loss is not finite: "
+          "%s" % losses)
+    check(losses[-1] < losses[0], "6c: the loss did not fall: %s" % losses)
+    check(finite and moved > 0, "6c: running statistics moved %.3e, finite "
+          "%s" % (moved, finite))
+    result["profile"] = resnet_profile(
+        lambda: trainer.step(x, y).asscalar(), "6c one training step", card)
+    del trainer, net, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main():
     import torch
     # phase 1: device
@@ -2668,6 +3226,11 @@ def main():
     backward = time_backward(gen, dev, card)
     serving = case_key(*ATTENTION_CASES[-1], "bfloat16")
 
+    # phase 6: ResNet-50 v1 (no hand kernel on its path): the small net on
+    # the card against the CPU, serving at full width, bench.py's training
+    resnet = dict(small=resnet_small(mx, card), serve=resnet_serve(mx, card),
+                  train=resnet_train(mx, card))
+
     def entry(name, source, design, launches_, err, t,
               replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2685,6 +3248,7 @@ def main():
         k_: v_ for k_, v_ in train.items() if k_ != "losses"}), flush=True)
     print("backward: " + json.dumps(dict(backward, max_abs_err_cases=
                                          backward_errs)), flush=True)
+    print("resnet: summary " + json.dumps(resnet, default=str), flush=True)
     print(json.dumps({"kernels": [
         entry("flash_attention_fwd", BF16_SOURCE, FLASH_DESIGN,
               launches["flash_attention_fwd"], errs[serving], bf16,

@@ -1,16 +1,20 @@
 """Basic Gluon layers (counterpart of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``).
 
 ``HybridSequential`` :53, ``Dense`` :82, ``Activation`` :137,
-``LayerNorm`` :287 and ``Embedding`` :320, with the same parameter naming.
+``BatchNorm`` :171, ``LayerNorm`` :287, ``Embedding`` :320 and ``Flatten``
+:343, with the same parameter naming.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..block import HybridBlock
-from ... import initializer
+from ... import autograd, initializer
+from ...base import dtype_name
 
-__all__ = ["HybridSequential", "Dense", "Activation", "LayerNorm", "Embedding"]
+__all__ = ["HybridSequential", "Dense", "Activation", "BatchNorm",
+           "LayerNorm", "Embedding", "Flatten"]
 
 
 def _init(spec):
@@ -93,6 +97,82 @@ class Activation(HybridBlock):
         return F.Activation(x, act_type=self._act_type)
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalization with moving statistics (ref: basic_layers.py
+    class BatchNorm).  The layer's defaults (``epsilon=1e-5``,
+    ``momentum=0.9``, ``scale=True``, i.e. ``fix_gamma=False``) differ from
+    the op's.  In training (``autograd.is_training()``, not
+    ``use_global_stats``) each call blends the batch's f32 statistics into
+    ``running_mean`` and ``running_var`` in place, ``m·running + (1 -
+    m)·batch``, with recording paused; in predict mode they stay.  A
+    trainer that shadows the parameters (``_trace_params``) gets the write
+    in its own tensors."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        self._axis = axis
+        self._momentum = momentum
+        self.gamma = self.params.get("gamma",
+                                     grad_req="write" if scale else "null",
+                                     shape=(in_channels,),
+                                     init=_init(gamma_initializer),
+                                     allow_deferred_init=True,
+                                     differentiable=scale)
+        self.beta = self.params.get("beta",
+                                    grad_req="write" if center else "null",
+                                    shape=(in_channels,),
+                                    init=_init(beta_initializer),
+                                    allow_deferred_init=True,
+                                    differentiable=center)
+        self.running_mean = self.params.get(
+            "running_mean", grad_req="null", shape=(in_channels,),
+            init=_init(running_mean_initializer), allow_deferred_init=True,
+            differentiable=False)
+        self.running_var = self.params.get(
+            "running_var", grad_req="null", shape=(in_channels,),
+            init=_init(running_variance_initializer),
+            allow_deferred_init=True, differentiable=False)
+
+    def _pre_infer(self, x):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            if p.shape == (0,):
+                p.shape = (c,)
+
+    def cast(self, dtype):
+        """float16 keeps the layer in f32 (ref: basic_layers.py:224-227)."""
+        if dtype_name(dtype) == "float16":
+            dtype = "float32"
+        super().cast(dtype)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        y, batch_mean, batch_var = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var, output_mean_var=True,
+            **self._kwargs)
+        if autograd.is_training() and not self._kwargs["use_global_stats"]:
+            m = self._momentum
+            with autograd.pause(), torch.no_grad():
+                for run, batch in ((running_mean, batch_mean),
+                                   (running_var, batch_var)):
+                    r = run._data
+                    r.copy_(m * r + (1 - m) * batch._data)
+        return y
+
+    def __repr__(self):
+        in_channels = self.gamma.shape[0]
+        return "{name}({content}, in_channels={in_channels})".format(
+            name=self.__class__.__name__, in_channels=in_channels,
+            content=", ".join("=".join([k, v.__repr__()])
+                              for k, v in self._kwargs.items()))
+
+
 class LayerNorm(HybridBlock):
     """Layer normalization (ref: src/operator/nn/layer_norm.cc)."""
 
@@ -138,3 +218,13 @@ class Embedding(HybridBlock):
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, **self._kwargs)
+
+
+class Flatten(HybridBlock):
+    """ref: basic_layers.py class Flatten → Flatten op."""
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
+    def __repr__(self):
+        return self.__class__.__name__

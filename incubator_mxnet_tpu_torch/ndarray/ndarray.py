@@ -313,7 +313,9 @@ def invoke(op: Operator, inputs, params, out=None):
     ``autograd.record()``, so only a recorded call builds a graph.  Outputs
     that alias an input are copied; an update op writes its state outputs
     back into the inputs it mutates; ``out=`` stores the visible result
-    into the given array(s)."""
+    into the given array(s).  An op that ``takes_is_train`` gets
+    ``is_train = autograd.is_training()``; the op's ``visible_outputs``
+    decides how many outputs the call returns."""
     params = {k: v for k, v in params.items() if v is not None or k == "axis"}
     ctx = params.pop("ctx", None)
     params.pop("name", None)
@@ -323,14 +325,16 @@ def invoke(op: Operator, inputs, params, out=None):
     if op.num_inputs == 0:
         ctx = Context(ctx) if ctx is not None else current_context()
         params["device"] = ctx.torch_device()
+    kw = dict(params, is_train=autograd.is_training()) \
+        if op.takes_is_train else params
     with torch.set_grad_enabled(recording):
-        res = op.fcompute(*vals, **params)
+        res = op.fcompute(*vals, **kw)
         res = res if isinstance(res, tuple) else (res,)
         res = tuple(r.clone(memory_format=torch.contiguous_format)
                     if _aliases(r, vals) else r for r in res)
     for j, idx in enumerate(op.mutate_inputs[1:]):
         _write(inputs[idx]._data, res[j + 1])
-    res = res[:len(res) - (op.num_outputs - op.num_visible_outputs)]
+    res = res[:op.visible_outputs(params, len(res))]
     if out is not None:
         targets = [out] if isinstance(out, NDArray) else list(out)
         for t, r in zip(targets, res):

@@ -1,13 +1,21 @@
-"""Core neural-network operators of the decoder-LM path.
+"""Core neural-network operators of the decoder-LM and ResNet paths.
 
 Counterpart of ``incubator_mxnet_tpu/ops/nn.py``: ``FullyConnected`` (:70),
-``LayerNorm`` (:356), ``Activation`` (:394), ``softmax`` (:432),
-``log_softmax`` (:439) and ``SoftmaxOutput`` (:490).  The products go to
-``torch.matmul``, as the JAX build left them to XLA.
+``Convolution`` (:86), ``Deconvolution`` (:115), ``Pooling`` (:161),
+``BatchNorm`` (:326), ``LayerNorm`` (:356), ``Activation`` (:394),
+``softmax`` (:432), ``log_softmax`` (:439) and ``SoftmaxOutput`` (:490).
+The products go to ``torch.matmul`` and to cuDNN's convolutions through
+``aten.convolution``, as the JAX build left them to XLA; f32 convolutions
+run in full f32 on the card, TF32 off (:func:`_f32_convolutions`).
 """
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .math import scalar_like
 from .registry import register
@@ -26,6 +34,298 @@ def _fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
     if not no_bias and bias is not None:
         out = out + bias
     return out
+
+
+def _tuple(v, n, default):
+    """A spatial parameter as an ``n``-tuple: empty gives ``default``, a
+    scalar repeats."""
+    if isinstance(v, (tuple, list)):
+        return tuple(v) if len(v) else (default,) * n
+    return (v,) * n
+
+
+class _TF32Off(object):
+    """Turns cuDNN's TF32 off while any convolution of any thread is inside
+    it, and puts back the setting found when the first one entered once
+    the last one leaves (the flag is process-wide: a thread that restored
+    its own saved value would turn TF32 back on under another's call)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = None
+
+    @contextmanager
+    def __call__(self):
+        with self._lock:
+            if self._depth == 0:
+                self._saved = torch.backends.cudnn.allow_tf32
+                torch.backends.cudnn.allow_tf32 = False
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._depth -= 1
+                if self._depth == 0:
+                    torch.backends.cudnn.allow_tf32 = self._saved
+
+
+# cuDNN convolutions in full f32 inside, whatever the caller's TF32 setting
+# (torch's default lets cuDNN run an f32 convolution in TF32, a 10-bit
+# mantissa; the JAX build's f32 convolution is f32)
+_f32_convolutions = _TF32Off()
+
+
+class _ConvolutionFunction(torch.autograd.Function):
+    """``aten.convolution`` (cuDNN on the card) without bias, forward and
+    backward both under :func:`_f32_convolutions`: the backward's
+    ``convolution_backward`` reads the TF32 setting when it runs, outside
+    the forward's scope.  The backward is itself differentiable
+    (``create_graph``)."""
+
+    @staticmethod
+    def forward(ctx, data, weight, conf):
+        ctx.save_for_backward(data, weight)
+        ctx.conf = conf
+        with _f32_convolutions():
+            return torch.ops.aten.convolution(data, weight, None, *conf)
+
+    @staticmethod
+    def backward(ctx, grad):
+        data, weight = ctx.saved_tensors
+        with _f32_convolutions():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                grad, data, weight, None, *ctx.conf,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None
+
+
+def _conv(data, weight, bias, no_bias, conf):
+    """The convolution in the promoted dtype of data and weight (the JAX
+    build's ``preferred_element_type``), then the bias added after it."""
+    dt = torch.promote_types(data.dtype, weight.dtype)
+    out = _ConvolutionFunction.apply(data.to(dt), weight.to(dt), conf)
+    if not no_bias and bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * (data.ndim - 2))
+    return out
+
+
+@register("Convolution", num_inputs=None,
+          input_names=("data", "weight", "bias"), aliases=("Convolution_v1",))
+def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                 pad=(), num_filter=0, num_group=1, no_bias=False,
+                 workspace=1024, cudnn_tune=None, cudnn_off=False,
+                 layout=None):
+    """N-d convolution (1-3 spatial axes), NC + spatial data and OI +
+    spatial weight (ref: convolution.cc; the JAX build's
+    ``lax.conv_general_dilated``, ops/nn.py:86-111)."""
+    nd = len(kernel) if kernel else data.ndim - 2
+    conf = (_tuple(stride, nd, 1), _tuple(pad, nd, 0), _tuple(dilate, nd, 1),
+            False, (0,) * nd, num_group)
+    return _conv(data, weight, bias, no_bias, conf)
+
+
+@register("Deconvolution", num_inputs=None,
+          input_names=("data", "weight", "bias"))
+def _deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                   pad=(), adj=(), target_shape=(), num_filter=0,
+                   num_group=1, no_bias=True, workspace=512, cudnn_tune=None,
+                   cudnn_off=False, layout=None):
+    """Transposed convolution (ref: deconvolution.cc; ops/nn.py:115-158),
+    weight (in, out / groups, *kernel): the output extent is
+    ``(x - 1)·stride - 2·pad + dilate·(kernel - 1) + adj + 1``, the JAX
+    build's lhs-dilated convolution.  ``target_shape`` is not honoured, as
+    in the JAX build."""
+    nd = len(kernel)
+    conf = (_tuple(stride, nd, 1), _tuple(pad, nd, 0), _tuple(dilate, nd, 1),
+            True, _tuple(adj, nd, 0), num_group)
+    return _conv(data, weight, bias, no_bias, conf)
+
+
+# torch's pooling kernels by spatial rank (1-d runs as 2-d over a unit axis)
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _window_reduce(x, kernel, stride, how):
+    """``how`` ("max" or "sum") over every window of the last
+    ``len(kernel)`` axes, no padding: torch's pooling kernels for floating
+    types (max pooling's gradient goes to each window's first maximum, as
+    XLA's select-and-scatter sends it; 16-bit sums accumulate in f32 and
+    round once); integers over ``unfold`` windows, in their own dtype."""
+    nd = len(kernel)
+    if x.is_floating_point():
+        if nd == 1:
+            return _window_reduce(x.unsqueeze(-2), (1,) + tuple(kernel),
+                                  (1,) + tuple(stride), how).squeeze(-2)
+        if how == "max":
+            return _MAX_POOL[nd](x, kernel, stride)
+        return _AVG_POOL[nd](x.float(), kernel, stride,
+                             divisor_override=1).to(x.dtype)
+    for i, (k, s) in enumerate(zip(kernel, stride)):
+        x = x.unfold(2 + i, k, s)
+    window = tuple(range(-nd, 0))
+    if how == "max":
+        return x.amax(dim=window)
+    return x.sum(dim=window, dtype=x.dtype)
+
+
+@register("Pooling", num_inputs=1, aliases=("Pooling_v1",))
+def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
+             pad=(), pooling_convention="valid", cudnn_off=False, p_value=2,
+             count_include_pad=True):
+    """max / avg / sum / lp pooling over 1-3 spatial axes (ref: pooling.cc;
+    ops/nn.py:161-211).  The input is padded explicitly, then pooled with
+    no padding: ``pooling_convention="full"`` pads the high edge by
+    ``(out - 1)·s + k - x - p`` so that ceil((x + 2p - k) / s) + 1 windows
+    fit, which is not torch's ``ceil_mode`` (that drops a last window
+    starting in the padding, and divides avg by another count).  Max pads
+    with -inf (``iinfo.min`` for integers), the sums with 0; avg divides by
+    ``prod(kernel)``, or with ``count_include_pad=False`` by each window's
+    count of input elements."""
+    nd = data.ndim - 2
+    if global_pool:
+        kernel, stride, pad = tuple(data.shape[2:]), (1,) * nd, (0,) * nd
+    kernel = _tuple(kernel, nd, 1)
+    stride = _tuple(stride, nd, 1)
+    pad = _tuple(pad, nd, 0)
+    pads = []
+    for i in range(nd):
+        lo = hi = pad[i]
+        if pooling_convention == "full":
+            x = data.shape[2 + i]
+            out = int(np.ceil((x + 2 * pad[i] - kernel[i]) / stride[i])) + 1
+            hi = max((out - 1) * stride[i] + kernel[i] - x - pad[i], pad[i])
+        pads.append((lo, hi))
+    flat_pads = [p for lo_hi in reversed(pads) for p in lo_hi]
+
+    def window(x, how, fill):
+        if any(flat_pads):
+            x = F.pad(x, flat_pads, value=fill)
+        return _window_reduce(x, kernel, stride, how)
+
+    if pool_type == "max":
+        fill = (float("-inf") if data.is_floating_point()
+                else torch.iinfo(data.dtype).min)
+        return window(data, "max", fill)
+    if pool_type in ("avg", "sum"):
+        s = window(data, "sum", 0)
+        if pool_type == "sum":
+            return s
+        if count_include_pad:
+            count = float(np.prod(kernel))
+        else:
+            ones = torch.ones((1, 1) + tuple(data.shape[2:]),
+                              dtype=data.dtype, device=data.device)
+            count = window(ones, "sum", 0)
+        return s / (scalar_like(s, count) if s.is_floating_point()
+                    and isinstance(count, float) else count)
+    if pool_type == "lp":
+        s = window(data.abs() ** p_value, "sum", 0)
+        return s ** (1.0 / p_value)
+    raise ValueError("unknown pool_type %r" % pool_type)
+
+
+def _bn_layout(data, axis):
+    """(reduced axes, the per-channel vectors' broadcast shape, the count of
+    elements a channel reduces over)."""
+    axis = axis % data.ndim
+    red = tuple(i for i in range(data.ndim) if i != axis)
+    bshape = [1] * data.ndim
+    bshape[axis] = data.shape[axis]
+    return red, bshape, int(np.prod([data.shape[i] for i in red]))
+
+
+class _BatchNormTrainFunction(torch.autograd.Function):
+    """Training-mode BatchNorm with the JAX build's closed-form backward
+    (``_bn_train_stats``, ``_bn_train_core_fwd``,
+    ``_bn_train_core_bwd_rule``, ops/nn.py:238-320).
+
+    The statistics are two f32 passes over the input in its own dtype: the
+    mean, then the mean of the squared shifted values (never
+    E[x²] - E[x]², which loses channels with |mean| >> std).  The output
+    is (x - mean)·(gamma·rsqrt(var + eps)) + beta in f32, rounded once to
+    the input's dtype.  Saved: the input in its own dtype and the f32
+    per-channel mean, 1/std and scale; no f32 copy of the activation
+    outlives a call.  The backward is dx = dy·scale + xc·b + c with
+    per-channel b = -scale·inv·Σ(dy·xc)·inv/m and c = -scale·Σdy/m, the
+    JAX rule's scale·(dy - (Σdy + x̂·Σ(dy·x̂))/m) regrouped; cotangents of
+    the mean and var outputs fold into c (+ct_mean/m) and b
+    (+2·ct_var/m).  dgamma is 0 under ``fix_gamma``."""
+
+    @staticmethod
+    def forward(ctx, data, gamma, beta, axis, eps, fix_gamma):
+        ctx.set_materialize_grads(False)
+        red, bshape, _ = _bn_layout(data, axis)
+        mean = data.mean(dim=red, dtype=torch.float32)
+        xc = data - mean.reshape(bshape)            # f32
+        var = xc.square().mean(dim=red)
+        inv = torch.rsqrt(var + eps)
+        scale = inv if fix_gamma else gamma.float() * inv
+        out = torch.empty_like(data)
+        # f32 arithmetic, rounded once into the input's dtype
+        torch.addcmul(beta.float().reshape(bshape), xc, scale.reshape(bshape),
+                      out=out)
+        ctx.save_for_backward(data, mean, inv, scale)
+        ctx.conf = (axis, fix_gamma, gamma.dtype, beta.dtype)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, ct_mean, ct_var):
+        data, mean, inv, scale = ctx.saved_tensors
+        axis, fix_gamma, gamma_dtype, beta_dtype = ctx.conf
+        red, bshape, m = _bn_layout(data, axis)
+        xc = data - mean.reshape(bshape)
+        dgamma = dbeta = None
+        b = torch.zeros_like(mean)
+        c = torch.zeros_like(mean)
+        if dy is not None:
+            dbeta = dy.sum(dim=red, dtype=torch.float32)
+            dgamma_raw = (dy * xc).sum(dim=red) * inv
+            b = b - scale * inv * dgamma_raw / m
+            c = c - scale * dbeta / m
+            dgamma = (torch.zeros(mean.shape, dtype=gamma_dtype,
+                                  device=mean.device) if fix_gamma
+                      else dgamma_raw.to(gamma_dtype))
+            dbeta = dbeta.to(beta_dtype)
+        if ct_mean is not None:
+            c = c + ct_mean.float() / m
+        if ct_var is not None:
+            b = b + 2.0 * ct_var.float() / m
+        dx = torch.addcmul(c.reshape(bshape), xc, b.reshape(bshape))
+        if dy is not None:
+            dx = torch.addcmul(dx, dy, scale.reshape(bshape))
+        return dx.to(data.dtype), dgamma, dbeta, None, None, None
+
+
+@register("BatchNorm", num_inputs=5, num_outputs=3, num_visible_outputs=1,
+          takes_is_train=True, nograd_inputs=(3, 4), aliases=("BatchNorm_v1",),
+          input_names=("data", "gamma", "beta", "moving_mean", "moving_var"),
+          fvisible=lambda params, n: n if params.get("output_mean_var")
+          else 1)
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, cudnn_off=False,
+                is_train=False):
+    """ref: batch_norm.cc:89 (ops/nn.py:326-353).  Outputs (out, mean,
+    var): the batch's f32 statistics in training, the moving ones
+    otherwise.  The moving statistics are updated by the Gluon layer, not
+    here; ``momentum`` is accepted for parity.  Not ``F.batch_norm``: that
+    updates running stats with the unbiased variance at momentum 0.1."""
+    if is_train and not use_global_stats:
+        return _BatchNormTrainFunction.apply(data, gamma, beta, axis, eps,
+                                             bool(fix_gamma))
+    _, bshape, _ = _bn_layout(data, axis)
+    mean = moving_mean.float()
+    var = moving_var.float()
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    scale = g.float() * torch.rsqrt(var + eps)
+    # (x - mean) first, in f32, then one rounding: x·s + (beta - mean·s)
+    # folded in bf16 would lose the large-mean channels
+    out = torch.addcmul(beta.float().reshape(bshape),
+                        data - mean.reshape(bshape), scale.reshape(bshape))
+    return out.to(data.dtype), mean, var
 
 
 @register("LayerNorm", num_inputs=3, input_names=("data", "gamma", "beta"))

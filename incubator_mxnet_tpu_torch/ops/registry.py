@@ -9,8 +9,10 @@ never alias their inputs (MXNet's semantics).  Creation ops
 (``num_inputs=0``) take a ``device`` keyword, which ``invoke`` supplies
 from the context.  Gradients come from torch's autograd through the
 fcompute itself; the metadata below tells ``invoke`` what torch cannot
-see (which inputs an op mutates, which take no gradient).  The symbolic
-executor is not in this slice.
+see (which inputs an op mutates, which take no gradient), whether it
+computes otherwise in training (``takes_is_train``), and how many of its
+outputs a call shows (``fvisible``).  The symbolic executor is not in this
+slice.
 """
 from __future__ import annotations
 
@@ -32,6 +34,11 @@ class Operator:
     input_names : names of the array inputs that may be passed by keyword.
     num_outputs : outputs the fcompute returns; the first
         ``num_visible_outputs`` (default all) are returned to the caller.
+    fvisible : ``(params, n_outputs) -> int``, the visible outputs when they
+        depend on the call's parameters (BatchNorm: 1, or 3 with
+        ``output_mean_var``); overrides ``num_visible_outputs``.
+    takes_is_train : the fcompute takes a keyword ``is_train``, which
+        ``invoke`` sets from ``autograd.is_training()``.
     mutate_inputs : for an update op, ``(0, i, j, ...)``: output 0 is the
         result (``out=`` takes it), and outputs 1, 2, ... are written back
         into inputs i, j, ... in place (optimizer state, as the reference's
@@ -45,7 +52,7 @@ class Operator:
                  num_inputs: Optional[int] = 1, input_names=None,
                  num_outputs: int = 1, num_visible_outputs=None,
                  mutate_inputs=(), nograd_inputs=(), differentiable=True,
-                 doc: str = ""):
+                 takes_is_train=False, fvisible=None, doc: str = ""):
         self.name = name
         self.fcompute = fcompute
         self.num_inputs = num_inputs
@@ -56,7 +63,16 @@ class Operator:
         self.mutate_inputs = tuple(mutate_inputs)
         self.nograd_inputs = tuple(nograd_inputs)
         self.differentiable = differentiable
+        self.takes_is_train = takes_is_train
+        self.fvisible = fvisible
         self.doc = doc
+
+    def visible_outputs(self, params, n_outputs):
+        """How many of ``n_outputs`` a call with ``params`` shows (the rest
+        are auxiliary, as BatchNorm's batch statistics)."""
+        if self.fvisible is not None:
+            return self.fvisible(params, n_outputs)
+        return n_outputs - (self.num_outputs - self.num_visible_outputs)
 
     def __repr__(self):
         return "Operator(%s)" % self.name

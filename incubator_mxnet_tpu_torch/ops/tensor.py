@@ -1,7 +1,7 @@
 """Shape-manipulation, indexing and creation operators.
 
 Counterpart of ``incubator_mxnet_tpu/ops/tensor.py`` and ``ops/init_ops.py``,
-limited to the ops the decoder-LM serving and training paths and the
+limited to the ops the decoder-LM and ResNet paths and the
 NDArray surface use.  Reshape/transpose/slice return torch views; ``ndarray.invoke``
 copies them so results never alias inputs.
 """
@@ -78,6 +78,12 @@ def checked_reshape(src_shape, target, reverse=False):
 def _reshape(data, shape=(), reverse=False):
     """ref: src/operator/tensor/matrix_op.cc Reshape"""
     return data.reshape(checked_reshape(data.shape, shape, reverse))
+
+
+@register("Flatten", num_inputs=1, aliases=("flatten",))
+def _flatten(data):
+    """ref: matrix_op.cc Flatten: every axis after the first into one."""
+    return data.reshape(data.shape[0], -1)
 
 
 @register("transpose", num_inputs=1)

@@ -14,7 +14,13 @@ mesh; the port runs the same step eagerly in torch on one device:
   values are never cast; f32 and narrow-integer inputs are cast, int32 and
   int64 inputs (token ids) never are; the output is cast to f32 before the
   loss (the rules of :210-234);
-* the loss is the mean of the loss block's per-sample values.
+* the loss is the mean of the loss block's per-sample values;
+* layer state that the forward writes (BatchNorm's running statistics,
+  parameters with ``grad_req='null'``) lands in the f32 master copies once
+  a step and is never cast: the forward runs on the master tensors
+  themselves, and a shadow the forward rebound is copied back (the JAX
+  step's ``aux``, :244, :261-263); ``sync_params()`` writes it into the
+  Block with the weights.
 
 A mesh of more than one device raises until multi-GPU (ROADMAP Queue A
 item 6).
@@ -157,6 +163,8 @@ class DataParallelTrainer(object):
         leaves = {n: self._params[n].detach().requires_grad_()
                   for n in self._trainable}
         with torch.enable_grad():
+            # frozen values enter as the master tensors, uncast, so a layer's
+            # in-place write (BatchNorm's running stats) is their update
             vals = {n: v for n, v in self._params.items() if n not in leaves}
             if cdt is not None:
                 # only trainable f32 weights are cast, inside the graph, so
@@ -178,6 +186,10 @@ class DataParallelTrainer(object):
                     out = out.astype("float32")
                 per_sample = self.loss(out, NDArray(y, ctx=self._ctx))
             loss = per_sample._data.mean()
+        with torch.no_grad():
+            for n, v in vals.items():
+                if n not in leaves and shadows[n]._data is not v:
+                    v.copy_(shadows[n]._data)
         grads = torch.autograd.grad(loss, [leaves[n] for n in self._trainable],
                                     allow_unused=True)
         return loss.detach(), list(grads)
