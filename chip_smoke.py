@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card: serve the decoder-transformer LM,
 train it at full width through DataParallelTrainer, train its vocabulary
-head through runtime-compiled user kernels, then serve and train ResNet-50
-v1 at bench.py's shape.
+head through runtime-compiled user kernels, serve and train ResNet-50 v1 at
+bench.py's shape, then sweep the array surface and train, checkpoint,
+resume and serve ResNet-50 v1 from its file.
 
 Run from the root of a checkout, with one CUDA card and the CUDA toolkit:
 
@@ -137,8 +138,36 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              below the first, and the running statistics moved and stayed
              finite; then one step under torch.profiler by group (adding
              cuDNN dgrad/wgrad and the optimizer update);
-7. one JSON ``kernels`` line (the hand kernels of phases 2-5; phase 6
-   launches none), then the card's name and power limit, and last
+7. arrays  — the array surface and checkpoints, which launch no hand
+             kernel:
+             7a: every op of ops/math.py, ops/tensor.py and ops/init_ops.py
+             that this slice ports, on CUDA tensors against the port's CPU
+             result for the same seeded numpy inputs, forward and backward,
+             in f32, bf16 and int32 (elementwise, broadcast and reduction
+             ops at (1024, 4096), dot at (1024, 4096)·(4096, 4096),
+             batch_dot at (32, 1024, 128)·(32, 128, 1024)), each at its
+             bound in ulps (SWEEP_ULP; data movement, indexing, ordering and
+             integer results bit-equal), each call and backward under torch's
+             sync-debug mode "error"; every alias resolving to its op; int32
+             mod and power at their edge values; the creation ops; one line
+             per family;
+             7b: resnet50_v1(classes=1000) in f32 trained through the plain
+             Gluon loop (record, SoftmaxCrossEntropyLoss, backward,
+             gluon.Trainer.step(64): sgd lr 0.1, momentum 0.9, wd 1e-4,
+             MultiFactorScheduler(step=[2, 4], factor=0.1)) on a batch of
+             64 x 3x224x224 from np.random.RandomState(0): run A takes 3
+             steps, save_params and save_states, then steps 4-6; run B, a
+             net of another seed and a fresh Trainer, load_params and
+             load_states, then steps 4-6: the state after loading and the
+             step-4 loss bit-equal to A's, the learning rates and
+             num_update equal, steps 5-6 within CKPT_LOSS_REL and
+             CKPT_WEIGHT_REL, and each tensor whose RMS is at least
+             CKPT_LIVE_RMS of the net's within CKPT_TENSOR_REL; a third net loads A's file from its bytes
+             (nd.load_buffer, serving's load_params_bytes) and its logits on
+             a batch of 32 are bit-equal to A's; file sizes, save and load
+             seconds and A's step ms;
+8. one JSON ``kernels`` line (the hand kernels of phases 2-5; phases 6
+   and 7 launch none), then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -2682,11 +2711,11 @@ def resnet_small(mx, card):
     return out
 
 
-def _resnet_full(mx, np):
+def _resnet_full(mx, np, seed=SEED):
     """resnet50_v1(classes=1000) on the card, Xavier (seeded), its deferred
     shapes resolved."""
     from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
-    mx.random.seed(SEED)
+    mx.random.seed(seed)
     net = vision.resnet50_v1(classes=1000)
     net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
     with mx.autograd.predict_mode():
@@ -2835,6 +2864,684 @@ def resnet_train(mx, card):
     del trainer, net, x, y
     gc.collect()
     torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the array surface (the ops of ops/math.py, ops/tensor.py and
+# ops/init_ops.py ported in this slice) on the card against the port's CPU
+# result, and checkpoints: ResNet-50 v1 trained, saved, resumed and served
+# from its file.  No hand kernel on this path.
+# ---------------------------------------------------------------------------
+SWEEP_ROWS, SWEEP_COLS = 1024, 4096          # elementwise, broadcast, reduce
+SWEEP_DOT = ((1024, 4096), (4096, 4096))
+SWEEP_BATCH_DOT = ((32, 1024, 128), (32, 128, 1024))
+# the families of the sweep, and every alias of each op (checked to resolve
+# to the same Operator as its canonical name)
+SWEEP_ALIASES = {
+    "broadcast_mod": ("_mod",), "broadcast_power": ("_power", "_pow"),
+    "broadcast_maximum": ("_maximum",), "broadcast_minimum": ("_minimum",),
+    "broadcast_hypot": ("_hypot",),
+    "broadcast_logical_and": ("_logical_and",),
+    "broadcast_logical_or": ("_logical_or",),
+    "broadcast_logical_xor": ("_logical_xor",),
+    "add_n": ("ElementWiseSum", "elemwise_sum", "_sum"),
+    "abs": ("_np_abs",), "negative": ("_np_negative",),
+    "max": ("max_axis",), "min": ("min_axis",), "sum": ("sum_axis",),
+    "broadcast_axis": ("broadcast_axes",), "swapaxes": ("SwapAxis",),
+    "slice": ("crop",), "Concat": ("concat",), "SliceChannel": ("split",),
+    "reverse": ("flip",), "Pad": ("pad",), "_copy": ("identity",),
+    "BlockGrad": ("stop_gradient",), "make_loss": ("MakeLoss",),
+    "_arange": ("arange",), "_eye": ("eye",), "_linspace": ("linspace",),
+}
+TRANSCENDENTAL = ("sqrt", "rsqrt", "cbrt", "rcbrt", "exp", "log", "log10",
+                  "log2", "log1p", "expm1", "sin", "cos", "tan", "arcsin",
+                  "arccos", "arctan", "sinh", "cosh", "tanh", "arcsinh",
+                  "arccosh", "arctanh", "sigmoid", "erf", "gamma", "gammaln")
+EXACT_UNARY = ("abs", "negative", "square", "degrees", "radians",
+               "reciprocal", "relu", "softsign", "sign", "rint", "round",
+               "ceil", "floor", "trunc", "fix", "logical_not")
+DOMAIN = {"sqrt": "pos", "rsqrt": "pos", "log": "pos", "log10": "pos",
+          "log2": "pos", "log1p": "pos", "gamma": "pos", "gammaln": "pos",
+          "arcsin": "unit", "arccos": "unit", "arctanh": "unit",
+          "tan": "unit", "arccosh": "gt1"}
+# bounds, card against CPU (n ulps of the output's dtype, at each element
+# or at the largest |CPU value| for values that cancel; 0: bit-equal).
+# libdevice's and the CPU's transcendentals are each within 1-2 ulps of
+# the exact value; a sum runs in another order (cuBLAS, CUDA's reduction
+# trees); a 16-bit result is rounded once from f32 on both.  The inputs
+# are seeded and both sides' libraries deterministic, so a case gives the
+# same error on every run.  Each bound against the largest error of its key
+# measured on an NVIDIA H100 80GB HBM3 at these inputs: f32 transcendental
+# forwards 4 (rsqrt's: no room), their gradients 6 (sigmoid's 4),
+# broadcast gradients 4 (2), pow and hypot 4 and 6 (3.5), sums 4 (3),
+# products
+# of 4096 factors 160 (nanprod's 108), products 48 (dot 35.5, batch_dot
+# 17), gathers' sums 2 (1.5); 16-bit forwards 1 (1: no room), 16-bit
+# gradients 2 (1).
+SWEEP_ULP = {
+    # key: ((f32 forward, f32 backward), (16-bit forward, 16-bit backward))
+    "transcendental": (((4, "elem"), (6, "max")),
+                       ((1, "elem"), (2, "max"))),
+    # a broadcast operand's gradient is a sum over the broadcast rows
+    "broadcast": (((0, "elem"), (4, "max")), ((0, "elem"), (2, "max"))),
+    "broadcast_tx": (((4, "elem"), (6, "max")),
+                     ((1, "elem"), (2, "max"))),
+    "reduce": (((4, "max"), (4, "max")), ((1, "max"), (2, "max"))),
+    "prod": (((160, "elem"), (160, "max")), ((1, "elem"), (2, "max"))),
+    "product": (((48, "max"), (48, "max")), ((1, "max"), (2, "max"))),
+    "scatter": (((0, "elem"), (2, "max")), ((0, "elem"), (2, "max"))),
+}
+
+
+def sweep_input(rng, kind, shape):
+    """Seeded host inputs by domain (a ``np.random.Generator``), off exact
+    zeros; only the draw the domain needs."""
+    import numpy as np
+    f32 = np.float32
+    if kind in ("small", "int", "exp"):
+        lo, hi = {"small": (0, 3), "int": (-9, 10), "exp": (0, 4)}[kind]
+        return rng.integers(lo, hi, shape).astype(f32)
+    if kind == "any":
+        x = rng.standard_normal(shape, dtype=f32) * f32(2)
+    else:
+        lo, span = {"pos": (0.5, 2.5), "unit": (-0.9, 1.8),
+                    "gt1": (1.1, 2.0), "near1": (0.7, 0.6)}[kind]
+        x = f32(lo) + f32(span) * rng.random(shape, dtype=f32)
+    x = np.asarray(x, f32)
+    x[np.abs(x) < 1e-2] = f32(0.37)
+    return x
+
+
+def sweep_cases():
+    """(family, op, params, input domains and shapes, dtypes, bound key or
+    0, inputs with a gradient).  Shapes: (1024, 4096) for
+    elementwise, broadcast and reduction ops, the products at their own."""
+    R, C = SWEEP_ROWS, SWEEP_COLS
+    full = ("any", (R, C))
+    cases = []
+    for name in TRANSCENDENTAL + EXACT_UNARY:
+        diff = name not in ("sign", "rint", "round", "ceil", "floor",
+                            "trunc", "fix", "logical_not")
+        dts = ("float32", "bfloat16") + (
+            ("int32",) if name in ("abs", "negative", "square", "relu",
+                                   "sign", "round", "floor", "exp") else ())
+        bound = "transcendental" if name in TRANSCENDENTAL else 0
+        cases.append(("unary", name, {}, [(DOMAIN.get(name, "any"), (R, C))],
+                      dts, bound, (0,) if diff else ()))
+    cases += [
+        ("unary", "clip", {"a_min": -0.7, "a_max": 1.1}, [full],
+         ("float32", "bfloat16", "int32"), 0, (0,)),
+        ("unary", "hard_sigmoid", {}, [full], ("float32", "bfloat16"), 0,
+         (0,)),
+        ("unary", "smooth_l1", {"scalar": 2.0}, [full],
+         ("float32", "bfloat16"), 0, (0,)),
+    ]
+    for name, kinds, dts in (
+            ("broadcast_mod", ("any", "pos"), ("float32", "bfloat16",
+                                               "int32")),
+            ("broadcast_power", ("pos", "any"), ("float32", "bfloat16")),
+            ("broadcast_maximum", ("any", "any"), ("float32", "bfloat16",
+                                                   "int32")),
+            ("broadcast_minimum", ("any", "any"), ("float32", "int32")),
+            ("broadcast_hypot", ("any", "any"), ("float32", "bfloat16")),
+            ("broadcast_logical_and", ("small", "small"),
+             ("float32", "int32")),
+            ("broadcast_logical_or", ("small", "small"), ("float32",)),
+            ("broadcast_logical_xor", ("small", "small"), ("float32",))):
+        bound = "broadcast_tx" if name in ("broadcast_power",
+                                           "broadcast_hypot") else \
+            "broadcast"
+        grads = (0, 1) if "logical" not in name else ()
+        cases.append(("binary", name, {}, [(kinds[0], (R, C)),
+                                           (kinds[1], (1, C))], dts, bound,
+                      grads))
+    cases.append(("binary", "add_n", {}, [full, full, full],
+                  ("float32", "bfloat16", "int32"), 0, (0, 1, 2)))
+    for name, s, kind, dts, bound in (
+            ("_mod_scalar", 1.7, "any", ("float32", "int32"), 0),
+            ("_rmod_scalar", 2.5, "pos", ("float32",), 0),
+            ("_power_scalar", 2.5, "pos", ("float32", "bfloat16"),
+             "transcendental"),
+            ("_power_scalar", 3, "int", ("int32",), 0),
+            ("_rpower_scalar", 1.5, "any", ("float32",), "transcendental"),
+            ("_maximum_scalar", 0.3, "any", ("float32", "int32"), 0),
+            ("_minimum_scalar", -0.3, "any", ("float32", "bfloat16"), 0),
+            ("_hypot_scalar", 1.3, "any", ("float32",), "transcendental")):
+        cases.append(("scalar", name, {"scalar": s}, [(kind, (R, C))], dts,
+                      bound, (0,)))
+    cases += [
+        ("reduction", "prod", {"axis": 1}, [("near1", (R, C))],
+         ("float32", "bfloat16"), "prod", (0,)),
+        ("reduction", "nansum", {"axis": 0}, [full], ("float32", "int32"),
+         "reduce", (0,)),
+        ("reduction", "nanprod", {"axis": 1}, [("near1", (R, C))],
+         ("float32",), "prod", (0,)),
+        ("reduction", "max", {"axis": 1}, [full],
+         ("float32", "bfloat16", "int32"), 0, (0,)),
+        ("reduction", "min", {}, [full], ("float32",), 0, (0,)),
+        ("reduction", "norm", {"axis": 1}, [full], ("float32", "bfloat16"),
+         "reduce", (0,)),
+        ("reduction", "square_sum", {"axis": 0}, [full], ("float32",),
+         "reduce", (0,)),
+        ("reduction", "L2Normalization", {}, [("any", (R // 4, 4, C))],
+         ("float32",), "reduce", (0,)),
+        ("product", "dot", {}, [("any", SWEEP_DOT[0]), ("any", SWEEP_DOT[1])],
+         ("float32", "bfloat16"), "product", (0, 1)),
+        ("product", "dot", {"transpose_b": True},
+         [("int", (64, 256)), ("int", (128, 256))], ("int32",), 0, ()),
+        ("product", "batch_dot", {}, [("any", SWEEP_BATCH_DOT[0]),
+                                      ("any", SWEEP_BATCH_DOT[1])],
+         ("float32", "bfloat16"), "product", (0, 1)),
+        ("product", "batch_dot", {}, [("int", (4, 32, 64)),
+                                      ("int", (4, 64, 16))], ("int32",), 0,
+         ()),
+        ("product", "khatri_rao", {}, [("any", (64, C)), ("any", (16, C))],
+         ("float32",), "product", (0, 1)),
+        ("index", "argmin", {"axis": 1}, [full], ("float32", "int32"), 0,
+         ()),
+        ("index", "argmax_channel", {}, [full], ("float32",), 0, ()),
+        ("index", "take", {"axis": 0, "mode": "clip"},
+         [full, ("idx", (64, 32))], ("float32", "bfloat16", "int32"),
+         "scatter", (0,)),
+        ("index", "take", {"axis": 1, "mode": "wrap"},
+         [full, ("idx", (2048,))], ("float32",), "scatter", (0,)),
+        ("index", "one_hot", {"depth": 1000}, [("idx", (4096,))],
+         ("float32",), 0, ()),
+        ("index", "gather_nd", {}, [full, ("idx2", (2, 8192))],
+         ("float32", "int32"), "scatter", (0,)),
+        ("index", "scatter_nd", {"shape": (R, C)},
+         [("any", (8192,)), ("idx2", (2, 8192))], ("float32",), "scatter",
+         (0,)),
+        ("index", "where", {}, [("small", (R, C)), full, full],
+         ("float32", "int32"), 0, (1, 2)),
+        ("shape", "squeeze", {"axis": 1}, [("any", (R, 1, C))],
+         ("float32", "int32"), 0, (0,)),
+        ("shape", "swapaxes", {"dim1": 0, "dim2": 1}, [full],
+         ("float32", "bfloat16"), 0, (0,)),
+        ("shape", "slice", {"begin": (1, None), "end": (None, -3),
+                            "step": (2, -3)}, [full], ("float32", "int32"),
+         0, (0,)),
+        ("shape", "slice_like", {}, [full, ("any", (R // 2, C // 4))],
+         ("float32",), 0, (0,)),
+        ("shape", "Concat", {"dim": 0}, [full, full], ("float32", "int32"),
+         0, (0, 1)),
+        ("shape", "stack", {"axis": 1}, [full, full], ("float32",), 0,
+         (0, 1)),
+        ("shape", "SliceChannel", {"num_outputs": 4, "axis": 1}, [full],
+         ("float32", "int32"), 0, (0,)),
+        ("shape", "repeat", {"repeats": 2, "axis": 0}, [full],
+         ("float32",), 0, (0,)),
+        ("shape", "tile", {"reps": (2, 1)}, [full], ("float32",), 0, (0,)),
+        ("shape", "reverse", {"axis": (0, 1)}, [full], ("float32", "int32"),
+         0, (0,)),
+        ("shape", "Pad", {"mode": "reflect",
+                          "pad_width": (0, 0, 0, 0, 3, 2, 1, 4)},
+         [("any", (16, 64, 32, 32))], ("float32",), "scatter", (0,)),
+        ("shape", "Pad", {"mode": "edge",
+                          "pad_width": (0, 0, 0, 0, 2, 2, 2, 2)},
+         [("any", (16, 64, 32, 32))], ("bfloat16",), 0, ()),
+        ("shape", "Pad", {"mode": "constant", "constant_value": 1.5,
+                          "pad_width": (0, 0, 1, 1, 2, 2, 0, 3)},
+         [("any", (16, 64, 32, 32))], ("float32", "int32"), 0, (0,)),
+        ("shape", "space_to_depth", {"block_size": 2},
+         [("any", (16, 64, 32, 32))], ("float32",), 0, (0,)),
+        ("shape", "depth_to_space", {"block_size": 2},
+         [("any", (16, 64, 32, 32))], ("float32",), 0, (0,)),
+        ("shape", "broadcast_to", {"shape": (R, C)}, [("any", (1, C))],
+         ("float32", "int32"), "reduce", (0,)),
+        ("shape", "broadcast_axis", {"axis": 1, "size": C},
+         [("any", (R, 1))], ("float32",), "reduce", (0,)),
+        ("shape", "_copy", {}, [full], ("float32", "int32"), 0, (0,)),
+        ("shape", "BlockGrad", {}, [full], ("float32",), 0, ()),
+        ("shape", "make_loss", {"grad_scale": 0.25}, [full], ("float32",),
+         0, (0,)),
+        ("shape", "_grad_add", {}, [full, full], ("float32",), 0, (0, 1)),
+        ("ordering", "topk", {"k": 8}, [("perm", (R, C))],
+         ("float32", "bfloat16", "int32"), 0, ()),
+        ("ordering", "topk", {"k": 5, "ret_typ": "both", "is_ascend": True},
+         [("small", (R, C))], ("float32", "int32"), 0, ()),
+        ("ordering", "topk", {"k": 3, "ret_typ": "mask", "axis": 0},
+         [("perm", (R, C))], ("float32",), 0, ()),
+        ("ordering", "sort", {}, [("perm", (R, C))], ("float32", "int32"),
+         0, ()),
+        ("ordering", "sort", {"is_ascend": False}, [("small", (R, C))],
+         ("bfloat16",), 0, ()),
+        ("ordering", "argsort", {}, [("perm", (R, C))], ("float32",), 0,
+         ()),
+        ("ordering", "argsort", {"is_ascend": False}, [("small", (R, C))],
+         ("float32", "int32"), 0, ()),
+        ("sequence", "SequenceLast", {"use_sequence_length": True},
+         [full, ("len", (C,))], ("float32",), 0, (0,)),
+        ("sequence", "SequenceMask", {"use_sequence_length": True,
+                                      "value": -1.0},
+         [full, ("len", (C,))], ("float32", "int32"), 0, (0,)),
+        ("sequence", "SequenceReverse", {"use_sequence_length": True},
+         [full, ("len", (C,))], ("float32",), 0, (0,)),
+    ]
+    return cases
+
+
+def _sweep_arrays(rs, specs, dtype):
+    """The host inputs of one case: values by domain in ``dtype`` (int32
+    values for an int32 case), index arrays as int32, permutations for the
+    orderings (bf16 rounds some to ties, which the stable sorts order
+    alike on both sides), sequence lengths in [0, rows]."""
+    import numpy as np
+    out = []
+    for kind, shape in specs:
+        if kind == "perm":      # distinct but where bf16 rounds them
+            a = rs.permutation(int(np.prod(shape))).reshape(shape)
+            a = (a.astype(np.float64) - a.size / 2).astype(np.float32)
+        elif kind == "idx":
+            a = rs.integers(-8, SWEEP_ROWS + 8, shape).astype(np.int32)
+        elif kind == "idx2":
+            a = np.stack([rs.integers(0, SWEEP_ROWS, shape[1:]),
+                          rs.integers(0, SWEEP_COLS, shape[1:])]).astype(
+                np.int32)
+        elif kind == "len":
+            a = rs.integers(0, SWEEP_ROWS + 1, shape).astype(np.int32)
+        else:
+            a = sweep_input(rs, kind, shape)
+            if dtype == "int32":
+                a = np.round(a).astype(np.int32)
+        out.append(a)
+    return out
+
+
+def _ulp_err(got, want, measure):
+    """max |got - want| in ulps of ``want``'s dtype, at each element's
+    |want| (``elem``) or at max |want| (``max``), computed in float64 on
+    ``got``'s device; inf when NaN or inf do not match."""
+    import torch
+    mant = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}[
+        want.dtype]
+    g = got.detach().to(torch.float64)
+    w = want.detach().to(device=g.device, dtype=torch.float64)
+    if g.shape != w.shape or not torch.equal(torch.isnan(g), torch.isnan(w)):
+        return math.inf
+    fin = torch.isfinite(w)
+    odd = ~fin & ~torch.isnan(w)
+    if not torch.equal(g[odd], w[odd]):
+        return math.inf
+    err = torch.where(fin, (g - w).abs(), torch.zeros_like(w))
+    ref = w.abs() if measure == "elem" else w.abs().max()
+    e = torch.floor(torch.log2(torch.clamp(ref, min=2.0 ** -126)))
+    return float((err / torch.exp2(e - mant)).max()) if err.numel() \
+        else 0.0
+
+
+def _sweep_run(mx, op, arrays, params, dtype, ctx, heads_host, grads):
+    """One case through the port on ``ctx``: the outputs and the gradients
+    (as tensors) for seeded head gradients.  Inputs and heads are placed
+    on ``ctx`` outside the op's call and its backward, which on the card
+    run under torch's sync-debug mode "error": an op that waited for the
+    card would raise.  ``heads_host`` caches the head gradients' host
+    values by shape, so both runs of a case use the same."""
+    import numpy as np
+    import torch
+    xs = [mx.nd.array(a, ctx=ctx, dtype=dtype if a.dtype.kind == "f"
+                      else "int32") for a in arrays]
+    guard = sync_debug_error if ctx.device_type == "gpu" else \
+        (lambda _torch: contextlib.nullcontext())
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    with guard(torch):
+        for i in grads:
+            xs[i].attach_grad()
+        with mx.autograd.record():
+            out = mx.nd.invoke(op, xs, dict(params))
+    outs = out if isinstance(out, list) else [out]
+    if grads:
+        rng = np.random.default_rng(SEED)
+        heads = [mx.nd.NDArray(torch.from_numpy(heads_host.setdefault(
+            o.shape, np.array(sweep_input(rng, "any", o.shape)))).to(
+                o._data.device, o._data.dtype)) for o in outs]
+        with guard(torch):
+            mx.autograd.backward(outs, heads)
+    return ([o._data for o in outs],
+            [xs[i].grad._data for i in grads])
+
+
+@contextlib.contextmanager
+def sync_debug_error(torch):
+    """torch's sync-debug mode "error" inside: a call that synchronizes
+    with the card (an ``.item()``, a host copy) raises."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def sweep_case(mx, case, dtype, rs):
+    """One case of the sweep in ``dtype``: the op on the card against the
+    CPU, forward and backward, each at its bound (failing the run past
+    it).  Returns the largest error in ulps and the case's bound."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops.registry import get_op
+    family, name, params, specs, _, bound, grads = case
+    op = get_op(name)
+    arrays = _sweep_arrays(rs, specs, dtype)
+    g = () if dtype == "int32" else grads
+    heads = {}
+    want = _sweep_run(mx, op, arrays, params, dtype, mx.cpu(), heads, g)
+    got = _sweep_run(mx, op, arrays, params, dtype, mx.gpu(0), heads, g)
+    fb, bb = SWEEP_ULP[bound][dtype != "float32"] if bound else (
+        (0, "elem"), (0, "elem"))
+    worst = 0.0
+    for part, (gl, wl, (n, measure)) in enumerate(
+            ((got[0], want[0], fb), (got[1], want[1], bb))):
+        for gt, wt in zip(gl, wl):
+            check(gt.dtype == wt.dtype and gt.shape == wt.shape,
+                  "7a: %s %s %s: %s %s on the card, %s %s on the CPU"
+                  % (name, params, dtype, gt.dtype, gt.shape, wt.dtype,
+                     wt.shape))
+            if n == 0 or not wt.is_floating_point():
+                same = torch.equal(gt, wt.to(gt.device)) or (
+                    wt.is_floating_point() and bool(torch.equal(
+                        torch.isnan(gt), torch.isnan(wt.to(gt.device)))
+                        and torch.equal(torch.nan_to_num(gt),
+                                        torch.nan_to_num(wt.to(gt.device)))))
+                err = 0.0 if same else math.inf
+            else:
+                err = _ulp_err(gt, wt, measure)
+            check(err <= n, "7a: %s %s %s: %s %.3g ulp above %d"
+                  % (name, params, dtype, "gradient" if part else "forward",
+                     err, n))
+            worst = max(worst, err)
+    return worst, max(fb[0], bb[0] if g else 0)
+
+
+def array_sweep(mx, card):
+    """Phase 7a: every op this slice ports, on CUDA tensors against the
+    port's CPU result for the same numpy inputs, forward and backward, each
+    case at its stated bound; the aliases resolve to one Operator; integer
+    mod and power at their edge values; the creation ops.  One line per
+    family: cases, ops, the largest error and its bound."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch.ops.registry import get_op
+    t0 = time.perf_counter()
+    for name, aliases in SWEEP_ALIASES.items():
+        for a in aliases:
+            check(get_op(a) is get_op(name), "7a: alias %s is not %s's "
+                  "Operator" % (a, name))
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    families = {}
+    rs = np.random.default_rng(SEED)
+    for case in sweep_cases():
+        family, name = case[0], case[1]
+        for dtype in case[4]:
+            worst, bound = sweep_case(mx, case, dtype, rs)
+            fam = families.setdefault(family, dict(cases=0, ops=set(),
+                                                   max_ulp=0.0, bound=0,
+                                                   worst_case=None))
+            fam["cases"] += 1
+            fam["ops"].add(name)
+            if worst > fam["max_ulp"]:
+                fam["max_ulp"], fam["worst_case"] = worst, "%s %s" % (
+                    name, dtype)
+            fam["bound"] = max(fam["bound"], bound)
+    families["integer edges"] = integer_edges(mx, gpu, cpu, np, torch)
+    families["creation"] = creation_sweep(mx, gpu, cpu, np)
+    for family, fam in families.items():
+        print("sweep %s: %d cases of %d ops (%s), max error %.3g ulp (%s), "
+              "bound %d ulp | %s" % (family, fam["cases"], len(fam["ops"]),
+                                     " ".join(sorted(fam["ops"])),
+                                     fam["max_ulp"], fam.get("worst_case"),
+                                     fam["bound"], card), flush=True)
+    seconds = time.perf_counter() - t0
+    print("sweep: %d cases in %.1f s" % (sum(f["cases"] for f in
+                                              families.values()), seconds),
+          flush=True)
+    return {f: dict(v, ops=sorted(v["ops"])) for f, v in families.items()}
+
+
+def integer_edges(mx, gpu, cpu, np, torch):
+    """int32 mod by 0 and -1 (INT_MIN too) and powers with negative and
+    large exponents: on the card, under sync-debug mode "error", equal to
+    the CPU (the JAX build's values, tests/test_torch_ops_math.py)."""
+    lhs = np.array([5, -5, 7, 0, -2 ** 31, 3, -7, 2 ** 31 - 1] * 512,
+                   np.int32)
+    cases = [("broadcast_mod", np.array([0, 0, -1, 0, -1, 0, 2, -3] * 512,
+                                        np.int32)),
+             ("broadcast_power", np.array([-1, -1, -1, -1, -2, 70, 31, -64]
+                                          * 512, np.int32))]
+    from incubator_mxnet_tpu_torch.ops.registry import get_op
+    for name, rhs in cases:
+        want = _sweep_run(mx, get_op(name), [lhs, rhs], {}, "int32", cpu,
+                          {}, ())[0][0]
+        got = _sweep_run(mx, get_op(name), [lhs, rhs], {}, "int32", gpu,
+                         {}, ())[0][0]
+        check(torch.equal(got.cpu(), want), "7a: int32 %s edge values "
+              "differ on the card" % name)
+    return dict(cases=2, ops={"broadcast_mod", "broadcast_power"},
+                max_ulp=0.0, bound=0)
+
+
+def creation_sweep(mx, gpu, cpu, np):
+    """The creation ops on the card against the CPU, bit-equal (outside
+    sync-debug mode: arange copies numpy's values to the card)."""
+    cases = [("arange", dict(start=0.5, stop=4000.0, step=0.3, repeat=2)),
+             ("arange", dict(start=-3, stop=10 ** 6, step=7,
+                             dtype="int32")),
+             ("eye", dict(N=SWEEP_ROWS, M=SWEEP_COLS, k=5)),
+             ("linspace", dict(start=-2.5, stop=3.1, num=SWEEP_COLS)),
+             ("linspace", dict(start=0.0, stop=1.0, num=777,
+                               endpoint=False, dtype="bfloat16"))]
+    for name, params in cases:
+        a = getattr(mx.nd, name)(ctx=gpu, **params)
+        b = getattr(mx.nd, name)(ctx=cpu, **params)
+        check(a.context == gpu and np.array_equal(a.asnumpy(), b.asnumpy()),
+              "7a: %s %s differs on the card" % (name, params))
+    x = mx.nd.array(np.zeros((SWEEP_ROWS, SWEEP_COLS), np.float32), ctx=gpu)
+    for name in ("ones_like", "shape_array", "size_array"):
+        a, b = getattr(mx.nd, name)(x), getattr(mx.nd, name)(x.copyto(cpu))
+        check(np.array_equal(a.asnumpy(), b.asnumpy()), "7a: %s differs on "
+              "the card" % name)
+    return dict(cases=len(cases) + 3,
+                ops={"_arange", "_eye", "_linspace", "ones_like",
+                     "shape_array", "size_array"}, max_ulp=0.0, bound=0)
+
+
+# 7b: ResNet-50 v1 through the plain Gluon loop at
+# example/image-classification/train_imagenet.py's optimizer (sgd, lr 0.1,
+# momentum 0.9, wd 1e-4, MultiFactorScheduler), the schedule's steps cut to
+# [2, 4] so the rate falls before and after the checkpoint at step 3
+CKPT_BATCH, CKPT_SERVE_BATCH = 64, 32
+CKPT_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+CKPT_SCHEDULE = dict(step=[2, 4], factor=0.1)
+CKPT_SAVE_AT, CKPT_STEPS = 3, 6
+# steps 5-6 of the resumed run against the uninterrupted one: cuDNN's
+# backward (wgrad) and the loss's scatter may add in another order, ~1e-7
+# relative a step, which the next step's forward carries on (this net's
+# gradients move by percents for a one-ulp change of its input).  The
+# weights are compared by their relative L2 distance over the whole net,
+# and each tensor by its own where its RMS is at least CKPT_LIVE_RMS of the
+# net's (a convolution's bias before BatchNorm starts at 0 and takes only
+# rounding for a gradient, so it has no scale of its own).  Measured on an
+# NVIDIA H100 80GB HBM3: losses 9.2e-7 to 5.3e-6 apart over six runs,
+# weights 6.6e-6 to 7.3e-6, each checked tensor 1.14e-4 to 1.20e-4 (a
+# BatchNorm beta) over three; the bounds leave ~10x.  The 32 convolution
+# biases sit below 1.1e-6 of the net's RMS, every other tensor above 5e-3
+CKPT_LOSS_REL, CKPT_WEIGHT_REL = 5e-5, 1e-4
+CKPT_LIVE_RMS, CKPT_TENSOR_REL = 1e-3, 1e-3
+
+
+def _ckpt_state(net, trainer):
+    """Every parameter (running statistics too) and momentum, on the host,
+    and the update count."""
+    params = {n[len(net.prefix):]: p.data().asnumpy()
+              for n, p in net.collect_params().items()}
+    moms = {i: (s.asnumpy() if hasattr(s, "asnumpy") else s)
+            for i, s in trainer._updaters[0].states.items()}
+    return params, moms, trainer._optimizer.num_update
+
+
+def checkpoint_cycle(mx, card):
+    """Phase 7b: ResNet-50 v1 (classes=1000, f32, on the card) trained by
+    autograd.record / SoftmaxCrossEntropyLoss / backward /
+    gluon.Trainer.step(64) under a MultiFactorScheduler: run A takes 3
+    steps, saves (save_params, save_states), takes steps 4-6; run B, a net
+    of another seed with a fresh Trainer, loads both and takes steps 4-6;
+    then a third net serves A's file from its bytes (nd.load_buffer,
+    serving.loader.load_params_bytes)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch.serving.loader import load_params_bytes
+    gpu = mx.gpu(0)
+    rs = np.random.RandomState(0)
+    x = mx.nd.array(rs.rand(CKPT_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE)
+                    .astype(np.float32), ctx=gpu)
+    y = mx.nd.array(rs.randint(0, 1000, CKPT_BATCH).astype(np.float32),
+                    ctx=gpu)
+    serve_x = mx.nd.array(rs.rand(CKPT_SERVE_BATCH, 3, RESNET_IMAGE,
+                                  RESNET_IMAGE).astype(np.float32), ctx=gpu)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def trainer_of(net):
+        sched = mx.lr_scheduler.MultiFactorScheduler(**CKPT_SCHEDULE)
+        return mx.gluon.Trainer(net.collect_params(), "sgd",
+                                dict(CKPT_OPT, lr_scheduler=sched))
+
+    def step(net, trainer):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(CKPT_BATCH)
+        out = loss.asnumpy()
+        return out, (time.perf_counter() - t1) * 1e3, \
+            trainer._optimizer._get_lr(0)
+
+    def logits(net):
+        with mx.autograd.predict_mode():
+            return net(serve_x).asnumpy()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        p, s = os.path.join(tmp, "resnet50.params"), \
+            os.path.join(tmp, "resnet50.states")
+        net = _resnet_full(mx, np, SEED)
+        trainer = trainer_of(net)
+        run_a = [step(net, trainer) for _ in range(CKPT_SAVE_AT)]
+        sec = dict(save_params=timed(lambda: net.save_params(p)),
+                   save_states=timed(lambda: trainer.save_states(s)))
+        saved = _ckpt_state(net, trainer)
+        served_a = logits(net)
+        run_a += [step(net, trainer) for _ in range(CKPT_SAVE_AT,
+                                                    CKPT_STEPS)]
+        end_a = _ckpt_state(net, trainer)
+        del net, trainer
+        gc.collect()
+        net = _resnet_full(mx, np, SEED + 1)
+        trainer = trainer_of(net)
+        sec["load_params"] = timed(lambda: net.load_params(p, ctx=gpu))
+        sec["load_states"] = timed(lambda: trainer.load_states(s))
+        loaded = _ckpt_state(net, trainer)
+        run_b = [step(net, trainer) for _ in range(CKPT_SAVE_AT,
+                                                   CKPT_STEPS)]
+        end_b = _ckpt_state(net, trainer)
+        del net, trainer
+        gc.collect()
+        buf = open(p, "rb").read()
+        sec["load_buffer"] = timed(lambda: mx.nd.load_buffer(buf))
+        args, aux = load_params_bytes(buf)
+        served = _resnet_full(mx, np, SEED + 2)
+        served.collect_params().setattr("grad_req", "null")
+        for name, prm in served.collect_params().items():
+            short = name[len(served.prefix):]
+            prm.set_data(args[short] if short in args else aux[short])
+        served_c = logits(served)
+        sizes = dict(params_bytes=os.path.getsize(p),
+                     states_bytes=os.path.getsize(s))
+        del served, args, aux
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = all(np.array_equal(saved[0][k], loaded[0][k]) for k in saved[0])
+    same_mom = sorted(saved[1]) == sorted(loaded[1]) and all(
+        np.array_equal(saved[1][i], loaded[1][i]) for i in saved[1])
+    loss_a = [float(l_.mean()) for l_, _, _ in run_a]
+    loss_b = [float(l_.mean()) for l_, _, _ in run_b]
+    lrs_a = [lr for _, _, lr in run_a[CKPT_SAVE_AT:]]
+    lrs_b = [lr for _, _, lr in run_b]
+    step4 = bool(np.array_equal(run_a[CKPT_SAVE_AT][0], run_b[0][0]))
+    loss_rel = max(abs(a - b) / abs(a) for a, b in
+                   zip(loss_a[CKPT_SAVE_AT:], loss_b))
+    diff2 = {k: float(np.square(end_a[0][k].astype(np.float64)
+                                - end_b[0][k]).sum()) for k in end_a[0]}
+    norm2 = {k: float(np.square(end_a[0][k].astype(np.float64)).sum())
+             for k in end_a[0]}
+    weight_rel = math.sqrt(sum(diff2.values()) / sum(norm2.values()))
+    net_ms = sum(norm2.values()) / sum(v.size for v in end_a[0].values())
+    rms = {k: math.sqrt(norm2[k] / end_a[0][k].size / net_ms)
+           for k in end_a[0]}
+    live = [k for k in end_a[0] if rms[k] >= CKPT_LIVE_RMS]
+    gap = (max([rms[k] for k in rms if k not in live], default=0.0),
+           min(rms[k] for k in live))
+    worst = max(live, key=lambda k: diff2[k] / norm2[k])
+    worst_rel = math.sqrt(diff2[worst] / norm2[worst])
+    served_equal = bool(np.array_equal(served_a, served_c))
+    result = dict(step_ms=[ms for _, ms, _ in run_a], losses_a=loss_a,
+                  losses_b=loss_b, lrs_a=lrs_a, lrs_b=lrs_b,
+                  step4_loss_bit_equal=step4, loss_rel_steps_5_6=loss_rel,
+                  weight_rel_l2_after_6=weight_rel,
+                  worst_tensor=(worst, worst_rel),
+                  tensors_checked=(len(live), len(end_a[0])),
+                  rms_gap=gap,
+                  state_bit_equal=same,
+                  momentum_bit_equal=same_mom,
+                  num_update=(saved[2], loaded[2]),
+                  served_logits_bit_equal=served_equal, seconds=sec, **sizes)
+    for i, (l_, ms, lr) in enumerate(run_a):
+        print("ckpt 7b: run A step %d: %.3f ms, loss %.6f, lr %g | %s"
+              % (i + 1, ms, float(l_.mean()), lr, card), flush=True)
+    print("ckpt 7b: files %d bytes (.params) and %d bytes (.states); "
+          "seconds: %s | %s" % (sizes["params_bytes"], sizes["states_bytes"],
+                                json.dumps({k: round(v, 4) for k, v in
+                                            sec.items()}), card), flush=True)
+    print("ckpt 7b: resumed run B: losses %s (A %s), lr %s (A %s), step-4 "
+          "loss bit-equal %s, steps 5-6 loss rel %.3e (bound %g), weights "
+          "after step 6 rel L2 %.3e (bound %g), each of %d of %d tensors "
+          "(RMS at least %g of the net's; the others below %.3g, these "
+          "above %.3g) within %.3e (%s; bound %g); state "
+          "bit-equal after load %s, momentum %s, num_update %s; served "
+          "logits from the file's bytes bit-equal %s"
+          % (loss_b, loss_a[CKPT_SAVE_AT:], lrs_b, lrs_a, step4, loss_rel,
+             CKPT_LOSS_REL, weight_rel, CKPT_WEIGHT_REL, len(live),
+             len(end_a[0]), CKPT_LIVE_RMS, gap[0], gap[1], worst_rel, worst,
+             CKPT_TENSOR_REL, same, same_mom, result["num_update"],
+             served_equal),
+          flush=True)
+    check(all(math.isfinite(v) for v in loss_a + loss_b),
+          "7b: a loss is not finite")
+    check(same and same_mom, "7b: the state after load differs from A's at "
+          "the save (parameters %s, momentum %s)" % (same, same_mom))
+    check(saved[2] == loaded[2] and lrs_a == lrs_b, "7b: num_update %s or "
+          "the resumed learning rates %s differ from A's %s"
+          % (result["num_update"], lrs_b, lrs_a))
+    check(lrs_a == [CKPT_OPT["learning_rate"] * 0.1 ** k for k in
+                    (1, 2, 2)], "7b: the schedule gave %s" % lrs_a)
+    check(step4, "7b: B's step-4 loss is not bit-equal to A's")
+    check(loss_rel <= CKPT_LOSS_REL and weight_rel <= CKPT_WEIGHT_REL,
+          "7b: steps 5-6 drifted: loss %.3e, weights %.3e" % (loss_rel,
+                                                              weight_rel))
+    check(worst_rel <= CKPT_TENSOR_REL, "7b: tensor %s drifted %.3e after "
+          "step 6" % (worst, worst_rel))
+    check(served_equal, "7b: logits served from the file's bytes differ")
     return result
 
 
@@ -3231,6 +3938,11 @@ def main():
     resnet = dict(small=resnet_small(mx, card), serve=resnet_serve(mx, card),
                   train=resnet_train(mx, card))
 
+    # phase 7: the array surface on the card against the CPU, and
+    # ResNet-50 v1 trained, checkpointed, resumed and served from its file
+    arrays = dict(sweep=array_sweep(mx, card),
+                  checkpoint=checkpoint_cycle(mx, card))
+
     def entry(name, source, design, launches_, err, t,
               replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3249,6 +3961,7 @@ def main():
     print("backward: " + json.dumps(dict(backward, max_abs_err_cases=
                                          backward_errs)), flush=True)
     print("resnet: summary " + json.dumps(resnet, default=str), flush=True)
+    print("arrays: summary " + json.dumps(arrays, default=str), flush=True)
     print(json.dumps({"kernels": [
         entry("flash_attention_fwd", BF16_SOURCE, FLASH_DESIGN,
               launches["flash_attention_fwd"], errs[serving], bf16,

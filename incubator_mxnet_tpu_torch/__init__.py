@@ -33,6 +33,7 @@ from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401  alias, as in mxnet
 from .initializer import Xavier  # noqa: F401
 from . import name  # noqa: F401
+from . import lr_scheduler  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import gluon  # noqa: F401
 from . import parallel  # noqa: F401

@@ -158,6 +158,18 @@ class Block(object):
             ret.update(cld.collect_params(select=select))
         return ret
 
+    def save_params(self, filename):
+        """Write the parameters as a ``.params`` file, names without this
+        block's prefix (ref: block.py:295 save_params)."""
+        self.collect_params().save(filename, strip_prefix=self.prefix)
+
+    def load_params(self, filename, ctx=None, allow_missing=False,
+                    ignore_extra=False):
+        """Load a file :meth:`save_params` wrote into this block, whatever
+        its prefix (ref: block.py:303 load_params)."""
+        self.collect_params().load(filename, ctx, allow_missing, ignore_extra,
+                                   self.prefix)
+
     def register_child(self, block):
         """ref: block.py register_child."""
         self._children.append(block)

@@ -5,7 +5,8 @@ Same public surface for the inference and training slices: deferred shape
 init, one array per context, ``cast``, loading from host arrays, and a
 gradient buffer per array with ``grad_req`` ``write``, ``add`` or ``null``
 over the autograd tape (``autograd.mark_variables``), ``lr_mult`` and
-``wd_mult``.  ``Constant`` and save/load are not ported yet.
+``wd_mult``, and ``ParameterDict.save``/``load`` in MXNet's ``.params``
+format (``ndarray/utils.py``).  ``Constant`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -112,8 +113,10 @@ class Parameter(object):
             "nested child Blocks" % self.name)
 
     def _load_init(self, data: np.ndarray, ctx):
-        """(Re-)initialize from a host array (ref: parameter.py _load_init).
-        Raises ``ValueError`` on a shape or dtype the parameter cannot take."""
+        """(Re-)initialize from a host array (ref: parameter.py _load_init):
+        in place when the parameter already has data on ``ctx`` (or ``ctx``
+        is None), else on ``ctx``.  Raises ``ValueError`` on a shape or dtype
+        the parameter cannot take."""
         if self.shape:
             if len(self.shape) != data.ndim or any(
                     s not in (0, d) for s, d in zip(self.shape, data.shape)):
@@ -129,6 +132,15 @@ class Parameter(object):
         self.shape = tuple(data.shape)
         if isinstance(ctx, Context):
             ctx = [ctx]
+        if self._data is not None and (ctx is None
+                                       or list(ctx) == self._ctx_list):
+            # overwrite in place: the arrays keep their identity, grad
+            # buffers and tape marks, and what holds them sees the values
+            src = torch.from_numpy(np.array(data))
+            for arr in self._data.values():
+                with torch.no_grad():
+                    arr._data.copy_(src)
+            return
         if ctx is None:
             ctx = (self._deferred_init[1] if self._deferred_init
                    else self._ctx_list or [current_context()])
@@ -374,3 +386,55 @@ class ParameterDict(object):
         parameter (ref: parameter.py ParameterDict.setattr)."""
         for v in self.values():
             setattr(v, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter's data (its first context's) as a
+        ``.params`` file, each name without ``strip_prefix`` (ref:
+        parameter.py ParameterDict.save)."""
+        from ..ndarray import save as nd_save
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    "Prefix '%s' is to be striped before saving, but "
+                    "Parameter's name '%s' does not start with '%s'."
+                    % (strip_prefix, param.name, strip_prefix))
+            arg_dict[param.name[len(strip_prefix):]] = param.list_data()[0]
+        nd_save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load a ``.params`` file into these parameters (ref: parameter.py
+        ParameterDict.load): a name's ``arg:``/``aux:`` prefix is dropped and
+        ``restore_prefix`` put in front.  An initialized parameter is
+        overwritten in place on its context (BatchNorm's running statistics
+        too); one not yet initialized is initialized on ``ctx``."""
+        from ..ndarray.utils import load_host
+        if restore_prefix:
+            for name in self.keys():
+                if not name.startswith(restore_prefix):
+                    raise ValueError(
+                        "restore_prefix is '%s' but Parameters name '%s' "
+                        "does not start with '%s'"
+                        % (restore_prefix, name, restore_prefix))
+        lprefix = len(restore_prefix)
+        with open(filename, "rb") as f:
+            loaded = load_host(f.read())
+        if not isinstance(loaded, dict):
+            raise ValueError("'%s' holds unnamed arrays; ParameterDict.load "
+                             "needs a named .params file" % filename)
+        arg_dict = {restore_prefix + k.split(":", 1)[-1]: v
+                    for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise ValueError("Parameter '%s' is missing in file '%s'"
+                                     % (name[lprefix:], filename))
+        for name, value in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise ValueError(
+                        "Parameter '%s' loaded from file '%s' is not present "
+                        "in ParameterDict" % (name[lprefix:], filename))
+                continue
+            self[name]._load_init(value, ctx)

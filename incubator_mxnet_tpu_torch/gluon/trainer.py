@@ -9,7 +9,10 @@ store that is not ``dist`` means no store, so there is nothing to reduce
 (``_allreduce_grads``, :353, and ``update_on_kvstore`` have no work).
 Stores across several devices or processes come with multi-GPU (ROADMAP
 Queue A item 6) and raise until then; the JAX build's bucketed, overlapped,
-quantized and elastic machinery is not ported.
+quantized and elastic machinery is not ported.  ``save_states`` and
+``load_states`` checkpoint the optimizer: its pickled state per parameter
+(momentum, ...), with the optimizer itself, its ``num_update`` and its
+``lr_scheduler``.
 """
 from __future__ import annotations
 
@@ -127,3 +130,28 @@ class Trainer(object):
             for upd, arr, grad in zip(self._updaters, param.list_data(),
                                       param.list_grad()):
                 upd(i, grad, arr)
+
+    def save_states(self, fname):
+        """Write the optimizer's states and the optimizer (with its update
+        count and learning-rate schedule) to ``fname`` (ref: trainer.py:202
+        save_states).  The states are pickled objects of this package."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        with open(fname, "wb") as fout:
+            fout.write(self._updaters[0].get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Read what :meth:`save_states` wrote and resume from it (ref:
+        trainer.py:218 load_states): every updater takes the states, which
+        move to each weight's context at its next update, and the unpickled
+        optimizer, rebound to this trainer's parameters.  Only a file this
+        program (or one you trust) wrote: unpickling can run code."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        with open(fname, "rb") as f:
+            states = f.read()
+        for updater in self._updaters:
+            updater.set_states(states)
+        self._optimizer = self._updaters[0].optimizer
+        self._optimizer.param_dict = {i: param for i, param
+                                      in enumerate(self._params)}

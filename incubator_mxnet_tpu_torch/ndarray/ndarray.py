@@ -24,12 +24,13 @@ import numpy as np
 import torch
 
 from .. import autograd
-from ..base import numpy_dtype, torch_dtype
+from ..base import MXNetError, numpy_dtype, torch_dtype
 from ..context import Context, current_context
 from ..ops.registry import Operator, get_op
 from ..ops.tensor import checked_reshape
 
-__all__ = ["NDArray", "array", "empty", "invoke", "waitall"]
+__all__ = ["NDArray", "array", "empty", "invoke", "waitall", "concatenate",
+           "moveaxis"]
 
 _SCALARS = (int, float, bool, np.generic)
 
@@ -88,6 +89,17 @@ class NDArray:
 
     ctx = context
 
+    @property
+    def stype(self):
+        """Storage type: always ``'default'`` (dense); sparse storage is
+        ROADMAP item 10."""
+        return "default"
+
+    @property
+    def T(self):
+        """The transpose (every axis reversed), a new array."""
+        return invoke(get_op("transpose"), [self], {})
+
     # -- conversion --------------------------------------------------------
     def asnumpy(self):
         """Host copy; blocks.  bfloat16 arrays come back as float32, which
@@ -102,8 +114,30 @@ class NDArray:
             raise ValueError("The current array is not a scalar")
         return self.asnumpy().reshape(())[()]
 
+    def item(self):
+        return self.asscalar()
+
     def astype(self, dtype, copy=True):
         return invoke(get_op("Cast"), [self], {"dtype": dtype})
+
+    def copy(self):
+        """A new array with the same values (ref: ndarray.py copy)."""
+        return invoke(get_op("_copy"), [self], {})
+
+    def as_in_context(self, context):
+        """This array if it lives on ``context``, else a copy there."""
+        return self if context == self._ctx else self.copyto(context)
+
+    def as_nd_ndarray(self):
+        return self
+
+    def tostype(self, stype):
+        """``'default'`` gives this array; sparse storage types raise until
+        ROADMAP item 10 ports them."""
+        if stype == "default":
+            return self
+        raise MXNetError("storage type %r is not ported yet: sparse arrays "
+                         "come with ROADMAP item 10" % (stype,))
 
     def copyto(self, other):
         """ref: ndarray.py copyto / CopyFromTo (src/ndarray/ndarray.cc)."""
@@ -144,6 +178,9 @@ class NDArray:
         if self._data.is_cuda:
             torch.cuda.synchronize(self._data.device)
 
+    def wait_to_write(self):
+        self.wait_to_read()
+
     # -- shape manipulation (views) ---------------------------------------
     def reshape(self, *shape, **kwargs):
         """A view sharing storage where the layout allows one (every array
@@ -154,6 +191,39 @@ class NDArray:
         new_shape = checked_reshape(self.shape, shape,
                                     kwargs.get("reverse", False))
         return NDArray(self._tracked().reshape(new_shape), ctx=self._ctx)
+
+    def reshape_like(self, other):
+        return self.reshape(other.shape)
+
+    def expand_dims(self, axis):
+        """A view with a new axis of size 1 at ``axis``."""
+        shape = list(self.shape)
+        shape.insert(axis if axis >= 0 else axis + self.ndim + 1, 1)
+        return self.reshape(tuple(shape))
+
+    def flatten(self):
+        return invoke(get_op("Flatten"), [self], {})
+
+    def slice(self, start, stop):
+        """A view of rows [start, stop) of axis 0 (ref: NDArray::Slice)."""
+        n = self.shape[0]
+        b = 0 if start is None else (start + n if start < 0 else start)
+        e = n if stop is None else (stop + n if stop < 0 else min(stop, n))
+        if not 0 <= b <= e <= n:
+            raise IndexError("slice [%s:%s) out of range for axis size %d"
+                             % (start, stop, n))
+        return NDArray(self._tracked()[b:e], ctx=self._ctx)
+
+    def at(self, idx):
+        """A view of row ``idx`` of axis 0, the axis dropped (a 1-d array
+        gives shape (1,)) (ref: NDArray::At)."""
+        n = self.shape[0]
+        j = idx + n if idx < 0 else idx
+        if not 0 <= j < n:
+            raise IndexError("index %d is out of bounds for axis 0 with size "
+                             "%d" % (idx, n))
+        t = self._tracked()
+        return NDArray(t[j] if self.ndim > 1 else t[j:j + 1], ctx=self._ctx)
 
     def _tracked(self):
         """The tensor to view: with its autograd history under ``record()``,
@@ -236,8 +306,28 @@ class NDArray:
             return invoke(get_op("_rdiv_scalar"), [self], {"scalar": o})
         return self._binop(o, "broadcast_div", "_div_scalar", reverse=True)
 
+    def __mod__(self, o):
+        return self._binop(o, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, o):
+        if isinstance(o, _SCALARS):
+            return invoke(get_op("_rmod_scalar"), [self], {"scalar": o})
+        return self._binop(o, "broadcast_mod", "_mod_scalar", reverse=True)
+
+    def __pow__(self, o):
+        return self._binop(o, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, o):
+        if isinstance(o, _SCALARS):
+            return invoke(get_op("_rpower_scalar"), [self], {"scalar": o})
+        return self._binop(o, "broadcast_power", "_power_scalar",
+                           reverse=True)
+
     def __neg__(self):
         return invoke(get_op("negative"), [self], {})
+
+    def __abs__(self):
+        return invoke(get_op("abs"), [self], {})
 
     # comparisons give 0/1 arrays in this array's dtype, as the JAX build's
     # (ndarray.py:569-591); ``== None`` is False and ``!= None`` True
@@ -293,6 +383,53 @@ class NDArray:
 
     def __itruediv__(self, o):
         return self._inplace(o, "broadcast_div", "_div_scalar")
+
+    # the reference's method surface over the registered ops
+    def _reduction(self, name, axis, keepdims, **params):
+        return invoke(get_op(name), [self],
+                      dict(params, axis=axis, keepdims=keepdims))
+
+    def sum(self, axis=None, keepdims=False, exclude=False):
+        return self._reduction("sum", axis, keepdims, exclude=exclude)
+
+    def mean(self, axis=None, keepdims=False, exclude=False):
+        return self._reduction("mean", axis, keepdims, exclude=exclude)
+
+    def max(self, axis=None, keepdims=False, exclude=False):
+        return self._reduction("max", axis, keepdims, exclude=exclude)
+
+    def min(self, axis=None, keepdims=False, exclude=False):
+        return self._reduction("min", axis, keepdims, exclude=exclude)
+
+    def argmax(self, axis=None, keepdims=False):
+        return self._reduction("argmax", axis, keepdims)
+
+    def argmin(self, axis=None, keepdims=False):
+        return self._reduction("argmin", axis, keepdims)
+
+    def abs(self):
+        return invoke(get_op("abs"), [self], {})
+
+    def square(self):
+        return invoke(get_op("square"), [self], {})
+
+    def sqrt(self):
+        return invoke(get_op("sqrt"), [self], {})
+
+    def exp(self):
+        return invoke(get_op("exp"), [self], {})
+
+    def log(self):
+        return invoke(get_op("log"), [self], {})
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = tuple(axes[0])
+        return invoke(get_op("transpose"), [self], {"axes": axes})
+
+    def clip(self, a_min, a_max):
+        return invoke(get_op("clip"), [self], {"a_min": a_min,
+                                               "a_max": a_max})
 
 
 
@@ -400,6 +537,19 @@ def empty(shape, ctx=None, dtype="float32"):
         shape = (shape,)
     return NDArray(torch.zeros(shape, dtype=torch_dtype(dtype),
                                device=ctx.torch_device()), ctx=ctx)
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    """ref: ndarray.py concatenate (the Concat op along ``axis``)."""
+    return invoke(get_op("Concat"), list(arrays), {"dim": axis})
+
+
+def moveaxis(tensor, source, destination):
+    """ref: ndarray.py moveaxis (a transpose)."""
+    axes = list(range(tensor.ndim))
+    axes.remove(source % tensor.ndim)
+    axes.insert(destination % tensor.ndim, source % tensor.ndim)
+    return invoke(get_op("transpose"), [tensor], {"axes": tuple(axes)})
 
 
 def waitall():

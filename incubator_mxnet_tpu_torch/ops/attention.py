@@ -49,12 +49,12 @@ eager NDArray surface and Gluon's ``MultiHeadAttention`` reach it.
 from __future__ import annotations
 
 import math
-from contextlib import contextmanager
 
 import torch
 
 from ..base import MXNetError
 from .. import cuda_build
+from ._precision import f32_products as _f32_products
 from .registry import register
 
 _NEG_INF = -1e30
@@ -309,19 +309,6 @@ def _kv_block_size(sk):
         if sk % b == 0:
             return b
     return sk
-
-
-@contextmanager
-def _f32_products():
-    """Matrix products in full f32 inside, whatever the caller's TF32
-    setting (the reference's ``Precision.HIGHEST``); the setting is restored
-    on the way out."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _flash_backward(q, k, v, out, g, causal, scale):

@@ -10,13 +10,11 @@ run in full f32 on the card, TF32 off (:func:`_f32_convolutions`).
 """
 from __future__ import annotations
 
-import threading
-from contextlib import contextmanager
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ._precision import f32_convolutions as _f32_convolutions
 from .math import scalar_like
 from .registry import register
 
@@ -42,39 +40,6 @@ def _tuple(v, n, default):
     if isinstance(v, (tuple, list)):
         return tuple(v) if len(v) else (default,) * n
     return (v,) * n
-
-
-class _TF32Off(object):
-    """Turns cuDNN's TF32 off while any convolution of any thread is inside
-    it, and puts back the setting found when the first one entered once
-    the last one leaves (the flag is process-wide: a thread that restored
-    its own saved value would turn TF32 back on under another's call)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._depth = 0
-        self._saved = None
-
-    @contextmanager
-    def __call__(self):
-        with self._lock:
-            if self._depth == 0:
-                self._saved = torch.backends.cudnn.allow_tf32
-                torch.backends.cudnn.allow_tf32 = False
-            self._depth += 1
-        try:
-            yield
-        finally:
-            with self._lock:
-                self._depth -= 1
-                if self._depth == 0:
-                    torch.backends.cudnn.allow_tf32 = self._saved
-
-
-# cuDNN convolutions in full f32 inside, whatever the caller's TF32 setting
-# (torch's default lets cuDNN run an f32 convolution in TF32, a 10-bit
-# mantissa; the JAX build's f32 convolution is f32)
-_f32_convolutions = _TF32Off()
 
 
 class _ConvolutionFunction(torch.autograd.Function):

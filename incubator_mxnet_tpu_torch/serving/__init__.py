@@ -65,8 +65,8 @@ class Server(object):
              input_shapes=None, input_names=None):
         """Register a model from ``block`` (+ ``example``, one input with its
         batch axis).  The ``module=``, ``symbol=`` and ``symbol_json=``
-        sources raise ``NotImplementedError`` in this slice (ROADMAP items
-        4-5)."""
+        sources raise ``NotImplementedError`` in this slice (ROADMAP item
+        5)."""
         if block is not None:
             return self.registry.load_block(name, block, example)
         if module is not None:

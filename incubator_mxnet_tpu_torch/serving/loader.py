@@ -11,9 +11,10 @@ source funnels to the same ``(fn, param_vals, input_names)`` triple:
 * ``input_names`` — positional input order of ``fn``.
 
 This slice ports the HybridBlock source (``block_model``, through
-``HybridBlock.serving_fn``).  The ``module=``, ``symbol=`` and
-``symbol_json=`` sources need the symbolic executor and ``nd.load_buffer``
-(ROADMAP items 4-5) and raise ``NotImplementedError`` until then.
+``HybridBlock.serving_fn``) and ``load_params_bytes``, which parses
+``.params`` bytes in memory (``nd.load_buffer``) for a block to load.  The
+``module=``, ``symbol=`` and ``symbol_json=`` sources need the symbolic
+executor (ROADMAP item 5) and raise ``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -22,8 +23,9 @@ import torch
 
 from ..ndarray.ndarray import narrow_dtype
 
-__all__ = ["split_arg_aux", "symbol_model", "block_model", "module_model",
-           "bytes_model", "model_device"]
+__all__ = ["split_arg_aux", "load_params_bytes", "symbol_model",
+           "block_model", "module_model", "bytes_model", "model_device"]
+
 
 def split_arg_aux(loaded):
     """Split an ``nd.load``/``nd.load_buffer`` dict into (arg_params,
@@ -38,6 +40,18 @@ def split_arg_aux(loaded):
         else:
             arg_params[k] = v
     return arg_params, aux_params
+
+
+def load_params_bytes(param_bytes):
+    """``.params`` bytes -> (arg_params, aux_params) name -> NDArray dicts,
+    parsed in memory (``nd.load_buffer``, no temporary file), on the
+    current context."""
+    from ..ndarray import load_buffer
+    loaded = load_buffer(param_bytes)
+    if not isinstance(loaded, dict):
+        raise ValueError("serving params must be a named .params payload "
+                         "(got an unnamed array list)")
+    return split_arg_aux(loaded)
 
 
 def _raw(v):
@@ -95,19 +109,17 @@ def block_model(block, example, train=False):
 def _not_ported(source, item):
     raise NotImplementedError(
         "serving from %s needs %s, which the PyTorch port does not have yet "
-        "(ROADMAP items 4-5); serve a HybridBlock with block= instead"
+        "(ROADMAP item 5); serve a HybridBlock with block= instead"
         % (source, item))
 
 
 def symbol_model(sym, params, input_shapes=None, input_names=None):
-    _not_ported("a Symbol", "the symbolic executor (ROADMAP item 5)")
+    _not_ported("a Symbol", "the symbolic executor")
 
 
 def bytes_model(symbol_json, param_bytes, input_shapes):
-    _not_ported("symbol JSON and .params bytes",
-                "the symbolic executor and nd.load_buffer (ROADMAP items "
-                "4-5)")
+    _not_ported("symbol JSON and .params bytes", "the symbolic executor")
 
 
 def module_model(module):
-    _not_ported("a Module", "Module.serving_fn (ROADMAP item 5)")
+    _not_ported("a Module", "Module.serving_fn")

@@ -464,7 +464,7 @@ class ModelRegistry(object):
                                     input_names)
 
     def load_bytes(self, name, symbol_json, param_bytes, input_shapes):
-        """The C-predict payload: not in this slice (ROADMAP items 4-5)."""
+        """The C-predict payload: not in this slice (ROADMAP item 5)."""
         return _loader.bytes_model(symbol_json, param_bytes, input_shapes)
 
     def _install(self, name, fn, param_vals, input_names, loader,

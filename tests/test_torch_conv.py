@@ -235,6 +235,53 @@ def test_tf32_guard_holds_across_threads(monkeypatch):
     assert torch.backends.cudnn.allow_tf32 is True
 
 
+def test_matmul_tf32_guard_holds_across_threads(monkeypatch):
+    """Flash attention's f32 backward in torch ops from 8 threads at once
+    (short switch interval): every product runs with cuBLAS's TF32 off,
+    and the caller's setting (on) is back once all have left.  The
+    products' guard is the convolutions' guard class over the matmul
+    flag."""
+    import sys
+    import threading
+    from incubator_mxnet_tpu_torch.ops import _precision
+    from incubator_mxnet_tpu_torch.ops import attention as tatt
+    from incubator_mxnet_tpu_torch.ops import nn as tnn
+    assert isinstance(tatt._f32_products, _precision.FlagOff)
+    assert type(tatt._f32_products) is type(tnn._f32_convolutions)
+    seen = []
+    real = torch.matmul
+
+    def spy(*a, **k):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(*a, **k)
+    monkeypatch.setattr(torch, "matmul", spy)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    q, k, v, g = (torch.tensor(_rs(20 + i).standard_normal((1, 1, 4, 8)),
+                               dtype=torch.float32) for i in range(4))
+    out = torch.zeros_like(q)
+    tatt._flash_backward(q, k, v, out, g, True, 0.35)
+    per_call = len(seen)
+    assert per_call > 0
+    del seen[:]
+
+    def work():
+        for _ in range(60):
+            tatt._flash_backward(q, k, v, out, g, True, 0.35)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(seen) == 8 * 60 * per_call and not any(seen)
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+
+
 def test_grouped_deconvolution_is_one_deconvolution_per_group():
     """MXNet's grouped Deconvolution: group g maps input channels
     [g·I/G, (g+1)·I/G) through weight rows of the same range to output

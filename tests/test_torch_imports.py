@@ -57,6 +57,9 @@ def test_port_imports_with_jax_blocked():
             "from incubator_mxnet_tpu_torch.gluon import loss, trainer\n"
             "from incubator_mxnet_tpu_torch import serving, telemetry\n"
             "from incubator_mxnet_tpu_torch.serving import __main__ as cli\n"
+            "from incubator_mxnet_tpu_torch.ops import _precision, init_ops\n"
+            "from incubator_mxnet_tpu_torch.ndarray import utils\n"
+            "from incubator_mxnet_tpu_torch import lr_scheduler\n"
             "chip_smoke.register_rtc_softmax(mx)\n"
             "with mx.cpu():\n"
             "    x = mx.nd.ones((2, 3)) + 1\n"
@@ -70,6 +73,16 @@ def test_port_imports_with_jax_blocked():
             "    dpt = parallel.DataParallelTrainer(\n"
             "        net, loss.SoftmaxCrossEntropyLoss(), 'adam')\n"
             "    dpt.step(mx.nd.ones((4, 3)), mx.nd.zeros(4))\n"
+            "    import os, tempfile\n"
+            "    d = tempfile.mkdtemp()\n"
+            "    net.save_params(os.path.join(d, 'p'))\n"
+            "    net.load_params(os.path.join(d, 'p'))\n"
+            "    tr = mx.gluon.Trainer(net.collect_params(), 'sgd', {\n"
+            "        'lr_scheduler': lr_scheduler.FactorScheduler(2)})\n"
+            "    tr.save_states(os.path.join(d, 's'))\n"
+            "    tr.load_states(os.path.join(d, 's'))\n"
+            "    with _precision.f32_products():\n"
+            "        mx.nd.dot(mx.nd.arange(3), mx.nd.eye(3))\n"
             "    with serving.Server(max_wait_ms=0) as srv:\n"
             "        srv.load('d', block=net, example=mx.nd.ones((1, 3)))\n"
             "        assert srv.predict('d', mx.nd.ones((3,))).shape == (2,)\n"

@@ -429,7 +429,7 @@ def test_unload_and_sources_of_later_slices():
     with serving.Server() as srv:
         for kw in ({"module": object()}, {"symbol": object(), "params": {}},
                    {"symbol_json": "{}", "param_bytes": b""}):
-            with pytest.raises(NotImplementedError, match="ROADMAP items 4-5"):
+            with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
                 srv.load("x", **kw)
 
 
