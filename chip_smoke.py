@@ -3,7 +3,9 @@
 train it at full width through DataParallelTrainer, train its vocabulary
 head through runtime-compiled user kernels, serve and train ResNet-50 v1 at
 bench.py's shape, then sweep the array surface and train, checkpoint,
-resume and serve ResNet-50 v1 from its file.
+resume and serve ResNet-50 v1 from its file, then hold the rest of the
+model zoo and of the op library against the CPU, serve AlexNet, VGG-16 and
+Inception-v3 and train AlexNet.
 
 Run from the root of a checkout, with one CUDA card and the CUDA toolkit:
 
@@ -166,8 +168,41 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              (nd.load_buffer, serving's load_params_bytes) and its logits on
              a batch of 32 are bit-equal to A's; file sizes, save and load
              seconds and A's step ms;
-8. one JSON ``kernels`` line (the hand kernels of phases 2-5; phases 6
-   and 7 launch none), then the card's name and power limit, and last
+8. zoo     — the rest of the vision zoo and of the op library, which
+             launch no hand kernel:
+             8a: alexnet, vgg11, vgg11_bn, squeezenet1_0/1_1, densenet121,
+             mobilenet0_25 (224x224) and inception_v3 (299x299), classes
+             10, on the card against the CPU from the same seeded f32
+             weights, batch 2, inference mode, TF32 off (ZOO_REL); alexnet's
+             training-mode forward bit-equal after the same mx.random.seed
+             and different under another;
+             8b: alexnet, vgg16 and inception_v3 (classes=1000) in bf16,
+             batch 32 (BASELINE.md:13-16): ms a batch, img/s, peak memory,
+             the bf16 logits against the f32 net's (ZOO_BF16_REL), one batch
+             profiled by group; alexnet behind mx.serving.Server(max_batch
+             8): 16 one-image requests from 2 client threads, every row
+             bit-equal to the bucket-1 program;
+             8c: alexnet(classes=1000) in f32 trained by the plain Gluon
+             loop at batch 256 (BASELINE.md:27), Trainer 'nag' (lr 0.01,
+             momentum 0.9, wd 1e-4), dropout live: step ms, img/s, MFU,
+             peak memory, the loss finite and falling, one step profiled by
+             group; every other optimizer of the slice 2 steps from one
+             saved state, finite losses, every tensor moved;
+             8d: the nn ops at AlexNet's and Inception's activation shapes
+             (7a's harness, f32 and bf16), bilinear UpSampling, the update
+             ops at fc6's shape and the optimizers on bf16 weights through
+             multi_precision, the losses at (256, 1000), the linalg ops on
+             64 stacked 256x256 matrices and fft/ifft at (256, 4096), the
+             deterministic initializers: CUDA against CPU, forward and
+             backward, under sync-debug mode "error" (syevd, which waits
+             for the card, outside it);
+             8e: 2^24 draws of each sampler on the card: moments, KS
+             against scipy's CDF, multinomial chi-square, shuffle, dropout's
+             keep share, values and gradient, rrelu's slopes, every draw
+             bit-equal after the same seed with torch's default generators
+             reseeded;
+9. one JSON ``kernels`` line (the hand kernels of phases 2-5; phases 6-8
+   launch none), then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -2452,33 +2487,35 @@ def _in_span(name, real):
     return call
 
 
-def resnet_profile(run, what, card):
+def resnet_profile(run, what, card, spans=RESNET_OP_SPANS,
+                   groups=RESNET_GROUPS):
     """One call of ``run`` under torch.profiler (:func:`profiled`), device
-    time by RESNET_GROUPS (a kernel joins the first group one of whose keys
-    is in its name or in a span around its launch), with the idle share."""
-    with wrapped_ops(RESNET_OP_SPANS, _in_span):
+    time by ``groups`` (a kernel joins the first group one of whose keys
+    is in its name or in a span around its launch; the registered ops in
+    ``spans`` run inside spans ``op:<name>``), with the idle share."""
+    with wrapped_ops(spans, _in_span):
         prof, wall_us = profiled(run)
     work = op_device_work(prof)
     if not work:
         print("profile: torch.profiler recorded no device time: not measured")
         return None
-    groups = dict.fromkeys([g for g, _ in RESNET_GROUPS] + ["other"], 0.0)
+    by_group = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
     top = {}
     for name, us, names in work:
         low = name.lower()
-        group = next((g for g, keys in RESNET_GROUPS
+        group = next((g for g, keys in groups
                       if any(k in low for k in keys) or
                       any(k in n for k in keys for n in names if n)), "other")
-        groups[group] += us
+        by_group[group] += us
         top[(group, name)] = top.get((group, name), 0.0) + us
-    busy = sum(groups.values())
-    out = dict(groups, wall_us=wall_us, busy_us=busy,
+    busy = sum(by_group.values())
+    out = dict(by_group, wall_us=wall_us, busy_us=busy,
                idle_share=max(0.0, 1 - busy / wall_us))
     print("profile: %s under torch.profiler: wall %.1f us, device busy %.1f "
           "us, idle share %.4f | %s" % (what, wall_us, busy,
                                         out["idle_share"], card))
     print("profile: device us by group %s" % json.dumps(
-        {k: round(v, 1) for k, v in groups.items()}), flush=True)
+        {k: round(v, 1) for k, v in by_group.items()}), flush=True)
     for (group, name), us in sorted(top.items(), key=lambda kv: -kv[1])[:10]:
         print("profile:   %10.1f us  %-22s %s" % (us, group, name[:90]))
     return out
@@ -3182,11 +3219,7 @@ def _sweep_run(mx, op, arrays, params, dtype, ctx, heads_host, grads):
     import torch
     xs = [mx.nd.array(a, ctx=ctx, dtype=dtype if a.dtype.kind == "f"
                       else "int32") for a in arrays]
-    guard = sync_debug_error if ctx.device_type == "gpu" else \
-        (lambda _torch: contextlib.nullcontext())
-    if ctx.device_type == "gpu":
-        torch.cuda.synchronize()
-    with guard(torch):
+    with card_calls(ctx, torch):
         for i in grads:
             xs[i].attach_grad()
         with mx.autograd.record():
@@ -3197,7 +3230,7 @@ def _sweep_run(mx, op, arrays, params, dtype, ctx, heads_host, grads):
         heads = [mx.nd.NDArray(torch.from_numpy(heads_host.setdefault(
             o.shape, np.array(sweep_input(rng, "any", o.shape)))).to(
                 o._data.device, o._data.dtype)) for o in outs]
-        with guard(torch):
+        with card_calls(ctx, torch):
             mx.autograd.backward(outs, heads)
     return ([o._data for o in outs],
             [xs[i].grad._data for i in grads])
@@ -3213,6 +3246,16 @@ def sync_debug_error(torch):
         yield
     finally:
         torch.cuda.set_sync_debug_mode(prev)
+
+
+def card_calls(ctx, torch):
+    """Around calls on ``ctx``: on the card, sync-debug mode "error" after
+    a synchronize (so only the calls inside can trip it); on the CPU,
+    nothing."""
+    if ctx.device_type != "gpu":
+        return contextlib.nullcontext()
+    torch.cuda.synchronize()
+    return sync_debug_error(torch)
 
 
 def sweep_case(mx, case, dtype, rs):
@@ -3543,6 +3586,1021 @@ def checkpoint_cycle(mx, card):
           "step 6" % (worst, worst_rel))
     check(served_equal, "7b: logits served from the file's bytes differ")
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the rest of the op library (the nn ops, random ops, update ops
+# and optimizers, losses, initializers and linalg of this slice) and the
+# rest of the vision zoo, served and trained.  No hand kernel on this
+# path: the ops are PyTorch calls, as the JAX build's are jnp/lax outside
+# any Pallas kernel.
+# ---------------------------------------------------------------------------
+# 8a: each new family on the card against the CPU, f32, TF32 off, the same
+# seeded weights, batch 2 at full resolution.  Relative L2 of the logits:
+# the same f32 operations summed in other orders (cuDNN's convolutions and
+# cuBLAS's products against the CPU's), ~1e-7 an op through 8 to 121
+# layers; a TF32 product (10-bit mantissa) would break it
+ZOO_BATCH = 2
+ZOO_FAMILIES = (("alexnet", 224), ("vgg11", 224), ("vgg11_bn", 224),
+                ("squeezenet1_0", 224), ("squeezenet1_1", 224),
+                ("densenet121", 224), ("mobilenet0_25", 224),
+                ("inception_v3", 299))
+ZOO_REL = 1e-4
+# 8b: BASELINE.md:13-16's inference batch, bf16; the bf16 logits against
+# the f32 net's (relative L2)
+ZOO_SERVE = (("alexnet", 224), ("vgg16", 224), ("inception_v3", 299))
+ZOO_SERVE_BATCH, ZOO_SERVE_BATCHES = 32, 4
+ZOO_BF16_REL = 2e-2
+# the reference's published inference img/s at batch 32 (BASELINE.md; no
+# bar here: other cards, cuDNN 5.1)
+ZOO_PUBLISHED = {"alexnet": "1443.90 img/s on a K80, 4883.77 on a P100 "
+                            "(BASELINE.md:13, :21)",
+                 "vgg16": "228.96 img/s on a K80 (BASELINE.md:14)",
+                 "inception_v3": "106.43 img/s on a K80 (BASELINE.md:16)"}
+SERVER_REQUESTS, SERVER_CLIENTS, SERVER_MAX_BATCH = 16, 2, 8
+# 8c: BASELINE.md:27's AlexNet training batch (483.37 img/s on a K80)
+ALEXNET_TRAIN_BATCH, ALEXNET_WARMUP, ALEXNET_STEPS = 256, 3, 5
+ALEXNET_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+# every other optimizer of this slice, 2 steps each from one saved state
+OTHER_OPTIMIZERS = (
+    ("adagrad", {"learning_rate": 1e-4}),
+    ("adadelta", {}),
+    ("rmsprop", {"learning_rate": 1e-4}),
+    ("rmsprop", {"learning_rate": 1e-4, "centered": True}),
+    ("ftrl", {"learning_rate": 0.01}),
+    ("ftml", {"learning_rate": 1e-4}),
+    ("signum", {"learning_rate": 1e-4, "momentum": 0.9}),
+    ("sgld", {"learning_rate": 1e-6}),
+    ("dcasgd", {"learning_rate": 0.01, "momentum": 0.9}),
+    ("lbsgd", {"learning_rate": 0.01, "momentum": 0.9, "batch_scale": 2}),
+    ("test", {}),
+)
+ZOO_OP_SPANS = ("Convolution", "FullyConnected", "Pooling", "Dropout",
+                "Activation", "BatchNorm", "Concat", "nag_mom_update")
+ZOO_GROUPS = (
+    ("conv_layout_transpose", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("conv_fwd", ("op:Convolution",)),
+    ("conv_dgrad_wgrad", ("_ConvolutionFunctionBackward",)),
+    ("dense", ("op:FullyConnected", "MmBackward", "AddmmBackward",
+               "TBackward")),
+    ("pooling", ("op:Pooling", "MaxPool2DWithIndicesBackward",
+                 "AvgPool2DBackward", "ConstantPadNdBackward")),
+    ("dropout", ("op:Dropout", "WhereBackward", "DivBackward")),
+    ("relu", ("op:Activation", "ReluBackward", "ThresholdBackward")),
+    ("batchnorm", ("op:BatchNorm", "_BatchNormTrainFunction")),
+    ("concat", ("op:Concat", "CatBackward")),
+    ("optimizer_update", ("op:nag_mom_update",)),
+)
+# 8d: the op library on CUDA tensors against the port's CPU result.  Shapes:
+# AlexNet's first activation (batch 8) and Inception's 35x35, 17x17 and
+# 8x8 ones (batch 4); fc6's weight for the updates; (256, 1000) losses;
+# 64 stacked 256x256 matrices; fft at (256, 4096)
+OPLIB_SHAPES = {"alexnet_c1": (8, 64, 55, 55), "inc_35": (4, 192, 35, 35),
+                "inc_17": (4, 768, 17, 17), "inc_8": (4, 2048, 8, 8)}
+FC6 = (4096, 9216)
+LOSS_SHAPE = (256, 1000)
+LINALG_STACK, LINALG_N = 64, 256
+FFT_SHAPE = (256, 4096)
+# bounds (n ulps; as SWEEP_ULP's keys): the normalizations, LRN and the
+# softmaxes sum a window or a row in another order on the card
+# (reductions of 9 to 3025 values), the rest are one IEEE step or a
+# library call both sides round once (a grouped deconvolution's sums)
+SWEEP_ULP["nn"] = (((8, "max"), (16, "max")), ((1, "max"), (2, "max")))
+# the update ops: elementwise f32 steps on both sides, in ulps at each
+# output's largest value (the new weight w - u cancels where u ~ w, so a
+# one-ulp difference of u is thousands of ulps of a tiny result: call 1 of
+# PR 14 measured up to 2.6e5 ulps element by element)
+UPDATE_ULP = 4
+# 8d's bf16 weights through multi_precision: every optimizer but SGLD
+# (random) at the rates and options of tests/test_torch_optimizer.py's
+# OPTIMIZERS, which are not 8c's training rates: two steps of an fc6-shaped
+# weight (0.01·N(0, 1)) on an fc6-shaped gradient (MP_GRAD·N(0, 1))
+MP_OPTIMIZERS = (
+    ("nag", dict(learning_rate=0.1, momentum=0.9, wd=0.01)),
+    ("adagrad", dict(learning_rate=0.1, wd=0.01, clip_gradient=1.5)),
+    ("adadelta", dict(rho=0.8, epsilon=1e-4, wd=0.01)),
+    ("rmsprop", dict(learning_rate=0.01, gamma1=0.8, clip_weights=2.0)),
+    ("rmsprop", dict(learning_rate=0.01, centered=True, epsilon=1e-4)),
+    ("ftrl", dict(learning_rate=0.1, lamda1=0.02, wd=0.01)),
+    ("ftml", dict(learning_rate=0.01, wd=0.01)),
+    ("signum", dict(learning_rate=0.05, momentum=0.8, wd_lh=0.01)),
+    ("dcasgd", dict(learning_rate=0.1, momentum=0.9, lamda=0.1, wd=0.01)),
+    ("lbsgd", dict(learning_rate=0.1, momentum=0.9, batch_scale=4,
+                   warmup_epochs=1, updates_per_epoch=3)),
+    ("test", {}),
+)
+MP_GRAD = 0.1
+# the card's bf16 weights within MP_ULP bf16 ulps of the CPU's at the
+# largest weight; the CPU's two steps move the largest-moved weight by at
+# least MP_MOVE_ULP such ulps, so an update the card skipped or got wrong
+# by more than an eighth of its size fails the bound
+MP_ULP, MP_MOVE_ULP = 1, 8
+# a loss: a row's log-softmax or a mean over 1000 values in another order
+LOSS_REL = 1e-5
+# linalg card vs CPU (cuSOLVER, cuBLAS, cuFFT against LAPACK, MKL or
+# pocketfft): each output within 1e-4 of its largest value
+LINALG_REL = 1e-4
+# syevd's eigenvectors, card against CPU up to a sign per row: a vector
+# moves by ~n·u·|A|/gap (n = 256, u = 6e-8, gaps of |A|/256) ~ 4e-3 of its
+# unit norm, whichever solver runs; call 2 of PR 14 measured 1.5e-3
+SYEVD_VECTOR_REL = 1e-2
+# 8e: 2^24 draws a sampler; KS at p = 1e-6 and chi-square at p = 1e-6
+RANDOM_N = 1 << 24
+RANDOM_P = 1e-6
+
+
+def _zoo_weights(mx, np, name, size, classes, rs):
+    """A zoo net on the CPU with seeded weights (the port's Xavier draws
+    after ``mx.random.seed``, BatchNorm's gamma, beta and running
+    statistics drawn away from their init): the weights by name."""
+    from incubator_mxnet_tpu_torch.convert import numpy_params
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    mx.random.seed(SEED)
+    with mx.cpu():
+        net = getattr(vision, name)(classes=classes)
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.predict_mode():
+            net(mx.nd.array(np.zeros((1, 3, size, size), np.float32)))
+        weights = numpy_params(net)
+    for n, v in weights.items():
+        if n.endswith("gamma") or n.endswith("running_var"):
+            weights[n] = rs.uniform(0.5, 1.5, v.shape).astype(np.float32)
+        elif n.endswith("beta") or n.endswith("running_mean"):
+            weights[n] = (0.1 * rs.standard_normal(v.shape)).astype(
+                np.float32)
+    return weights
+
+
+def _zoo_net(mx, name, weights, ctx, classes):
+    from incubator_mxnet_tpu_torch.convert import load_numpy_params
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    net = getattr(vision, name)(classes=classes)
+    load_numpy_params(net, weights, ctx)
+    return net
+
+
+def _rel_l2(np, got, want):
+    return float(np.linalg.norm(np.asarray(got, np.float64) - want) /
+                 max(np.linalg.norm(np.asarray(want, np.float64)), 1e-30))
+
+
+def zoo_parity(mx, card):
+    """Phase 8a: each family on the card against the CPU from the same
+    seeded f32 weights, inference mode, batch ZOO_BATCH at full resolution,
+    TF32 off; then AlexNet's training-mode forward on the card, whose two
+    dropout masks follow ``mx.random.seed``."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(SEED + 8)
+    out = {}
+    t0 = time.perf_counter()
+    for name, size in ZOO_FAMILIES:
+        weights = _zoo_weights(mx, np, name, size, 10, rs)
+        x = rs.uniform(-1, 1, (ZOO_BATCH, 3, size, size)).astype(np.float32)
+        logits = {}
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            net = _zoo_net(mx, name, weights, ctx, 10)
+            with mx.autograd.predict_mode():
+                logits[ctx.device_type] = net(mx.nd.array(
+                    x, ctx=ctx)).asnumpy()
+            del net
+        err = _rel_l2(np, logits["gpu"], logits["cpu"])
+        out[name] = err
+        print("zoo 8a: %s (classes=10) f32 inference, batch %d x 3x%dx%d, "
+              "card vs CPU logits relative L2 %.3e (bound %.0e), %d "
+              "parameters | %s" % (name, ZOO_BATCH, size, size, err, ZOO_REL,
+                                   len(weights), card), flush=True)
+        check(np.isfinite(logits["gpu"]).all() and err <= ZOO_REL,
+              "8a: %s: card vs CPU relative L2 %.3e" % (name, err))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # training mode: dropout draws from the card's framework generator
+    weights = _zoo_weights(mx, np, "alexnet", 224, 10, rs)
+    net = _zoo_net(mx, "alexnet", weights, mx.gpu(0), 10)
+    x = mx.nd.array(rs.uniform(-1, 1, (ZOO_BATCH, 3, 224, 224)).astype(
+        np.float32), ctx=mx.gpu(0))
+    runs = []
+    for seed in (SEED, SEED, SEED + 1):
+        mx.random.seed(seed)
+        torch.manual_seed(seed + 100)   # the default generator plays no part
+        with mx.autograd.train_mode():
+            runs.append(net(x).asnumpy())
+    with mx.autograd.predict_mode():
+        infer = net(x).asnumpy()
+    same = bool(np.array_equal(runs[0], runs[1]))
+    differ = not np.array_equal(runs[0], runs[2])
+    print("zoo 8a: alexnet training-mode forward on the card: bit-equal "
+          "after the same mx.random.seed %s, different under another %s, "
+          "unlike inference %s | %s" % (same, differ,
+                                        not np.array_equal(runs[0], infer),
+                                        card), flush=True)
+    check(same and differ and not np.array_equal(runs[0], infer),
+          "8a: alexnet's training-mode forward does not follow the seed")
+    out["seconds"] = time.perf_counter() - t0
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_serve(mx, card):
+    """Phase 8b: alexnet, vgg16 and inception_v3 (classes=1000) served in
+    bf16, inference mode, batch ZOO_SERVE_BATCH: one warm-up and
+    ZOO_SERVE_BATCHES timed batches (host clock to synchronize), the bf16
+    logits against the f32 net's, one batch profiled by group; then alexnet
+    behind ``mx.serving.Server``."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    rs = np.random.RandomState(SEED + 9)
+    out = {}
+    for name, size in ZOO_SERVE:
+        mx.random.seed(SEED)
+        net = getattr(vision, name)(classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net.collect_params().setattr("grad_req", "null")
+        x32 = mx.nd.array(rs.uniform(0, 1, (ZOO_SERVE_BATCH, 3, size, size))
+                          .astype(np.float32), ctx=mx.gpu(0))
+        with mx.autograd.predict_mode():
+            ref = net(x32).asnumpy()
+        net.cast("bfloat16")
+        x = x32.astype("bfloat16")
+        del x32
+
+        def batch():
+            with mx.autograd.predict_mode():
+                return net(x)
+        got = batch().asnumpy()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(ZOO_SERVE_BATCHES):
+            t0 = time.perf_counter()
+            batch()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        with conv_flops() as flop:
+            batch()
+        mean = sum(ms) / len(ms)
+        err = _rel_l2(np, got, ref)
+        res = dict(batch_ms=ms, batch_ms_mean=mean,
+                   img_per_s=ZOO_SERVE_BATCH / mean * 1e3,
+                   peak_memory_bytes=peak, flop=flop[0],
+                   tflops=flop[0] / mean / 1e9, bf16_vs_f32_rel_l2=err)
+        print("zoo 8b: %s(classes=1000) bf16 inference, batch %d x 3x%dx%d: "
+              "%s ms a batch (mean %.3f), %.1f img/s, %.4e conv and dense "
+              "flop a batch (%.1f TFLOP/s), peak memory allocated %d bytes; "
+              "bf16 logits vs the f32 net's, relative L2 %.3e (bound %.0e); "
+              "published: %s | %s"
+              % (name, ZOO_SERVE_BATCH, size, size, ["%.3f" % v for v in ms],
+                 mean, res["img_per_s"], flop[0], res["tflops"], peak, err,
+                 ZOO_BF16_REL, ZOO_PUBLISHED[name], card), flush=True)
+        check(got.shape == (ZOO_SERVE_BATCH, 1000) and np.isfinite(got).all()
+              and err <= ZOO_BF16_REL, "8b: %s: logits %s, finite %s, bf16 "
+              "vs f32 %.3e" % (name, got.shape, np.isfinite(got).all(), err))
+        res["profile"] = resnet_profile(
+            batch, "8b %s one inference batch" % name, card,
+            spans=ZOO_OP_SPANS, groups=ZOO_GROUPS)
+        out[name] = res
+        if name == "alexnet":
+            out["server"] = zoo_server(mx, net, card, rs)
+        del net, x
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_input(mx, net):
+    """The served model of phase 8b: ``net`` (bf16) on requests that
+    arrive as f32 host images, cast to bf16 inside the program."""
+
+    class Bf16Input(mx.gluon.HybridBlock):
+        def __init__(self, net, **kwargs):
+            super().__init__(**kwargs)
+            self.net = net
+
+        def hybrid_forward(self, F, x):
+            return self.net(F.Cast(x, dtype="bfloat16"))
+
+    return Bf16Input(net)
+
+
+def zoo_server(mx, net, card, rs):
+    """8b: the bf16 AlexNet behind ``mx.serving.Server(max_batch=
+    SERVER_MAX_BATCH)``: SERVER_REQUESTS one-image requests from
+    SERVER_CLIENTS client threads; every served row bit-equal to the
+    bucket-1 program's answer for that image."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch import serving
+    from incubator_mxnet_tpu_torch.serving.batcher import host_rows
+    dev = torch.device("cuda", 0)
+    images = [rs.uniform(0, 1, (3, 224, 224)).astype(np.float32)
+              for _ in range(SERVER_REQUESTS)]
+    served = bf16_input(mx, net)
+    t0 = time.perf_counter()
+    srv = serving.Server(max_batch=SERVER_MAX_BATCH, max_wait_ms=5)
+    try:
+        h = srv.load("alexnet", block=served, example=mx.nd.array(
+            images[0][None], ctx=mx.gpu(0)))
+        load_s = time.perf_counter() - t0
+        results, errors = [None] * len(images), []
+
+        def client(k):
+            try:
+                for i in range(k, len(images), SERVER_CLIENTS):
+                        results[i] = srv.predict("alexnet", images[i])
+            except Exception as exc:       # reported below, then failed
+                errors.append(repr(exc))
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVER_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        check(not errors, "8b: a Server request failed: %s" % errors[:2])
+        _e, params, _v = srv.registry.acquire("alexnet")
+        prog = h.jit_for(1)
+        same = 0
+        for img, row in zip(images, results):
+            want = host_rows(prog(params, torch.from_numpy(img[None]).to(
+                dev)))[0]
+            same += np.asarray(row).tobytes() == want.tobytes()
+        stats = srv.stats()
+    finally:
+        srv.close()
+    out = dict(load_s=load_s, wall_s=wall, requests=len(images),
+               bit_equal_rows=same, captures=h.captures)
+    print("zoo 8b: Server(max_batch=%d) serving the bf16 alexnet: %d "
+          "one-image requests from %d client threads in %.3f s (load %.3f "
+          "s, %d programs captured); %d of %d rows bit-equal to the bucket-1 "
+          "program | %s" % (SERVER_MAX_BATCH, len(images), SERVER_CLIENTS,
+                            wall, load_s, h.captures, same, len(images),
+                            card), flush=True)
+    check(same == len(images), "8b: %d of %d served rows differ from the "
+          "bucket-1 program" % (len(images) - same, len(images)))
+    out["stats"] = {k: v for k, v in stats.items()
+                    if isinstance(v, (int, float, str))}
+    return out
+
+
+def alexnet_train(mx, card):
+    """Phase 8c: alexnet(classes=1000) in f32 (Xavier, seeded) trained by
+    the plain Gluon loop at BASELINE.md:27's batch: record,
+    SoftmaxCrossEntropyLoss, backward, gluon.Trainer('nag').step, both
+    Dropout(0.5) layers live; ALEXNET_WARMUP warm-up and ALEXNET_STEPS
+    timed steps on one batch from np.random.RandomState(0); one step
+    profiled; then each of OTHER_OPTIMIZERS takes 2 steps from the same
+    saved state (each weight tensor must move; FTRL may keep a bias at
+    0, its sparsity)."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch.convert import numpy_params
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    t0 = time.perf_counter()
+    mx.random.seed(SEED)
+    net = vision.alexnet(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    rs = np.random.RandomState(0)
+    x = mx.nd.array(rs.rand(ALEXNET_TRAIN_BATCH, 3, 224, 224).astype(
+        np.float32), ctx=mx.gpu(0))
+    y = mx.nd.array((rs.rand(ALEXNET_TRAIN_BATCH) * 1000).astype(
+        np.float32), ctx=mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.predict_mode():
+        net(x[0:1])                      # resolves the deferred shapes
+    saved = numpy_params(net)
+
+    def step(trainer):
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(ALEXNET_TRAIN_BATCH)
+        return mx.nd.mean(loss)
+
+    trainer = mx.gluon.Trainer(net.collect_params(), "nag",
+                               dict(ALEXNET_OPT))
+    losses, step_ms = [], []
+    for i in range(ALEXNET_WARMUP + ALEXNET_STEPS):
+        if i == ALEXNET_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if i == 0:
+            with conv_flops() as forward_flop:
+                with mx.autograd.predict_mode():
+                    net(x)
+            loss = step(trainer)
+        else:
+            loss = step(trainer)
+        losses.append(float(loss.asscalar()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    timed = step_ms[ALEXNET_WARMUP:]
+    mean = sum(timed) / len(timed)
+    std = (sum((v - mean) ** 2 for v in timed) / len(timed)) ** 0.5
+    flop = 3 * forward_flop[0]
+    out = dict(step_ms=timed, step_ms_mean=mean, step_ms_std=std,
+               img_per_s=ALEXNET_TRAIN_BATCH / mean * 1e3,
+               flop_per_step=flop, mfu=flop / (mean / 1e3) / H100_BF16_FLOPS,
+               peak_memory_bytes=peak, losses=losses,
+               setup_s=time.perf_counter() - t0)
+    for i, (ms, loss) in enumerate(zip(step_ms, losses)):
+        print("zoo 8c: step %d%s: %.3f ms, loss %.6f | %s"
+              % (i, " (warm-up)" if i < ALEXNET_WARMUP else "", ms, loss,
+                 card))
+    print("zoo 8c: alexnet(classes=1000) f32, gluon.Trainer(nag %s), batch "
+          "%d x 3x224x224, dropout live: %d timed steps, mean %.3f ms (std "
+          "%.3f, %.3f-%.3f), %.1f img/s, MFU %.4f (%.4e conv and dense flop "
+          "a step, 3x the forward's, over 989 TFLOP/s), peak memory "
+          "allocated %d bytes; published: 483.37 img/s on a K80 "
+          "(BASELINE.md:27) | %s"
+          % (ALEXNET_OPT, ALEXNET_TRAIN_BATCH, ALEXNET_STEPS, mean, std,
+             min(timed), max(timed), out["img_per_s"], out["mfu"], flop,
+             peak, card), flush=True)
+    check(all(math.isfinite(v) for v in losses), "8c: a loss is not finite: "
+          "%s" % losses)
+    check(losses[-1] < losses[0], "8c: the loss did not fall: %s" % losses)
+    out["profile"] = resnet_profile(
+        lambda: step(trainer).asscalar(), "8c one training step", card,
+        spans=ZOO_OP_SPANS, groups=ZOO_GROUPS)
+    # the other optimizers, each from the saved start
+    moved = {}
+    names = [n for n in saved]
+    for opt, kwargs in OTHER_OPTIMIZERS:
+        for name, p in net.collect_params().items():
+            p.set_data(mx.nd.array(saved[name], ctx=mx.gpu(0)))
+        tr = mx.gluon.Trainer(net.collect_params(), opt, dict(kwargs))
+        ls = [float(step(tr).asscalar()) for _ in range(2)]
+        now = numpy_params(net)
+        least = min(float(np.abs(now[n] - saved[n]).max()) for n in names
+                    if n.endswith("weight"))
+        key = opt + ("_centered" if kwargs.get("centered") else "")
+        moved[key] = dict(losses=ls, least_weight_move=least)
+        check(all(math.isfinite(v) for v in ls) and least > 0,
+              "8c: %s: losses %s, the least-moved weight %.3e" % (key, ls,
+                                                                  least))
+    out["other_optimizers"] = moved
+    print("zoo 8c: from one saved state, 2 steps each: %s | %s" % (
+        ", ".join("%s losses %.4f %.4f, every weight moved (least %.2e)" % (
+            k, v["losses"][0], v["losses"][1], v["least_weight_move"])
+            for k, v in moved.items()), card), flush=True)
+    del trainer, net, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def oplib_cases():
+    """The deterministic ops of ops/nn.py at AlexNet's and Inception's
+    activation shapes, as 7a's cases (family, op, params, input specs,
+    dtypes, bound key, inputs with a gradient)."""
+    s = OPLIB_SHAPES
+    c, n = s["inc_35"][1], s["inc_17"][1]
+    both = ("float32", "bfloat16")
+    return [
+        ("nn", "LRN", dict(nsize=5), [("any", s["alexnet_c1"])], both, "nn",
+         (0,)),
+        ("nn", "InstanceNorm", {}, [("any", s["inc_35"]), ("near1", (c,)),
+                                    ("any", (c,))], both, "nn", (0, 1, 2)),
+        ("nn", "LeakyReLU", dict(slope=0.1), [("any", s["inc_17"])], both,
+         "broadcast", (0,)),
+        ("nn", "LeakyReLU", dict(act_type="elu", slope=0.5),
+         [("any", s["inc_17"])], both, "transcendental", (0,)),
+        ("nn", "LeakyReLU", dict(act_type="prelu"),
+         [("any", s["inc_17"]), ("unit", (n,))], both, "nn", (0, 1)),
+        ("nn", "UpSampling", dict(scale=2), [("any", s["inc_17"])], both,
+         "nn", (0,)),
+        ("nn", "SoftmaxActivation", dict(mode="channel"),
+         [("any", s["inc_8"])], both, "nn", (0,)),
+        ("nn", "SoftmaxActivation", {}, [("any", s["inc_8"])], both, "nn",
+         (0,)),
+        ("nn", "LinearRegressionOutput", {},
+         [("any", LOSS_SHAPE), ("any", LOSS_SHAPE)], both, "nn", (0,)),
+        ("nn", "MAERegressionOutput", {},
+         [("any", LOSS_SHAPE), ("any", LOSS_SHAPE)], both, "nn", (0,)),
+        ("nn", "LogisticRegressionOutput", {},
+         [("any", LOSS_SHAPE), ("unit", LOSS_SHAPE)], both, "nn", (0,)),
+        ("nn", "SVMOutput", dict(margin=0.5), [("any", LOSS_SHAPE),
+                                               ("small", (LOSS_SHAPE[0],))],
+         ("float32",), "nn", (0,)),
+    ]
+
+
+def _upsampling_bilinear(mx, np, rs, card):
+    """Bilinear UpSampling (MXNet's grouped Deconvolution with the
+    Bilinear weight) at Inception's 17x17 map, card against CPU, under
+    sync-debug mode "error"."""
+    import torch
+    x = sweep_input(rs, "any", OPLIB_SHAPES["inc_17"])
+    c = x.shape[1]
+    outs = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        w = mx.nd.zeros((c, 1, 4, 4), ctx=ctx)
+        mx.init.Bilinear()(mx.initializer.InitDesc("up_weight"), w)
+        xs = mx.nd.array(x, ctx=ctx)
+        with card_calls(ctx, torch):
+            y = mx.nd.UpSampling(xs, w, scale=2, sample_type="bilinear",
+                                 num_filter=c)
+        outs[ctx.device_type] = y._data
+    return _ulp_err(outs["gpu"], outs["cpu"], "max")
+
+
+def _update_inputs(rs, np, names):
+    """fc6-shaped f32 update inputs: the weight, its gradient, and states
+    (``var``-named states non-negative)."""
+    f = lambda scale: (rs.standard_normal(FC6) * scale).astype(np.float32)
+    make = {"w": lambda: f(0.01), "g": lambda: f(1e-3),
+            "mom": lambda: f(1e-4), "var": lambda: np.abs(f(1e-4)),
+            "mean": lambda: f(1e-5)}
+    return [make[n]() for n in names]
+
+
+# each update op's inputs and parameters (module 6), at fc6's shape
+UPDATE_CASES = (
+    ("nag_mom_update", ("w", "g", "mom"), dict(lr=0.01, momentum=0.9,
+                                               wd=1e-4)),
+    ("rmsprop_update", ("w", "g", "var"), dict(lr=1e-3, gamma1=0.9,
+                                               clip_weights=1.0)),
+    ("rmspropalex_update", ("w", "g", "var", "mom", "mean"),
+     dict(lr=1e-3, gamma1=0.9, gamma2=0.9, epsilon=1e-4)),
+    ("ftrl_update", ("w", "g", "mom", "var"), dict(lr=0.1, lamda1=1e-3)),
+    ("ftml_update", ("w", "g", "var", "var", "mom"), dict(lr=1e-3, t=3)),
+    ("signsgd_update", ("w", "g"), dict(lr=1e-3, wd=1e-4)),
+    ("signum_update", ("w", "g", "mom"), dict(lr=1e-3, momentum=0.9,
+                                              wd_lh=1e-4)),
+)
+
+
+def updates_on_card(mx, rs):
+    """8d: each update op of this slice at fc6's shape in f32, on CUDA
+    tensors under sync-debug mode "error" against the CPU: the new weight
+    and every state written back, within UPDATE_ULP ulps at its largest
+    value; then each of MP_OPTIMIZERS on a bf16 weight of that shape
+    through ``multi_precision`` (an f32 master copy), 2 steps, the bf16
+    weights within MP_ULP bf16 ulps at their largest value, where the
+    CPU's 2 steps moved them at least MP_MOVE_ULP.  Returns the largest
+    errors and (``*_move``) the CPU's moves, in those ulps."""
+    import numpy as np
+    import torch
+    worst = {}
+    for name, names, params in UPDATE_CASES:
+        arrays = _update_inputs(rs, np, names)
+        res = {}
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            xs = [mx.nd.array(a, ctx=ctx) for a in arrays]
+            with card_calls(ctx, torch):
+                getattr(mx.nd, name)(*xs, out=xs[0], **params)
+            res[ctx.device_type] = [x._data for i, x in enumerate(xs)
+                                    if i != 1]
+        err = max(_ulp_err(g, w, "max") for g, w in zip(res["gpu"],
+                                                         res["cpu"]))
+        worst[name] = err
+        check(err <= UPDATE_ULP, "8d: %s: %.3g ulp above %d"
+              % (name, err, UPDATE_ULP))
+    grad = (rs.standard_normal(FC6) * MP_GRAD).astype(np.float32)
+    w0 = (rs.standard_normal(FC6) * 0.01).astype(np.float32)
+    for opt, kwargs in MP_OPTIMIZERS:
+        res = {}
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            o = mx.optimizer.create(opt, multi_precision=True, **kwargs)
+            upd = mx.optimizer.get_updater(o)
+            w = mx.nd.array(w0, ctx=ctx).astype("bfloat16")
+            res["start"] = w._data.clone()
+            g = mx.nd.array(grad, ctx=ctx).astype("bfloat16")
+            for _ in range(2):
+                upd(0, g, w)
+            res[ctx.device_type] = w._data
+        key = "mp_" + opt + ("_centered" if kwargs.get("centered") else "")
+        worst[key] = _ulp_err(res["gpu"], res["cpu"], "max")
+        moved = _ulp_err(res["start"], res["cpu"], "max")
+        worst[key + "_move"] = moved
+        check(worst[key] <= MP_ULP and moved >= MP_MOVE_ULP,
+              "8d: %s: bf16 weights %.3g ulp apart (bound %d), the CPU's "
+              "update moved them %.3g ulp (at least %d)"
+              % (key, worst[key], MP_ULP, moved, MP_MOVE_ULP))
+    return worst
+
+
+# the losses of module 8 at (256, 1000): (class, kwargs, label kind)
+LOSS_CASES = (
+    ("L1Loss", {}, "any"), ("SigmoidBinaryCrossEntropyLoss", {}, "bits"),
+    ("SigmoidBinaryCrossEntropyLoss", {"from_sigmoid": True}, "bits"),
+    ("KLDivLoss", {"from_logits": False}, "probs"), ("HuberLoss", {}, "any"),
+    ("HingeLoss", {}, "signs"), ("SquaredHingeLoss", {}, "signs"),
+    ("LogisticLoss", {}, "signs"),
+    ("LogisticLoss", {"label_format": "binary"}, "bits"),
+    ("TripletLoss", {}, "any"),
+)
+
+
+def losses_on_card(mx, rs):
+    """8d: each loss at LOSS_SHAPE on CUDA tensors against the CPU,
+    forward and the prediction's gradient, under sync-debug mode "error",
+    within LOSS_REL of the largest value.  Returns the largest errors."""
+    import numpy as np
+    import torch
+    worst = {}
+    for name, kwargs, kind in LOSS_CASES:
+        pred = sweep_input(rs, "any", LOSS_SHAPE)
+        if kwargs.get("from_sigmoid"):
+            pred = 1 / (1 + np.exp(-pred))
+        label = {"any": lambda: sweep_input(rs, "any", LOSS_SHAPE),
+                 "bits": lambda: (rs.random(LOSS_SHAPE) < 0.5).astype(
+                     np.float32),
+                 "signs": lambda: np.where(rs.random(LOSS_SHAPE) < 0.5, -1,
+                                           1).astype(np.float32),
+                 "probs": lambda: (lambda p: p / p.sum(-1, keepdims=True))(
+                     rs.random(LOSS_SHAPE, dtype=np.float32) + 0.05)}[kind]()
+        extra = [sweep_input(rs, "any", LOSS_SHAPE)] \
+            if name == "TripletLoss" else []
+        res = {}
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            loss_fn = getattr(mx.gluon.loss, name)(**kwargs)
+            p = mx.nd.array(pred, ctx=ctx)
+            args = [mx.nd.array(a, ctx=ctx) for a in [label] + extra]
+            p.attach_grad()
+            with card_calls(ctx, torch):
+                with mx.autograd.record():
+                    loss = loss_fn(p, *args)
+                loss.backward()
+            res[ctx.device_type] = (loss.asnumpy(), p.grad.asnumpy())
+        key = name + "".join("_%s" % v for v in kwargs.values())
+        worst[key] = max(
+            float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30)
+            for g, w in zip(res["gpu"], res["cpu"]))
+        check(worst[key] <= LOSS_REL, "8d: %s: card vs CPU %.3e of the "
+              "largest value" % (key, worst[key]))
+    return worst
+
+
+def _spd(np, rs, n, s):
+    """``s`` symmetric positive definite n x n matrices Q·diag(λ)·Qᵀ with
+    the eigenvalues λ spread evenly over [1, 2]: well conditioned, and
+    with gaps of 1/n between eigenvalues, so that the eigenvectors are too
+    (a Wishart matrix's smallest eigenvalues lie ~1e-5 apart, which moved
+    syevd's vectors by 0.42 between card and CPU in call 1 of PR 14)."""
+    q = np.linalg.qr(rs.standard_normal((s, n, n)))[0]
+    lam = np.linspace(1.0, 2.0, n)
+    return ((q * lam) @ q.transpose(0, 2, 1)).astype(np.float32)
+
+
+def linalg_on_card(mx, rs):
+    """8d: the linalg ops on LINALG_STACK stacked LINALG_N x LINALG_N
+    well-conditioned matrices and fft/ifft at FFT_SHAPE, on CUDA tensors
+    against the CPU, forward and backward, each output within LINALG_REL of
+    its largest value; under sync-debug mode "error" but ``syevd``, which
+    waits for the card (cuSOLVER's ``info``, read by ``eigh``): its
+    eigenvalues and U·A·Uᵀ = diag(L) within LINALG_REL, its vectors up to
+    a sign per row within SYEVD_VECTOR_REL.  Returns the largest errors."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch.ops.registry import get_op
+    s, n = LINALG_STACK, LINALG_N
+    a = (rs.standard_normal((s, n, n)) / np.sqrt(n)).astype(np.float32)
+    b = (rs.standard_normal((s, n, n)) / np.sqrt(n)).astype(np.float32)
+    low = (np.tril(a) + 2 * np.eye(n)).astype(np.float32)
+    spd = _spd(np, rs, n, s)
+    chol = np.linalg.cholesky(spd.astype(np.float64)).astype(np.float32)
+    wide = a[:, : n // 2]
+    cases = [("_linalg_gemm", [a, b, a], dict(alpha=0.5, beta=2.0),
+              (0, 1, 2)),
+             ("_linalg_gemm2", [a, b], dict(transpose_b=True), (0, 1)),
+             ("_linalg_potrf", [spd], {}, (0,)),
+             ("_linalg_potri", [chol], {}, (0,)),
+             ("_linalg_trmm", [low, b], dict(rightside=True), (0, 1)),
+             ("_linalg_trsm", [low, b], dict(transpose=True), (0, 1)),
+             ("_linalg_sumlogdiag", [spd], {}, (0,)),
+             ("_linalg_syrk", [a], dict(alpha=0.5), (0,)),
+             ("_linalg_gelqf", [wide], {}, (0,)),
+             ("_contrib_fft", [sweep_input(rs, "any", FFT_SHAPE)], {}, (0,)),
+             ("_contrib_ifft", [sweep_input(rs, "any", FFT_SHAPE)], {},
+              (0,))]
+    worst = {}
+    heads = {}
+    for name, arrays, params, grads in cases:
+        want = _sweep_run(mx, get_op(name), arrays, params, "float32",
+                          mx.cpu(), heads, grads)
+        got = _sweep_run(mx, get_op(name), arrays, params, "float32",
+                         mx.gpu(0), heads, grads)
+        err = 0.0
+        for gt, wt in zip(got[0] + got[1], want[0] + want[1]):
+            w = wt.detach().double()
+            err = max(err, float((gt.detach().cpu().double() - w).abs().max()) /
+                      max(float(w.abs().max()), 1e-30))
+        worst[name] = err
+        check(err <= LINALG_REL, "8d: %s: card vs CPU %.3e of the largest "
+              "value" % (name, err))
+    # syevd (waits for the card): the eigenvalues, U·A·Uᵀ = diag(L) on the
+    # card, and the vectors up to a sign per row against the CPU's
+    res = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        u, lam = mx.nd.linalg.syevd(mx.nd.array(spd, ctx=ctx))
+        res[ctx.device_type] = (u.asnumpy().astype(np.float64),
+                                lam.asnumpy().astype(np.float64))
+    (gu, gl), (wu, wl) = res["gpu"], res["cpu"]
+    sign = np.sign((gu * wu).sum(-1, keepdims=True))
+    diag = gu @ spd.astype(np.float64) @ gu.transpose(0, 2, 1)
+    worst["_linalg_syevd"] = max(
+        float(np.abs(gl - wl).max() / np.abs(wl).max()),
+        float(np.abs(diag - gl[..., None] * np.eye(n)).max() /
+              np.abs(gl).max()))
+    worst["_linalg_syevd_vectors"] = float(np.abs(gu * sign - wu).max() /
+                                           np.abs(wu).max())
+    check(worst["_linalg_syevd"] <= LINALG_REL and
+          worst["_linalg_syevd_vectors"] <= SYEVD_VECTOR_REL,
+          "8d: syevd: eigenvalues and U·A·Uᵀ %.3e, vectors %.3e, card vs "
+          "CPU" % (worst["_linalg_syevd"], worst["_linalg_syevd_vectors"]))
+    return worst
+
+
+def initializers_on_card(mx):
+    """8d: the deterministic initializers fill the same values on the card
+    as on the CPU, bit for bit."""
+    import numpy as np
+    cases = [(mx.init.Bilinear(), "up_weight", (64, 1, 8, 8)),
+             (mx.init.LSTMBias(forget_bias=1.5), "lstm_bias", (4096,)),
+             (mx.init.Constant(0.3), "w_weight", FC6),
+             (mx.init.One(), "w_weight", FC6),
+             (mx.init.Load({"arg:w_weight": np.arange(12.0).reshape(3, 4)}),
+              "w_weight", (3, 4)),
+             (mx.init.Mixed(["up.*", ".*"], [mx.init.Bilinear(),
+                                             mx.init.Zero()]),
+              "up_weight", (8, 2, 4, 4))]
+    for init, name, shape in cases:
+        vals = []
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            arr = mx.nd.zeros(shape, ctx=ctx)
+            init(mx.initializer.InitDesc(name), arr)
+            vals.append(arr.asnumpy())
+        check(np.array_equal(vals[0], vals[1]), "8d: %s fills other values "
+              "on the card" % type(init).__name__)
+    return len(cases)
+
+
+def op_library(mx, card):
+    """Phase 8d: the op library of this slice on CUDA tensors against the
+    port's CPU result for the same numpy inputs, forward and backward,
+    under sync-debug mode "error" (only syevd exempt): the nn ops
+    (:func:`oplib_cases`, 7a's harness), bilinear UpSampling, the update
+    ops and optimizers, the losses, the linalg ops, the deterministic
+    initializers.  One line each."""
+    import numpy as np
+    t0 = time.perf_counter()
+    rs = np.random.default_rng(SEED + 10)
+    out = {}
+    nn = dict(cases=0, max_ulp=0.0, worst_case=None)
+    for case in oplib_cases():
+        for dtype in case[4]:
+            worst, _bound = sweep_case(mx, case, dtype, rs)
+            nn["cases"] += 1
+            if worst > nn["max_ulp"]:
+                nn["max_ulp"] = worst
+                nn["worst_case"] = "%s %s %s" % (case[1], case[2], dtype)
+    nn["upsampling_bilinear_ulp"] = _upsampling_bilinear(mx, np, rs, card)
+    check(nn["upsampling_bilinear_ulp"] <= SWEEP_ULP["nn"][0][0][0],
+          "8d: bilinear UpSampling %.3g ulp" % nn["upsampling_bilinear_ulp"])
+    out["nn"] = nn
+    print("oplib 8d nn: %d cases (f32 and bf16) at AlexNet's and "
+          "Inception's activation shapes %s, max error %.3g ulp (%s; bounds "
+          "f32 %s, bf16 %s); bilinear UpSampling %.3g ulp | %s"
+          % (nn["cases"], OPLIB_SHAPES, nn["max_ulp"], nn["worst_case"],
+             SWEEP_ULP["nn"][0], SWEEP_ULP["nn"][1],
+             nn["upsampling_bilinear_ulp"], card), flush=True)
+    out["updates"] = updates_on_card(mx, rs)
+    print("oplib 8d updates: at fc6's shape %s, card vs CPU in ulps "
+          "(f32 ops bound %d; bf16 weights through multi_precision bound "
+          "%d where the CPU moved them at least %d): %s | %s" % (
+              FC6, UPDATE_ULP, MP_ULP, MP_MOVE_ULP, json.dumps(
+              {k: round(v, 3) for k, v in out["updates"].items()}), card),
+          flush=True)
+    out["losses"] = losses_on_card(mx, rs)
+    print("oplib 8d losses: at %s, card vs CPU (forward and gradient, of "
+          "the largest value; bound %.0e): %s | %s" % (
+              LOSS_SHAPE, LOSS_REL, json.dumps(
+                  {k: "%.2e" % v for k, v in out["losses"].items()}), card),
+          flush=True)
+    out["linalg"] = linalg_on_card(mx, rs)
+    print("oplib 8d linalg: %d stacked %dx%d matrices, fft/ifft at %s, "
+          "card vs CPU (forward and gradient, of the largest value; bound "
+          "%.0e; syevd outside sync-debug mode: eigenvalues and U·A·Uᵀ to "
+          "that bound, vectors up to a sign per row to %.0e): %s | %s"
+          % (LINALG_STACK, LINALG_N, LINALG_N, FFT_SHAPE, LINALG_REL,
+             SYEVD_VECTOR_REL, json.dumps({k: "%.2e" % v for k, v in
+                                           out["linalg"].items()}), card),
+          flush=True)
+    out["initializers"] = initializers_on_card(mx)
+    out["seconds"] = time.perf_counter() - t0
+    print("oplib 8d: %d deterministic initializers bit-equal on the card; "
+          "8d in %.1f s | %s" % (out["initializers"], out["seconds"], card),
+          flush=True)
+    return out
+
+
+def _moments(x, mean, var, m4):
+    """(|mean - μ| / SE, |var - σ²| / SE) of the draws ``x`` on the card,
+    in float64; ``m4`` the fourth central moment."""
+    x = x.double().flatten()
+    n = x.numel()
+    m, v = float(x.mean()), float(x.var(unbiased=False))
+    return (abs(m - mean) / math.sqrt(var / n),
+            abs(v - var) / math.sqrt(max(m4 - var * var, 1e-30) / n))
+
+
+def _ks(np, x, cdf):
+    """Kolmogorov-Smirnov distance of the draws against ``cdf`` (scipy)."""
+    xs = np.sort(x.double().cpu().numpy())
+    f = cdf(xs)
+    n = xs.size
+    i = np.arange(1, n + 1)
+    return float(max((i / n - f).max(), (f - (i - 1) / n).max()))
+
+
+def random_draws(mx, card):
+    """Phase 8e: the samplers on the card, RANDOM_N draws each (f32; uniform
+    and normal also bf16), drawn under sync-debug mode "error": mean and
+    variance within 6 standard errors, the KS distance against scipy's CDF
+    below the large-n bound at p = RANDOM_P, multinomial frequencies by
+    chi-square, shuffle a permutation of whole rows, Dropout's keep share,
+    values and gradient, rrelu's slopes in their range, and every draw
+    bit-equal after the same ``mx.random.seed`` with torch's default
+    generators reseeded in between."""
+    import numpy as np
+    import scipy.stats as st
+    import torch
+    gpu = mx.gpu(0)
+    n = RANDOM_N
+    t0 = time.perf_counter()
+    ks_bound = math.sqrt(-math.log(RANDOM_P / 2) / (2 * n))
+
+    def gm4(a, b):
+        return 3 * a * (a + 2) * b ** 4
+    # (name, draw, mean, var, 4th central moment, scipy cdf or None)
+    samplers = [
+        ("uniform", lambda d: mx.random.uniform(-1, 3, shape=(n,), ctx=gpu,
+                                                dtype=d),
+         1.0, 16 / 12, 256 / 80, st.uniform(-1, 4).cdf),
+        ("normal", lambda d: mx.random.normal(2, 0.5, shape=(n,), ctx=gpu,
+                                              dtype=d),
+         2.0, 0.25, 3 * 0.0625, st.norm(2, 0.5).cdf),
+        ("exponential", lambda d: mx.random.exponential(
+            4.0, shape=(n,), ctx=gpu), 0.25, 1 / 16, 9 / 256,
+         st.expon(scale=0.25).cdf),
+        ("gamma_0.5", lambda d: mx.random.gamma(0.5, 2.0, shape=(n,),
+                                                ctx=gpu),
+         1.0, 2.0, gm4(0.5, 2.0), st.gamma(0.5, scale=2.0).cdf),
+        ("gamma_2", lambda d: mx.random.gamma(2.0, 1.0, shape=(n,), ctx=gpu),
+         2.0, 2.0, gm4(2.0, 1.0), st.gamma(2.0).cdf),
+        ("gamma_9", lambda d: mx.random.gamma(9.0, 0.5, shape=(n,), ctx=gpu),
+         4.5, 2.25, gm4(9.0, 0.5), st.gamma(9.0, scale=0.5).cdf),
+        ("poisson", lambda d: mx.random.poisson(3.5, shape=(n,), ctx=gpu),
+         3.5, 3.5, 3.5 + 3 * 3.5 ** 2, None),
+        ("negative_binomial", lambda d: mx.random.negative_binomial(
+            4, 0.3, shape=(n,), ctx=gpu), 4 * 0.7 / 0.3, 4 * 0.7 / 0.09,
+         None, None),
+        ("generalized_negative_binomial",
+         lambda d: mx.random.generalized_negative_binomial(
+             2.0, 0.5, shape=(n,), ctx=gpu), 2.0, 4.0, None, None),
+    ]
+    out = {}
+    mx.random.seed(SEED)
+    for name, draw, mean, var, m4, cdf in samplers:
+        dtypes = ("float32", "bfloat16") if name in ("uniform", "normal") \
+            else ("float32",)
+        for dtype in dtypes:
+            with card_calls(gpu, torch):
+                x = draw(dtype)._data
+            check(x.device.type == "cuda" and x.numel() == n,
+                  "8e: %s drew %s on %s" % (name, tuple(x.shape), x.device))
+            fourth = m4 if m4 is not None else float(
+                ((x.double() - x.double().mean()) ** 4).mean())
+            zm, zv = _moments(x, mean, var, fourth)
+            key = "%s_%s" % (name, dtype)
+            res = dict(mean_se=zm, var_se=zv)
+            if cdf is not None and dtype == "float32":
+                res["ks"] = _ks(np, x, cdf)
+            out[key] = res
+            check(zm <= 6 and zv <= 6, "8e: %s: mean %.2f, variance %.2f "
+                  "standard errors off" % (key, zm, zv))
+            check(res.get("ks", 0.0) <= ks_bound, "8e: %s: KS %.3e above "
+                  "%.3e" % (key, res.get("ks", 0.0), ks_bound))
+            if name == "uniform":
+                check(float(x.min()) >= -1 and float(x.max()) < 3,
+                      "8e: uniform %s outside [-1, 3)" % dtype)
+            del x
+    # multinomial: class frequencies by chi-square, per row
+    p = torch.tensor([[0.05, 0.15, 0.3, 0.5], [0.5, 0.3, 0.15, 0.05]],
+                     device="cuda")
+    probs = mx.nd.NDArray(p)
+    with card_calls(gpu, torch):
+        ids = mx.random.multinomial(probs, shape=n // 4)._data
+    chi = []
+    for row, q in zip(ids, p.double().cpu().numpy()):
+        counts = torch.bincount(row.long(), minlength=4).cpu().numpy()
+        chi.append(float(st.chisquare(counts, q / q.sum() * row.numel())
+                         .pvalue))
+    out["multinomial_chi2_p"] = chi
+    check(min(chi) > RANDOM_P, "8e: multinomial frequencies, chi-square p "
+          "%s" % chi)
+    # shuffle: a permutation of whole rows
+    rows = n // 16
+    data = torch.arange(rows, device="cuda", dtype=torch.float32)[:, None] \
+        * 4 + torch.arange(4, device="cuda", dtype=torch.float32)
+    with card_calls(gpu, torch):
+        sh = mx.random.shuffle(mx.nd.NDArray(data))._data
+    ok = torch.equal(torch.sort(sh[:, 0])[0], data[:, 0]) and torch.equal(
+        sh - sh[:, :1], data - data[:, :1]) and not torch.equal(sh, data)
+    out["shuffle_rows"] = rows
+    check(ok, "8e: shuffle is not a permutation of whole rows")
+    # dropout: keep share, kept values, gradient
+    pdrop = 0.5
+    x = mx.nd.array(np.random.RandomState(SEED).uniform(
+        0.5, 2.0, (256, 4096)).astype(np.float32), ctx=gpu)
+    x.attach_grad()
+    with card_calls(gpu, torch):
+        with mx.autograd.record():
+            y = mx.nd.Dropout(x, p=pdrop)
+        y.backward()
+    yt, xt, gt = y._data, x._data, x.grad._data
+    mask = yt != 0
+    keep = torch.full((), 1 - pdrop, device="cuda")
+    share = float(mask.float().mean())
+    sigma = math.sqrt(pdrop * (1 - pdrop) / mask.numel())
+    values = torch.equal(yt[mask], (xt / keep)[mask])
+    grads = torch.equal(gt, torch.where(mask, 1 / keep, torch.zeros_like(gt)))
+    out["dropout"] = dict(keep_share=share, sigmas=abs(share - 0.5) / sigma,
+                          values=values, gradient=grads)
+    check(abs(share - (1 - pdrop)) <= 6 * sigma and values and grads,
+          "8e: dropout keep share %.5f, values %s, gradient %s"
+          % (share, values, grads))
+    # rrelu: n slopes in f32 and bf16 on x = -1 (the output is minus the
+    # slope, exactly), in [lower, upper) and by their moments
+    lo, hi = 0.1, 0.3
+    slopes = {}
+    for dtype in ("float32", "bfloat16"):
+        neg = mx.nd.full((n,), -1.0, ctx=gpu, dtype=dtype)
+        with card_calls(gpu, torch):
+            with mx.autograd.train_mode():
+                r = -mx.nd.LeakyReLU(neg, act_type="rrelu", lower_bound=lo,
+                                     upper_bound=hi)._data
+        zm, zv = _moments(r, (lo + hi) / 2, (hi - lo) ** 2 / 12,
+                          (hi - lo) ** 4 / 80)
+        least, most = float(r.min()), float(r.max())
+        slopes[dtype] = dict(mean_se=zm, var_se=zv, least=least, most=most)
+        check(lo <= least and most < hi and zm <= 6 and zv <= 6,
+              "8e: rrelu %s slopes in [%.4f, %.4f], mean %.2f, variance "
+              "%.2f standard errors off" % (dtype, least, most, zm, zv))
+        del neg, r
+    out["rrelu_slopes"] = slopes
+    # seeds: every sampler again after the same seed, default generators
+    # reseeded in between
+    def all_draws():
+        outs = []
+        with card_calls(gpu, torch):
+            for name, draw, *_ in samplers:
+                outs.append(draw("float32")._data[:4096].clone())
+            outs.append(mx.random.multinomial(probs, shape=64)._data)
+            outs.append(mx.random.shuffle(mx.nd.NDArray(data))._data[:64])
+            with mx.autograd.train_mode():
+                outs.append(mx.nd.Dropout(x, p=0.5)._data[:4])
+        return outs
+    mx.random.seed(SEED + 5)
+    torch.manual_seed(1)
+    torch.cuda.manual_seed_all(1)
+    first = all_draws()
+    mx.random.seed(SEED + 5)
+    torch.manual_seed(2)
+    torch.cuda.manual_seed_all(2)
+    again = all_draws()
+    mx.random.seed(SEED + 6)
+    other = all_draws()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    differ = sum(not torch.equal(a, b) for a, b in zip(first, other))
+    out["seed_bit_equal"] = same
+    check(same and differ == len(first), "8e: draws after the same seed "
+          "equal %s; %d of %d differ under another" % (same, differ,
+                                                      len(first)))
+    out["seconds"] = time.perf_counter() - t0
+    print("random 8e: %d draws a sampler on the card (KS bound %.3e at p = "
+          "%.0e): %s; multinomial chi-square p %s; shuffle of %d rows a "
+          "permutation; dropout keep share %.5f (%.2f sigma), kept x/keep "
+          "and gradient mask/keep exact; rrelu slopes in [%g, %g) %s; every "
+          "draw bit-equal after the same seed with torch's default "
+          "generators reseeded; %.1f s | %s"
+          % (n, ks_bound, RANDOM_P, json.dumps(
+              {k: {m: round(v, 6) for m, v in r.items()}
+               for k, r in out.items() if isinstance(r, dict) and
+               "mean_se" in r}), ["%.3g" % v for v in chi], rows, share,
+             out["dropout"]["sigmas"], lo, hi, json.dumps(
+                 {d: {m: round(v, 6) for m, v in r.items()}
+                  for d, r in slopes.items()}), out["seconds"], card),
+          flush=True)
+    return out
 
 
 def main():
@@ -3943,6 +5001,14 @@ def main():
     arrays = dict(sweep=array_sweep(mx, card),
                   checkpoint=checkpoint_cycle(mx, card))
 
+    # phase 8: the rest of the zoo and of the op library (no hand kernel)
+    t8 = time.perf_counter()
+    zoo = dict(parity=zoo_parity(mx, card), serve=zoo_serve(mx, card),
+               train=alexnet_train(mx, card), oplib=op_library(mx, card),
+               random=random_draws(mx, card))
+    zoo["seconds"] = time.perf_counter() - t8
+    print("zoo: phase 8 in %.1f s | %s" % (zoo["seconds"], card), flush=True)
+
     def entry(name, source, design, launches_, err, t,
               replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3962,6 +5028,7 @@ def main():
                                          backward_errs)), flush=True)
     print("resnet: summary " + json.dumps(resnet, default=str), flush=True)
     print("arrays: summary " + json.dumps(arrays, default=str), flush=True)
+    print("zoo: summary " + json.dumps(zoo, default=str), flush=True)
     print(json.dumps({"kernels": [
         entry("flash_attention_fwd", BF16_SOURCE, FLASH_DESIGN,
               launches["flash_attention_fwd"], errs[serving], bf16,

@@ -1,15 +1,18 @@
-"""Gluon losses (counterpart of ``incubator_mxnet_tpu/gluon/loss.py``:20-123).
+"""Gluon losses (counterpart of ``incubator_mxnet_tpu/gluon/loss.py``).
 
-``Loss``, ``_apply_weighting``, ``L2Loss`` and ``SoftmaxCrossEntropyLoss``,
-composed from registry ops as in the JAX build: ``sample_weight``
-broadcasting, a ``batch_axis``-aware mean, the ``sparse_label`` and
-``from_logits`` switches.  The other losses are not ported yet.
+Every loss of the JAX build but ``CTCLoss`` (whose op waits for the RNN
+ops, ROADMAP item 8), composed from registry ops as in the JAX build:
+``sample_weight`` broadcasting, a ``batch_axis``-aware mean, the
+``sparse_label``/``from_logits``/``from_sigmoid`` switches.
 """
 from __future__ import annotations
 
 from .block import HybridBlock
 
-__all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+__all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
+           "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
+           "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
+           "LogisticLoss", "TripletLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -57,6 +60,52 @@ class L2Loss(Loss):
         return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
+class L1Loss(Loss):
+    """|pred - label|, averaged over all but the batch axis (ref: loss.py
+    class L1Loss)."""
+
+    def __init__(self, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.abs(pred - label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+def _logistic(F, pred, label):
+    """max(x, 0) - x·z + log(1 + exp(-|x|)): binary cross-entropy of
+    logits, stable for either sign."""
+    return F.relu(pred) - pred * label + \
+        F.Activation(-F.abs(pred), act_type="softrelu")
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """Binary cross-entropy (ref: loss.py class
+    SigmoidBinaryCrossEntropyLoss): of logits, or of probabilities with
+    ``from_sigmoid`` (log(p + 1e-12) terms)."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        if not self._from_sigmoid:
+            loss = _logistic(F, pred, label)
+        else:
+            eps = 1e-12
+            loss = -(F.log(pred + eps) * label
+                     + F.log(1. - pred + eps) * (1. - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
+
+
 class SoftmaxCrossEntropyLoss(Loss):
     """-log softmax(pred)[label] per sample (ref: loss.py class
     SoftmaxCrossEntropyLoss): ``sparse_label`` picks the label's entry along
@@ -83,3 +132,104 @@ class SoftmaxCrossEntropyLoss(Loss):
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    """label·(log(label + 1e-12) - pred), ``pred`` log-probabilities (or
+    logits, ``from_logits=False``) (ref: loss.py class KLDivLoss)."""
+
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class HuberLoss(Loss):
+    """|d| - rho/2 above ``rho``, d²/(2·rho) below (ref: loss.py class
+    HuberLoss)."""
+
+    def __init__(self, rho=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.abs(pred - label)
+        loss = F.where(loss > self._rho, loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class HingeLoss(Loss):
+    """max(0, margin - pred·label) (ref: loss.py class HingeLoss)."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class SquaredHingeLoss(Loss):
+    """max(0, margin - pred·label)² (ref: loss.py class SquaredHingeLoss)."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class LogisticLoss(Loss):
+    """log(1 + exp(-pred·label)) for labels in {-1, 1} (``signed``) or
+    {0, 1} (``binary``) (ref: loss.py class LogisticLoss)."""
+
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._label_format = label_format
+        if self._label_format not in ["signed", "binary"]:
+            raise ValueError("label_format can only be signed or binary, "
+                             "recieved %s." % label_format)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = _logistic(F, pred, label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class TripletLoss(Loss):
+    """max(‖a - p‖² - ‖a - n‖² + margin, 0) over all but the batch axis
+    (ref: loss.py class TripletLoss)."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative):
+        positive = _reshape_like(F, positive, pred)
+        negative = _reshape_like(F, negative, pred)
+        loss = F.sum(F.square(pred - positive) - F.square(pred - negative),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, None)

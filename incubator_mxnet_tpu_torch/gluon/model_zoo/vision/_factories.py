@@ -1,6 +1,10 @@
-"""Shared helper for stamping spec-driven model factories into a module
-(counterpart of ``incubator_mxnet_tpu/gluon/model_zoo/vision/_factories.py``)."""
+"""Shared helpers of the zoo's factories: stamping spec-driven factories
+into a module (counterpart of
+``incubator_mxnet_tpu/gluon/model_zoo/vision/_factories.py``), and the
+error every factory raises for ``pretrained=True``."""
 from __future__ import annotations
+
+from ....base import MXNetError
 
 
 def stamp_factory(module_globals, name, doc, builder, *args, **forced_kwargs):
@@ -19,3 +23,12 @@ def stamp_factory(module_globals, name, doc, builder, *args, **forced_kwargs):
     ctor.__doc__ = doc
     module_globals[name] = ctor
     return ctor
+
+
+def no_pretrained(name):
+    """The error ``pretrained=True`` raises: the zoo's weight files are not
+    in the repository and nothing is downloaded."""
+    return MXNetError(
+        "pretrained %s: the model zoo's weight files are not in the "
+        "repository and nothing is downloaded; load weights with "
+        "convert.load_numpy_params" % name)

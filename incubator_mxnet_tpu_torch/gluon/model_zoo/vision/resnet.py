@@ -13,10 +13,10 @@ zoo's weight files are not in the repository and nothing is downloaded.
 """
 from __future__ import annotations
 
-from ....base import MXNetError
 from ...block import HybridBlock
 from ...nn import (HybridSequential, Conv2D, BatchNorm, Activation, Dense,
                    MaxPool2D, GlobalAvgPool2D, Flatten)
+from ._factories import no_pretrained
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
@@ -215,10 +215,7 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
         raise ValueError("Invalid resnet version: %d. Options are 1 and 2."
                          % version)
     if pretrained:
-        raise MXNetError(
-            "pretrained resnet%d_v%d: the model zoo's weight files are not in "
-            "the repository and nothing is downloaded; load weights with "
-            "convert.load_numpy_params" % (num_layers, version))
+        raise no_pretrained("resnet%d_v%d" % (num_layers, version))
     kind, layers, channels = resnet_spec[num_layers]
     return resnet_net_versions[version - 1](
         resnet_block_versions[version - 1][kind], layers, channels, **kwargs)

@@ -1,24 +1,56 @@
 """Basic Gluon layers (counterpart of ``incubator_mxnet_tpu/gluon/nn/basic_layers.py``).
 
-``HybridSequential`` :53, ``Dense`` :82, ``Activation`` :137,
-``BatchNorm`` :171, ``LayerNorm`` :287, ``Embedding`` :320 and ``Flatten``
-:343, with the same parameter naming.
+``Sequential`` :21, ``HybridSequential`` :53, ``Dense`` :82,
+``Activation`` :137, ``Dropout`` :155, ``BatchNorm`` :171,
+``InstanceNorm`` :255, ``LayerNorm`` :287, ``Embedding`` :320, ``Flatten``
+:343, ``Lambda`` :353 and ``HybridLambda`` :379, with the same parameter
+naming.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 from ... import autograd, initializer
 from ...base import dtype_name
 
-__all__ = ["HybridSequential", "Dense", "Activation", "BatchNorm",
-           "LayerNorm", "Embedding", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
+           "Dropout", "BatchNorm", "InstanceNorm", "LayerNorm", "Embedding",
+           "Flatten", "Lambda", "HybridLambda"]
 
 
 def _init(spec):
     return initializer.create(spec) if isinstance(spec, str) else spec
+
+
+class Sequential(Block):
+    """Stack of Blocks run in order (ref: basic_layers.py class
+    Sequential)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x):
+        for block in self._children:
+            x = block(x)
+        return x
+
+    def __repr__(self):
+        s = "{name}(\n{modstr}\n)"
+        modstr = "\n".join("  ({key}): {block}".format(key=key, block=block)
+                           for key, block in enumerate(self._children))
+        return s.format(name=self.__class__.__name__, modstr=modstr)
+
+    def __getitem__(self, key):
+        return self._children[key]
+
+    def __len__(self):
+        return len(self._children)
 
 
 class HybridSequential(HybridBlock):
@@ -97,6 +129,25 @@ class Activation(HybridBlock):
         return F.Activation(x, act_type=self._act_type)
 
 
+class Dropout(HybridBlock):
+    """Inverted dropout in training (ref: basic_layers.py class Dropout →
+    Dropout op): each element kept with probability 1 - rate and scaled by
+    1 / (1 - rate); ``axes`` share one draw along them.  In predict mode
+    the input passes unchanged and nothing is drawn."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+    def __repr__(self):
+        return "{name}(p = {_rate}, axes={_axes})".format(
+            name=self.__class__.__name__, _rate=self._rate, _axes=self._axes)
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization with moving statistics (ref: basic_layers.py
     class BatchNorm).  The layer's defaults (``epsilon=1e-5``,
@@ -173,6 +224,38 @@ class BatchNorm(HybridBlock):
                               for k, v in self._kwargs.items()))
 
 
+class InstanceNorm(HybridBlock):
+    """ref: basic_layers.py class InstanceNorm → InstanceNorm op (each
+    sample and channel over its spatial axes); gamma is trained only with
+    ``scale=True``, beta with ``center=True``."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"eps": epsilon}
+        self._axis = axis
+        self.gamma = self.params.get("gamma",
+                                     grad_req="write" if scale else "null",
+                                     shape=(in_channels,),
+                                     init=_init(gamma_initializer),
+                                     allow_deferred_init=True)
+        self.beta = self.params.get("beta",
+                                    grad_req="write" if center else "null",
+                                    shape=(in_channels,),
+                                    init=_init(beta_initializer),
+                                    allow_deferred_init=True)
+
+    def _pre_infer(self, x):
+        c = x.shape[1]
+        for p in (self.gamma, self.beta):
+            if p.shape == (0,):
+                p.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, **self._kwargs)
+
+
 class LayerNorm(HybridBlock):
     """Layer normalization (ref: src/operator/nn/layer_norm.cc)."""
 
@@ -228,3 +311,56 @@ class Flatten(HybridBlock):
 
     def __repr__(self):
         return self.__class__.__name__
+
+
+def _named_function(function, where):
+    """(callable, name) for a ``Lambda``'s function: a name in ``nd`` or a
+    callable."""
+    if isinstance(function, str):
+        from ... import ndarray as nd
+        if not hasattr(nd, function):
+            raise ValueError("Function name %s is not found in ndarray."
+                             % function)
+        return getattr(nd, function), function
+    if callable(function):
+        return function, function.__name__
+    raise ValueError("Unrecognized function in %s: %r of type %s"
+                     % (where, function, type(function)))
+
+
+class Lambda(Block):
+    """A function as a Block (ref: basic_layers.py class Lambda):
+    ``forward(*args)`` calls it; a string names an ``nd`` function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_impl, self._func_name = _named_function(function,
+                                                           "lambda")
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return "{name}({function})".format(name=self.__class__.__name__,
+                                           function=self._func_name)
+
+
+class HybridLambda(HybridBlock):
+    """A function as a HybridBlock (ref: basic_layers.py class
+    HybridLambda): a callable is called as ``function(F, x, *args)``; a
+    string names an ``nd`` function, called on the arrays alone."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        func, self._func_name = _named_function(function, "hybrid lambda")
+        if isinstance(function, str):
+            self._func = lambda F, *args: func(*args)
+        else:
+            self._func = func
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def __repr__(self):
+        return "{name}({function})".format(name=self.__class__.__name__,
+                                           function=self._func_name)

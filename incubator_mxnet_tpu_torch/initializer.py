@@ -1,14 +1,18 @@
-"""Weight initializers (counterpart of ``incubator_mxnet_tpu/initializer.py``
-:53-267).
+"""Weight initializers (counterpart of ``incubator_mxnet_tpu/initializer.py``).
 
-Same registry and ``InitDesc``-driven suffix dispatch as the reference.
-Random draws come from the framework's per-device ``torch.Generator``
-(``random_state``), so they are reproducible per ``mx.random.seed`` but are
-not the JAX build's numbers (ROADMAP trap A4).
+Same registry and ``InitDesc``-driven suffix dispatch as the reference,
+and every initializer of the JAX build: ``Zero``, ``One``, ``Constant``,
+``Uniform``, ``Normal``, ``Orthogonal``, ``Xavier``, ``MSRAPrelu``,
+``Bilinear``, ``LSTMBias``, ``Load`` and ``Mixed``.  Random draws come
+from the framework's per-device ``torch.Generator`` (``random_state``), so
+they are reproducible per ``mx.random.seed`` but are not the JAX build's
+numbers (ROADMAP trap A4).
 """
 from __future__ import annotations
 
 import json
+import logging
+import re
 
 import numpy as np
 import torch
@@ -16,7 +20,8 @@ import torch
 from . import random_state
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "register", "create"]
+           "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "Mixed", "Load", "register", "create"]
 
 _INIT_REGISTRY = {}
 
@@ -185,6 +190,32 @@ class Normal(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """A scaled matrix with orthonormal rows or columns (ref:
+    initializer.py class Orthogonal): the SVD factor of a (out, in) draw,
+    uniform in [-1, 1) or normal (``rand_type``), of the draw's shape."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        dev = arr._data.device
+        g = random_state.generator(dev)
+        if self.rand_type == "uniform":
+            tmp = torch.empty((nout, nin), device=dev).uniform_(
+                -1.0, 1.0, generator=g)
+        else:
+            tmp = torch.randn((nout, nin), generator=g, device=dev)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        self._fill(arr, (self.scale * q).reshape(arr.shape))
+
+
+@register
 class Xavier(Initializer):
     """Xavier/Glorot (ref: initializer.py class Xavier — rnd_type
     uniform|gaussian, factor_type avg|in|out)."""
@@ -222,3 +253,102 @@ class Xavier(Initializer):
             self._fill(arr, _randn(arr) * scale)
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He et al.'s initialization for PReLU nets (ref: initializer.py class
+    MSRAPrelu): Gaussian Xavier with magnitude 2 / (1 + slope²)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__(rnd_type="gaussian", factor_type=factor_type,
+                         magnitude=magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a (…, kh, kw) weight (ref:
+    initializer.py class Bilinear), for UpSampling's bilinear mode."""
+
+    def _init_weight(self, _, arr):
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(int(np.prod(shape)))
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        self._fill(arr, weight.astype(np.float32).reshape(shape))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zero bias but the forget gate's quarter, ``forget_bias`` (ref:
+    initializer.py class LSTMBias)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = np.zeros(arr.shape, dtype="float32")
+        num_hidden = int(b.shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        self._fill(arr, b)
+
+    # names end in "_bias": the same fill (the reference reaches this class
+    # through the __init__ attribute, which calls _init_weight)
+    _init_bias = _init_weight
+
+
+class Load(object):
+    """Values from a dict of arrays by name (``arg:``/``aux:`` prefixes
+    dropped), ``default_init`` for the rest (ref: initializer.py Load)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        qualified_param_name = re.compile("^(arg:|aux:)")
+        self.param = {qualified_param_name.sub("", name): arr
+                      for name, arr in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            src = self.param[name]
+            src = src.asnumpy() if hasattr(src, "asnumpy") else np.asarray(src)
+            if tuple(arr.shape) != tuple(src.shape):
+                raise ValueError(
+                    "Parameter %s cannot be initialized from loading. Shape "
+                    "mismatch, target %s vs loaded %s"
+                    % (name, str(arr.shape), str(src.shape)))
+            Initializer._fill(arr, np.ascontiguousarray(src))
+            if self.verbose:
+                logging.info("Initialized %s by loading", name)
+        else:
+            if self.default_init is None:
+                raise ValueError(
+                    "Cannot Initialize %s. Not found in loaded param and no "
+                    "default Initializer is provided." % name)
+            self.default_init(name, arr)
+
+
+class Mixed(object):
+    """The first initializer whose pattern matches the name (ref:
+    initializer.py Mixed)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("Mixed: %d patterns, %d initializers"
+                             % (len(patterns), len(initializers)))
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError(
+            'Parameter name %s did not match any pattern. Consider adding a '
+            '".*" pattern at the and with default Initializer.' % name)

@@ -5,6 +5,7 @@ Counterpart of ``incubator_mxnet_tpu/ndarray/__init__.py``.
 from __future__ import annotations
 
 from .. import ops as _ops  # noqa: F401  (registers every op)
+from ..context import Context, current_context, cpu  # noqa: F401
 from ..ops.registry import get_op
 from .ndarray import (NDArray, array, empty, invoke, waitall,  # noqa: F401
                       imperative_invoke, concatenate, moveaxis)
@@ -77,3 +78,8 @@ def Custom(*args, **kwargs):
 
 # generate the remaining op surface
 _register.populate(globals())
+
+# the namespaces of the reference: nd.random, nd.linalg, nd.contrib
+from . import random  # noqa: E402,F401
+from . import linalg  # noqa: E402,F401
+from . import contrib  # noqa: E402,F401

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import autograd
+from .. import autograd, random_state
 from ..base import MXNetError, numpy_dtype, torch_dtype
 from ..context import Context, current_context
 from ..ops.registry import Operator, get_op
@@ -452,7 +452,9 @@ def invoke(op: Operator, inputs, params, out=None):
     back into the inputs it mutates; ``out=`` stores the visible result
     into the given array(s).  An op that ``takes_is_train`` gets
     ``is_train = autograd.is_training()``; the op's ``visible_outputs``
-    decides how many outputs the call returns."""
+    decides how many outputs the call returns; an op that ``needs_rng``
+    gets ``generator``, the framework generator of its output's device (the
+    inputs', or ``ctx``'s for an op without inputs)."""
     params = {k: v for k, v in params.items() if v is not None or k == "axis"}
     ctx = params.pop("ctx", None)
     params.pop("name", None)
@@ -462,8 +464,14 @@ def invoke(op: Operator, inputs, params, out=None):
     if op.num_inputs == 0:
         ctx = Context(ctx) if ctx is not None else current_context()
         params["device"] = ctx.torch_device()
-    kw = dict(params, is_train=autograd.is_training()) \
-        if op.takes_is_train else params
+    is_train = autograd.is_training()
+    kw = dict(params)
+    if op.takes_is_train:
+        kw["is_train"] = is_train
+    if op.needs_rng:
+        kw["generator"] = random_state.generator(
+            vals[0].device if vals else params["device"]) \
+            if op.draws(params, is_train) else None
     with torch.set_grad_enabled(recording):
         res = op.fcompute(*vals, **kw)
         res = res if isinstance(res, tuple) else (res,)

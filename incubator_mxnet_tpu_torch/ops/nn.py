@@ -3,7 +3,13 @@
 Counterpart of ``incubator_mxnet_tpu/ops/nn.py``: ``FullyConnected`` (:70),
 ``Convolution`` (:86), ``Deconvolution`` (:115), ``Pooling`` (:161),
 ``BatchNorm`` (:326), ``LayerNorm`` (:356), ``Activation`` (:394),
-``softmax`` (:432), ``log_softmax`` (:439) and ``SoftmaxOutput`` (:490).
+``softmax`` (:432), ``log_softmax`` (:439) and ``SoftmaxOutput`` (:490),
+and the rest of the file: ``UpSampling`` (:214), ``InstanceNorm`` (:368),
+``LRN`` (:380), ``LeakyReLU`` (:410), ``SoftmaxActivation`` (:445),
+``Dropout`` (:453), the regression outputs (:523-546) and ``SVMOutput``
+(:548).  Dropout and rrelu draw from the generator ``invoke`` passes them
+(the framework generator of the data's device), and only in a call that
+draws: training, or Dropout's ``mode="always"``.
 The products go to ``torch.matmul`` and to cuDNN's convolutions through
 ``aten.convolution``, as the JAX build left them to XLA; f32 convolutions
 run in full f32 on the card, TF32 off (:func:`_f32_convolutions`).
@@ -16,6 +22,7 @@ import torch.nn.functional as F
 
 from ._precision import f32_convolutions as _f32_convolutions
 from .math import scalar_like
+from .random_ops import uniform_in
 from .registry import register
 
 
@@ -293,6 +300,15 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out.to(data.dtype), mean, var
 
 
+def _rsqrt(x):
+    """``lax.rsqrt`` as XLA's CPU code rounds it: in f32, once, for bf16
+    (ATen's CPU bf16 rsqrt rounds twice); 1 / sqrt with the sqrt rounded
+    to f16 for f16."""
+    if x.dtype == torch.float16:
+        return 1.0 / torch.sqrt(x)
+    return torch.rsqrt(x.float()).to(x.dtype)
+
+
 @register("LayerNorm", num_inputs=3, input_names=("data", "gamma", "beta"))
 def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
     """ref: src/operator/nn/layer_norm.cc — biased variance.  Op by op in
@@ -301,16 +317,10 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
     or f16 tensor does so, as ``jnp.mean``/``jnp.var`` do), then
     ``(x - mean)·rsqrt(var + eps)`` with eps in that dtype, then
     ``·gamma + beta``, each step rounded; gamma and beta of another dtype
-    promote the last two steps, as in jnp.  rsqrt rounds as XLA's does: in
-    f32, once, for bf16 (ATen's CPU bf16 rsqrt rounds twice); for f16 XLA
-    takes 1 / sqrt with the sqrt rounded to f16."""
+    promote the last two steps, as in jnp; rsqrt rounds as XLA's
+    (:func:`_rsqrt`)."""
     var, mean = torch.var_mean(data, dim=axis, keepdim=True, correction=0)
-    var = var + scalar_like(data, eps)
-    if data.dtype == torch.float16:
-        inv = 1.0 / torch.sqrt(var)
-    else:
-        inv = torch.rsqrt(var.float()).to(data.dtype)
-    out = (data - mean) * inv
+    out = (data - mean) * _rsqrt(var + scalar_like(data, eps))
     bshape = [1] * data.ndim
     bshape[axis] = data.shape[axis]
     return out * gamma.reshape(bshape) + beta.reshape(bshape)
@@ -372,15 +382,17 @@ def _one_hot(label, k, axis, dtype):
     return (lab == classes).to(dtype)
 
 
-class _SoftmaxOutputFunction(torch.autograd.Function):
-    """SoftmaxOutput's forward (softmax over ``axis``) and its integrated
-    gradient, which ignores the head gradient (trap A3)."""
+class _OutputFunction(torch.autograd.Function):
+    """An ``*Output`` op: ``fwd_fn(data, label)`` forward and the integrated
+    gradient ``grad_fn(data, label)``, which ignores the head gradient, as
+    the reference's output layers do (trap A3; the JAX build's
+    ``_custom_loss_fwd_bwd``, ops/nn.py:471)."""
 
     @staticmethod
-    def forward(ctx, data, label, axis, grad_fn):
+    def forward(ctx, data, label, fwd_fn, grad_fn):
         ctx.save_for_backward(data, label)
         ctx.grad_fn = grad_fn
-        return _softmax_of(data, axis)
+        return fwd_fn(data, label)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -423,4 +435,217 @@ def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
             return g * (c(grad_scale) / nvalid)
         return g * c(scale)
 
-    return _SoftmaxOutputFunction.apply(data, label, axis, grad_fn)
+    return _OutputFunction.apply(data, label,
+                                 lambda d, lab: _softmax_of(d, axis), grad_fn)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the JAX build's ops/nn.py
+# ---------------------------------------------------------------------------
+
+def _upsample_nearest(x, out_hw):
+    """Each pixel repeated to ``out_hw``, whose sides are multiples of x's."""
+    sh, sw = out_hw[0] // x.shape[2], out_hw[1] // x.shape[3]
+    return x.repeat_interleave(sh, dim=2).repeat_interleave(sw, dim=3)
+
+
+@register("UpSampling", num_inputs=None)
+def _upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+                num_filter=0, multi_input_mode="concat", workspace=512):
+    """ref: src/operator/upsampling.cc.  ``nearest``: every input repeated
+    to the first's size times ``scale``, then concatenated on channels (or
+    summed, ``multi_input_mode="sum"``).  ``bilinear``: MXNet's
+    Deconvolution of the data with the weight input (args[1], shape
+    (num_filter, 1, k, k)): kernel 2·scale - scale % 2, stride scale, pad
+    ceil((scale - 1) / 2), ``num_group = num_filter``, no bias.  The JAX
+    build resizes with ``jax.image.resize`` and ignores the weight, and
+    its nearest mode reads only the first input (ROADMAP, reference-side
+    faults)."""
+    data = args[0]
+    scale = int(scale)
+    if sample_type == "nearest":
+        out_hw = (data.shape[2] * scale, data.shape[3] * scale)
+        ups = [_upsample_nearest(x, out_hw) for x in args]
+        if len(ups) == 1:
+            return ups[0]
+        if multi_input_mode == "sum":
+            out = ups[0]
+            for u in ups[1:]:
+                out = out + u
+            return out
+        return torch.cat(ups, dim=1)
+    if sample_type != "bilinear":
+        raise ValueError("unknown sample_type %r" % (sample_type,))
+    if len(args) < 2:
+        raise ValueError("bilinear UpSampling takes (data, weight)")
+    k = 2 * scale - scale % 2
+    pad = -(-(scale - 1) // 2)
+    return _deconvolution(data, args[1], kernel=(k, k), stride=(scale, scale),
+                          pad=(pad, pad), num_filter=num_filter,
+                          num_group=num_filter or data.shape[1],
+                          no_bias=True)
+
+
+@register("InstanceNorm", num_inputs=3,
+          input_names=("data", "gamma", "beta"))
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    """ref: src/operator/instance_norm.cc: each (sample, channel) over its
+    spatial axes, biased variance, then ·gamma + beta by channel, op by op
+    as the JAX build (rsqrt rounded as XLA's)."""
+    red = tuple(range(2, data.ndim))
+    var, mean = torch.var_mean(data, dim=red, keepdim=True, correction=0)
+    bshape = (1, -1) + (1,) * (data.ndim - 2)
+    out = (data - mean) * _rsqrt(var + scalar_like(data, eps))
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("LRN", num_inputs=1)
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across channels (ref: lrn.cc):
+    data·(knorm + alpha / nsize · Σ x²)^-beta, the sum over the ``nsize``
+    channels centred on each (zero-padded)."""
+    sq = data * data
+    half = nsize // 2
+    pad = [0, 0] * (data.ndim - 2) + [half, half]
+    padded = F.pad(sq, pad)
+    c = data.shape[1]
+    summed = padded[:, 0:c]
+    for i in range(1, nsize):
+        summed = summed + padded[:, i:i + c]
+    base = scalar_like(data, knorm) + scalar_like(data, alpha / nsize) * summed
+    return data * torch.pow(base, scalar_like(data, -beta))
+
+
+def _leaky_draws(params, is_train):
+    return params.get("act_type", "leaky") == "rrelu" and is_train
+
+
+@register("LeakyReLU", num_inputs=None, needs_rng=_leaky_draws,
+          takes_is_train=True, input_names=("data", "gamma"))
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334, generator=None,
+                is_train=False):
+    """ref: src/operator/leaky_relu.cc.  ``leaky``: slope·x below 0;
+    ``elu``: slope·(eˣ - 1); ``prelu``: gamma·x, gamma by channel (1-d) or
+    broadcast; ``rrelu``: in training a slope per element drawn from
+    U[lower_bound, upper_bound), otherwise their midpoint."""
+    pos = data > 0
+    if act_type == "leaky":
+        return torch.where(pos, data, scalar_like(data, slope) * data)
+    if act_type == "elu":
+        return torch.where(pos, data,
+                           scalar_like(data, slope) * torch.expm1(data))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2)) \
+            if gamma.ndim == 1 else gamma
+        return torch.where(pos, data, g * data)
+    if act_type == "rrelu":
+        if is_train:
+            s = uniform_in(torch.empty(data.shape, dtype=data.dtype,
+                                       device=data.device),
+                           lower_bound, upper_bound, generator)
+        else:
+            s = scalar_like(data, (lower_bound + upper_bound) / 2.0)
+        return torch.where(pos, data, s * data)
+    raise ValueError("unknown act_type %r" % (act_type,))
+
+
+@register("SoftmaxActivation", num_inputs=1)
+def _softmax_activation(data, mode="instance"):
+    """ref: softmax_activation.cc: over the channels (``mode="channel"``,
+    axis 1) or over everything but the batch axis (``instance``)."""
+    if mode == "channel":
+        return _softmax_of(data, 1)
+    return _softmax_of(data.reshape(data.shape[0], -1), -1).reshape(
+        data.shape)
+
+
+def _dropout_draws(params, is_train):
+    return (is_train or params.get("mode", "training") == "always") and \
+        params.get("p", 0.5) != 0.0
+
+
+@register("Dropout", num_inputs=1, needs_rng=_dropout_draws,
+          takes_is_train=True)
+def _dropout(data, p=0.5, mode="training", axes=(), generator=None,
+             is_train=False):
+    """Inverted dropout (ref: src/operator/nn/dropout.cc): in training (or
+    ``mode="always"``) each element is kept with probability 1 - p and
+    divided by 1 - p, else zeroed; ``axes`` share one draw along them.
+    The kept value is ``data / keep`` with ``keep`` in the data's dtype, as
+    the JAX build divides (ops/nn.py:463), not ``data·(1/keep)``, which
+    differs by an ulp in bf16 and f16.  The gradient is mask / keep."""
+    if not _dropout_draws(dict(p=p, mode=mode), is_train):
+        return data
+    shape = tuple(1 if i in axes else n for i, n in enumerate(data.shape)) \
+        if axes else tuple(data.shape)
+    keep = 1.0 - p
+    mask = torch.rand(shape, generator=generator, device=data.device) < keep
+    return torch.where(mask, data / scalar_like(data, keep),
+                       torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+def _identity(d, lab):
+    return d
+
+
+def _regression(data, label, grad_fn):
+    return _OutputFunction.apply(data, label, _identity, grad_fn)
+
+
+@register("LinearRegressionOutput", num_inputs=2, nograd_inputs=(1,),
+          input_names=("data", "label"))
+def _linear_regression_output(data, label, grad_scale=1.0):
+    """ref: regression_output.cc: the forward is the data; the gradient
+    (data - label)·grad_scale, whatever the head gradient."""
+    return _regression(data, label, lambda d, lab: (
+        d - lab.reshape(d.shape)) * scalar_like(d, grad_scale))
+
+
+@register("MAERegressionOutput", num_inputs=2, nograd_inputs=(1,),
+          input_names=("data", "label"))
+def _mae_regression_output(data, label, grad_scale=1.0):
+    """Gradient sign(data - label)·grad_scale."""
+    return _regression(data, label, lambda d, lab: torch.sign(
+        d - lab.reshape(d.shape)) * scalar_like(d, grad_scale))
+
+
+def _sigmoid(x):
+    return 1.0 / (torch.exp(-x) + 1.0)
+
+
+@register("LogisticRegressionOutput", num_inputs=2, nograd_inputs=(1,),
+          input_names=("data", "label"))
+def _logistic_regression_output(data, label, grad_scale=1.0):
+    """The forward is sigmoid(data); the gradient (sigmoid(data) -
+    label)·grad_scale."""
+    return _OutputFunction.apply(
+        data, label, lambda d, lab: _sigmoid(d),
+        lambda d, lab: (_sigmoid(d) - lab.reshape(d.shape)) *
+        scalar_like(d, grad_scale))
+
+
+@register("SVMOutput", num_inputs=2, nograd_inputs=(1,),
+          input_names=("data", "label"))
+def _svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+                use_linear=False):
+    """ref: src/operator/svm_output.cc, as the JAX build computes it: the
+    forward is the data; the gradient of the L1 hinge (``use_linear``) or
+    of the squared hinge against the label's score, times
+    ``regularization_coefficient``."""
+    def grad_fn(d, lab):
+        oh = _one_hot(lab, d.shape[1], 1, d.dtype)
+        zero = torch.zeros((), dtype=d.dtype, device=d.device)
+        m = scalar_like(d, margin)
+        if use_linear:
+            viol = ((m - d) * oh + (m + d) * (1 - oh)) > 0
+            g = torch.where(viol, (1 - oh) - oh, zero)
+        else:
+            score_y = (d * oh).sum(dim=1, keepdim=True)
+            viol = (d - score_y + m) > 0
+            g_other = torch.where(viol & (oh == 0),
+                                  2.0 * (d - score_y + m), zero)
+            g = g_other - oh * g_other.sum(dim=1, keepdim=True)
+        return (g * scalar_like(d, regularization_coefficient)).to(d.dtype)
+
+    return _OutputFunction.apply(data, label, _identity, grad_fn)

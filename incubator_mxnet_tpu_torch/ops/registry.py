@@ -10,9 +10,9 @@ never alias their inputs (MXNet's semantics).  Creation ops
 from the context.  Gradients come from torch's autograd through the
 fcompute itself; the metadata below tells ``invoke`` what torch cannot
 see (which inputs an op mutates, which take no gradient), whether it
-computes otherwise in training (``takes_is_train``), and how many of its
-outputs a call shows (``fvisible``).  The symbolic executor is not in this
-slice.
+computes otherwise in training (``takes_is_train``), whether it draws
+random numbers (``needs_rng``), and how many of its outputs a call shows
+(``fvisible``).  The symbolic executor is not in this slice.
 """
 from __future__ import annotations
 
@@ -39,6 +39,14 @@ class Operator:
         ``output_mean_var``); overrides ``num_visible_outputs``.
     takes_is_train : the fcompute takes a keyword ``is_train``, which
         ``invoke`` sets from ``autograd.is_training()``.
+    needs_rng : the fcompute takes a keyword ``generator``, which ``invoke``
+        sets to the framework generator of the output's device
+        (``random_state.generator``): every draw goes through it, never
+        through torch's default generator.  A function ``(params,
+        is_train) -> bool`` instead says which calls draw (Dropout's in
+        training); the others get ``generator=None``, so an inference
+        forward makes no generator (none may be made while a CUDA graph
+        captures).
     mutate_inputs : for an update op, ``(0, i, j, ...)``: output 0 is the
         result (``out=`` takes it), and outputs 1, 2, ... are written back
         into inputs i, j, ... in place (optimizer state, as the reference's
@@ -52,7 +60,8 @@ class Operator:
                  num_inputs: Optional[int] = 1, input_names=None,
                  num_outputs: int = 1, num_visible_outputs=None,
                  mutate_inputs=(), nograd_inputs=(), differentiable=True,
-                 takes_is_train=False, fvisible=None, doc: str = ""):
+                 takes_is_train=False, needs_rng=False, fvisible=None,
+                 doc: str = ""):
         self.name = name
         self.fcompute = fcompute
         self.num_inputs = num_inputs
@@ -64,8 +73,15 @@ class Operator:
         self.nograd_inputs = tuple(nograd_inputs)
         self.differentiable = differentiable
         self.takes_is_train = takes_is_train
+        self.needs_rng = needs_rng
         self.fvisible = fvisible
         self.doc = doc
+
+    def draws(self, params, is_train):
+        """Whether a call with ``params`` draws random numbers."""
+        if callable(self.needs_rng):
+            return self.needs_rng(params, is_train)
+        return self.needs_rng
 
     def visible_outputs(self, params, n_outputs):
         """How many of ``n_outputs`` a call with ``params`` shows (the rest

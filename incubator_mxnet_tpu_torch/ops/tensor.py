@@ -2,9 +2,9 @@
 
 Counterpart of ``incubator_mxnet_tpu/ops/tensor.py``: every op it
 registers except the engine's ``_bulk_view_*`` (:108, :120; ROADMAP item
-5), ``shuffle`` (:334; item 4b, with the random ops) and the sparse
-storage twins ``_cast_storage_dense``/``_sparse_retain_dense`` (:454, :465;
-item 10); the creation ops are in ``init_ops.py``.  Many ops return
+5) and the sparse storage twins ``_cast_storage_dense``/
+``_sparse_retain_dense`` (:454, :465; item 10); the creation ops are in
+``init_ops.py``.  Many ops return
 torch views; ``ndarray.invoke`` copies them so results never alias
 inputs.  Indices follow the JAX build: a float index truncates
 (NaN as 0), and an index out of range clips, wraps or fills as the JAX
@@ -441,6 +441,16 @@ def _argsort(data, axis=-1, is_ascend=True, dtype="float32"):
     """ref: ordering_op.cc argsort: the stable ascending order, reversed
     when descending (so ties come last index first), as ``dtype``."""
     return _stable_sort(data, axis, is_ascend)[1].to(torch_dtype(dtype))
+
+
+@register("shuffle", num_inputs=1, differentiable=False, needs_rng=True,
+          aliases=("_shuffle",))
+def _shuffle(data, generator=None):
+    """ref: src/operator/random/shuffle_op.cc — the rows (first axis) in a
+    random order, from the framework generator of the data's device."""
+    perm = torch.randperm(data.shape[0], generator=generator,
+                          device=data.device)
+    return data.index_select(0, perm)
 
 
 @register("_copy", num_inputs=1, aliases=("identity",))

@@ -127,6 +127,54 @@ OPS = [
      "ulp of x / 1.7 from the port's quotient, which exp scales by |x|"),
     ("Cast_f32", lambda nd, a: nd.Cast(a, dtype="float32"), [(64, 32)],
      EXACT, "exact"),
+    # the rest of ops/nn.py and ops/linalg.py (inference paths: Dropout and
+    # rrelu draw only in training)
+    ("InstanceNorm", lambda nd, a, g, b: nd.InstanceNorm(a, g, b),
+     [(4, 6, 8, 8), (6,), (6,)],
+     {"bfloat16": (0, "elem"), "float16": (1, "max")},
+     "as LayerNorm: f16, XLA contracts ·gamma + beta into one FMA and "
+     "outputs cancel near zero"),
+    ("LRN", lambda nd, a: nd.LRN(a, nsize=3), [(2, 8, 6, 6)],
+     {"bfloat16": (0, "elem"), "float16": (1, "elem")},
+     "f16: pow by two implementations; the window sums round alike"),
+    ("LeakyReLU_leaky", lambda nd, a: nd.LeakyReLU(a, slope=0.1),
+     [(64, 32)], EXACT,
+     "one product, then one rounding"),
+    ("LeakyReLU_elu", lambda nd, a: nd.LeakyReLU(a, act_type="elu",
+                                                 slope=0.7),
+     [(64, 32)], {"bfloat16": (0, "elem"), "float16": (2, "elem")},
+     "f16: XLA's f16 expm1 is not correctly rounded"),
+    ("LeakyReLU_prelu", lambda nd, a, g: nd.LeakyReLU(a, g,
+                                                      act_type="prelu"),
+     [(4, 8, 16), (8,)], EXACT,
+     "one product, then one rounding"),
+    ("LeakyReLU_rrelu", lambda nd, a: nd.LeakyReLU(a, act_type="rrelu"),
+     [(64, 32)], EXACT,
+     "the midpoint slope rounded to the dtype, one product"),
+    ("SoftmaxActivation", lambda nd, a: nd.SoftmaxActivation(
+        a, mode="channel"), [(4, 24, 5)], EXACT,
+     "as softmax, on these inputs no ulp apart"),
+    ("UpSampling_nearest", lambda nd, a: nd.UpSampling(a, scale=2),
+     [(2, 3, 8, 8)], EXACT,
+     "copies"),
+    ("Dropout_inference", lambda nd, a: nd.Dropout(a, p=0.3), [(64, 32)],
+     EXACT,
+     "identity"),
+    ("LogisticRegressionOutput", lambda nd, a, b:
+     nd.LogisticRegressionOutput(a, b), [(64, 32), (64, 32)], EXACT,
+     "sigmoid op by op, as Activation's"),
+    ("LinearRegressionOutput", lambda nd, a, b:
+     nd.LinearRegressionOutput(a, b), [(64, 32), (64, 32)], EXACT,
+     "identity"),
+    ("linalg_gemm2", lambda nd, a, b: nd.linalg.gemm2(a, b, alpha=0.5),
+     [(3, 16, 32), (3, 32, 8)], EXACT,
+     "f32 accumulation, one rounding, alpha a power of two"),
+    ("linalg_syrk", lambda nd, a: nd.linalg.syrk(a, transpose=True),
+     [(3, 16, 8)], EXACT,
+     "f32 accumulation, one rounding"),
+    ("contrib_fft", lambda nd, a: nd.contrib.fft(a), [(4, 32)],
+     EXACT,
+     "computed in f32 and rounded once"),
 ]
 
 

@@ -60,6 +60,12 @@ def test_port_imports_with_jax_blocked():
             "from incubator_mxnet_tpu_torch.ops import _precision, init_ops\n"
             "from incubator_mxnet_tpu_torch.ndarray import utils\n"
             "from incubator_mxnet_tpu_torch import lr_scheduler\n"
+            "from incubator_mxnet_tpu_torch.ops import random_ops, linalg\n"
+            "from incubator_mxnet_tpu_torch.ndarray import random as ndr\n"
+            "from incubator_mxnet_tpu_torch.ndarray import contrib, linalg\n"
+            "from incubator_mxnet_tpu_torch.gluon.model_zoo import vision\n"
+            "from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import (\n"
+            "    alexnet, vgg, squeezenet, densenet, mobilenet, inception)\n"
             "chip_smoke.register_rtc_softmax(mx)\n"
             "with mx.cpu():\n"
             "    x = mx.nd.ones((2, 3)) + 1\n"
@@ -83,6 +89,14 @@ def test_port_imports_with_jax_blocked():
             "    tr.load_states(os.path.join(d, 's'))\n"
             "    with _precision.f32_products():\n"
             "        mx.nd.dot(mx.nd.arange(3), mx.nd.eye(3))\n"
+            "    mx.random.seed(1)\n"
+            "    r = mx.random.normal(shape=(2,)) + mx.nd.random.uniform(\n"
+            "        shape=(2,)) + mx.nd.linalg.potrf(mx.nd.eye(2))[0]\n"
+            "    with mx.autograd.train_mode():\n"
+            "        mx.nd.Dropout(r, p=0.5)\n"
+            "    mx.optimizer.create('nag', momentum=0.9)\n"
+            "    mx.gluon.loss.HuberLoss()(r, r)\n"
+            "    vision.get_model('squeezenet1.1', classes=2)\n"
             "    with serving.Server(max_wait_ms=0) as srv:\n"
             "        srv.load('d', block=net, example=mx.nd.ones((1, 3)))\n"
             "        assert srv.predict('d', mx.nd.ones((3,))).shape == (2,)\n"

@@ -614,8 +614,8 @@ def test_integer_edge_values_match_jax():
 
 # names the JAX build registers in ops/math.py, ops/tensor.py and
 # ops/init_ops.py that wait for a later item (ROADMAP names each)
-LATER = {"_bulk_view_extract": 5, "_bulk_view_write": 5, "shuffle": "4b",
-         "_shuffle": "4b", "_cast_storage_dense": 10, "cast_storage": 10,
+LATER = {"_bulk_view_extract": 5, "_bulk_view_write": 5,
+         "_cast_storage_dense": 10, "cast_storage": 10,
          "_sparse_retain_dense": 10, "sparse_retain": 10}
 
 

@@ -1,4 +1,5 @@
-"""SGD update ops in the PyTorch port against the JAX build, on the CPU.
+"""SGD-family update ops in the PyTorch port against the JAX build, on the
+CPU: sgd_update, sgd_mom_update, nag_mom_update and signum_update.
 
 Both packages run the registry formulas of
 ``incubator_mxnet_tpu/ops/optimizer_ops.py`` (``_prep_grad`` :20): with
@@ -37,7 +38,9 @@ def _grads(seed):
             for _ in LRS]
 
 
-def _trajectory(mx, kwargs, momentum):
+def _trajectory(mx, kwargs, momentum, op="sgd_mom_update"):
+    """``op`` over the steps of LRS: ``momentum`` None runs sgd_update,
+    else ``op`` with its momentum state."""
     rs = np.random.RandomState(0)
     w = mx.nd.array(rs.standard_normal((5, 7)).astype(np.float32))
     mom = mx.nd.zeros((5, 7))
@@ -46,18 +49,21 @@ def _trajectory(mx, kwargs, momentum):
         if momentum is None:
             mx.nd.sgd_update(w, mx.nd.array(g), lr=lr, out=w, **kwargs)
         else:
-            mx.nd.sgd_mom_update(w, mx.nd.array(g), mom, lr=lr,
-                                 momentum=momentum, out=w, **kwargs)
+            getattr(mx.nd, op)(w, mx.nd.array(g), mom, lr=lr,
+                               momentum=momentum, out=w, **kwargs)
         path.append((w.asnumpy(), mom.asnumpy()))
     return path
 
 
-@pytest.mark.parametrize("momentum", [None, 0.9],
-                         ids=["sgd_update", "sgd_mom_update"])
+# the momentum ops of the registry: sgd's, Nesterov's, Signum's
+@pytest.mark.parametrize("momentum,op", [
+    (None, "sgd_update"), (0.9, "sgd_mom_update"), (0.9, "nag_mom_update"),
+    (0.8, "signum_update")],
+    ids=["sgd_update", "sgd_mom_update", "nag_mom_update", "signum_update"])
 @pytest.mark.parametrize("name", list(SETTINGS))
-def test_update_trajectory_matches_jax(name, momentum):
-    want = _trajectory(jmx, SETTINGS[name], momentum)
-    got = _trajectory(tmx, SETTINGS[name], momentum)
+def test_update_trajectory_matches_jax(name, momentum, op):
+    want = _trajectory(jmx, SETTINGS[name], momentum, op)
+    got = _trajectory(tmx, SETTINGS[name], momentum, op)
     for (gw, gm), (ww, wm) in zip(got, want):
         np.testing.assert_allclose(gw, ww, **TOL)
         np.testing.assert_allclose(gm, wm, **TOL)

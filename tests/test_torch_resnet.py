@@ -145,7 +145,7 @@ def test_get_model_and_pretrained():
     net = tvision.get_model("ResNet18_v2", classes=3)
     assert isinstance(net, tvision.ResNetV2)
     assert tmx.gluon.model_zoo.get_model is tvision.get_model
-    for name in ("vgg16", "resnet51_v1"):
+    for name in ("vgg17", "resnet51_v1"):
         with pytest.raises(ValueError, match="not supported"):
             tvision.get_model(name)
     with pytest.raises(tmx.MXNetError, match="weight files"):
