@@ -7,7 +7,9 @@ resume and serve ResNet-50 v1 from its file, then hold the rest of the
 model zoo and of the op library against the CPU, serve AlexNet, VGG-16 and
 Inception-v3 and train AlexNet, then train the symbolic ResNet-50 through
 Module.fit, serve it through Server(module=), and run the LM's attention
-layer as a Symbol through the Executor.
+layer as a Symbol through the Executor, then train BASELINE configs 1 and
+2 and the LM through the single-card KVStore, and profile the LM and
+ResNet-50 with mx.profiler.
 
 Run from the root of a checkout, with one CUDA card and the CUDA toolkit:
 
@@ -241,15 +243,36 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              flash_attention's forward and backward-kernel counters (zeroed
              just before, read just after) at 1 each and its torch-ops
              backward count at 0; ms a forward+backward;
-10. one JSON ``kernels`` line (the hand kernels of phases 2-5, and 9c's
-   launches of B1; phases 6-8 launch none), then the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+10. kv    — 10a: ``mx.kv.create("device")`` on the card: push of three
+             arrays and pull into two outs bit-equal to the sum in torch
+             (f32, bf16); ``set_optimizer`` updates bit-equal to the updater
+             applied by hand; the optimizer's states through a file; the
+             later items' paths raise; 10b: BASELINE config 1
+             (train_mnist.py's MLP and LeNet, as symbols through
+             ``fit_module`` and as Gluon nets through ``fit_gluon``, copies
+             of example/image-classification/common.py's wiring) with a
+             ``"device"`` store, each step's weights bit-equal to the run
+             without a store; 10c: BASELINE config 2 (train_imagenet.py on
+             synthetic_iters: ResNet-50 v1 f32 at batch 256 through
+             ``fit_gluon``, ``symbol_convnet`` through ``fit_module``), the
+             same; 10d: the full-width LM in bf16 through
+             ``gluon.Trainer(kvstore=mx.kv.create("device"))``, the update
+             on the store, equal after every step to a Trainer without a
+             store, B1's forward and backward kernels once per layer a step;
+             10e: ``mx.profiler`` over one LM request and one 10d step with
+             ``sync=True``: the flash kernel rows inside their op's span;
+             the host split of an eager op (the LM request, ResNet-50 bf16
+             at batch 32); an LM request with the profiler stopped;
+11. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
+   launches of B1 in 9c and 10d; phases 6-8 launch none), then the card's
+   name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
 import contextlib
 import gc
 import json
+import logging
 import math
 import os
 import re
@@ -258,6 +281,8 @@ import subprocess
 import sys
 import threading
 import time
+
+import numpy as np
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak (NVIDIA data sheet)
 H100_F32_CUDA_CORE_FLOPS = 67e12
@@ -4939,11 +4964,15 @@ def plain_sgd_step(torch, forward, w, prev, x, y, opt):
     tensor), whose momentum is ``w - prev`` (the last step's move; ``prev``
     is ``w`` at the first step): the softmax cross-entropy's gradient
     through autograd, then sgd with momentum written out, g = grad/batch +
-    wd·w (wd on every weight, as the port's optimizer), mom = momentum·mom
-    - lr·g, w + mom.  Returns (the step's softmax probabilities on the
-    host, the new weights)."""
+    wd·w, mom = momentum·mom - lr·g, w + mom.  wd applies to the names that
+    end in ``_weight`` or ``_gamma`` only, MXNet's rule under Module (its
+    optimizer knows the names: biases and BatchNorm's beta get wd 0).
+    Returns (the step's softmax probabilities on the host, the new
+    weights)."""
     import torch.nn.functional as F
-    lr, momentum, wd = opt["learning_rate"], opt["momentum"], opt["wd"]
+    lr, momentum = opt["learning_rate"], opt["momentum"]
+    wds = {n: opt["wd"] if n.endswith(("_weight", "_gamma")) else 0.0
+           for n in w}
     leaves = {n: v.detach().requires_grad_() for n, v in w.items()}
     logits = forward(leaves, x)
     grads = torch.autograd.grad(F.cross_entropy(logits, y, reduction="sum"),
@@ -4952,7 +4981,7 @@ def plain_sgd_step(torch, forward, w, prev, x, y, opt):
     del logits
     with torch.no_grad():
         new = {n: v + (momentum * (v - prev[n]) -
-                       lr * (g * (1.0 / x.shape[0]) + wd * v))
+                       lr * (g * (1.0 / x.shape[0]) + wds[n] * v))
                for (n, v), g in zip(w.items(), grads)}
     return probs, new
 
@@ -5362,6 +5391,830 @@ def symbolic_phase(mx, card):
     out["attention"] = symbolic_attention(mx, card)
     out["seconds"] = time.perf_counter() - t0
     print("sym: phase 9 in %.1f s | %s" % (out["seconds"], card), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the single-card KVStore; BASELINE configs 1 and 2 through the
+# wiring of example/image-classification/common.py; the full-width LM
+# through a store-backed gluon.Trainer; the profiler on the card
+# ---------------------------------------------------------------------------
+KV_SHAPE = (1024, 4096)
+KV_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+          "rescale_grad": 1.0 / 64}
+# common.py add_fit_args's defaults with train_mnist.py's batch
+FIT_ARGS = dict(batch_size=64, num_epochs=2, lr=0.05, momentum=0.9,
+                wd=1e-4, optimizer="sgd", kv_store="device", disp_batches=20)
+MNIST_SYNTH = 640           # 576 training images (9 batches), 64 to score
+# train_imagenet.py on synthetic_iters: ResNet-50 v1, f32, batch 256, one
+# epoch of 4 batches (the fifth scores)
+IMAGENET_ARGS = dict(FIT_ARGS, batch_size=256, num_epochs=1,
+                     num_classes=1000, num_batches=5)
+IMAGENET_SHAPE = (3, 224, 224)
+# the steps they are set beside (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W):
+# 6c's ResNet-50 bf16 step and 9b's symbolic f32 Module step
+PHASE_6C_MS, PHASE_9B_MS = 197.964, 361.084
+LM_STORE_STEPS = 3
+LM_STORE_OPT = {"learning_rate": 0.05, "momentum": 0.9,
+                "multi_precision": True}
+FLASH_KERNELS = {"flash_fwd_sm90_kernel": "_contrib_FlashAttention",
+                 "flash_bwd_dq_kernel": "_backward__contrib_FlashAttention",
+                 "flash_bwd_dkdv_kernel": "_backward__contrib_FlashAttention"}
+
+
+def kv_on_card(mx, card, shape=None):
+    """Phase 10a: ``mx.kv.create("device")`` on the card: ``init`` an f32
+    and a bf16 key, ``push`` three arrays, ``pull`` into two outs, each
+    bit-equal to the sum in torch in the same order; ``set_optimizer``
+    (sgd with momentum): each push one update, bit-equal to
+    ``opt.get_updater`` applied by hand; the optimizer's states through a
+    file and back, bit-equal; the paths of later items raise."""
+    import torch
+    from incubator_mxnet_tpu_torch import cuda_build
+    from incubator_mxnet_tpu_torch.ndarray import NDArray
+    shape = shape or KV_SHAPE
+    dev = mx.gpu(0).torch_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+
+    def randn(dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    kv = mx.kv.create("device")
+    check((kv.type, kv.rank, kv.num_workers) == ("device", 0, 1),
+          "10a: store %s rank %d of %d" % (kv.type, kv.rank, kv.num_workers))
+    sums = {}
+    for key, dtype in (("w32", torch.float32), (7, torch.bfloat16)):
+        kv.init(key, NDArray(randn(dtype)))
+        vals = [randn(dtype) for _ in range(3)]
+        kv.push(key, [NDArray(v) for v in vals])
+        outs = [NDArray(torch.empty(shape, dtype=dtype, device=dev))
+                for _ in range(2)]
+        kv.pull(key, out=outs)
+        want = (vals[0] + vals[1]) + vals[2]
+        sums[str(key)] = all(torch.equal(o._data, want) for o in outs)
+        check(sums[str(key)] and outs[0]._data.dtype == want.dtype,
+              "10a: pull of key %r is not the sum of its push" % key)
+    # the update on the store, against the updater applied by hand
+    opt = mx.optimizer.create("sgd", **KV_OPT)
+    kv.init("w", NDArray(randn()))
+    by_hand = mx.optimizer.get_updater(mx.optimizer.create("sgd", **KV_OPT))
+    w_hand = NDArray(kv._store["w"]._data.clone())
+    kv.set_optimizer(opt)
+    out = NDArray(torch.empty(shape, device=dev))
+    steps = []
+    for _ in range(3):
+        g = randn()
+        kv.push("w", NDArray(g))
+        by_hand("w", NDArray(g.clone()), w_hand)
+        kv.pull("w", out=out)
+        steps.append(torch.equal(out._data, w_hand._data))
+    check(all(steps), "10a: the store's updates differ from the updater "
+          "by hand: %s" % steps)
+    path = cuda_build.BUILD_DIR.parent / ("kv-states-%d" % os.getpid())
+    kv.save_optimizer_states(str(path))
+    other = mx.kv.create("device")
+    other.init("w", NDArray(kv._store["w"]._data.clone()))
+    other.set_optimizer(mx.optimizer.create("sgd", **KV_OPT))
+    other.load_optimizer_states(str(path))
+    path.unlink()
+    g = randn()
+    kv.push("w", NDArray(g))
+    other.push("w", NDArray(g.clone()))
+    round_trip = torch.equal(kv._store["w"]._data, other._store["w"]._data)
+    check(round_trip, "10a: the optimizer's states did not round-trip")
+    raised = {}
+    for what, call, item in (
+            ("row_sparse_pull", lambda: kv.row_sparse_pull(
+                "w", out=out, row_ids=out), "item 10"),
+            ("dist_sync", lambda: mx.kv.create("dist_sync"), "item 7"),
+            ("set_gradient_compression", lambda: kv.set_gradient_compression(
+                {"type": "2bit"}), "item 11")):
+        try:
+            call()
+            message = None
+        except mx.MXNetError as exc:
+            message = str(exc)
+        check(message is not None and item in message,
+              "10a: %s did not raise naming %s: %r" % (what, item, message))
+        raised[what] = item
+    print("kv 10a: mx.kv.create('device') on the card, %s f32 and bf16: "
+          "push of 3 arrays then pull into 2 outs bit-equal to the sum in "
+          "torch %s; set_optimizer(sgd %s): 3 pushes bit-equal to the "
+          "updater by hand %s; optimizer states through a file bit-equal %s; "
+          "raising MXNetError naming their ROADMAP items: %s | %s"
+          % (shape, sums, KV_OPT, steps, round_trip, raised, card),
+          flush=True)
+    del kv, other
+    return dict(sums=sums, updates=steps, states_round_trip=round_trip)
+
+
+def fit_module(mx, symbol, train_iter, val_iter, args, on_step=None):
+    """``example/image-classification/common.py`` ``fit_module`` (:32-52)
+    line for line, with the port as ``mx``.  Two additions: an empty
+    ``args.kv_store`` trains without a store, and ``on_step(mod)`` runs
+    after every batch."""
+    kv = mx.kv.create(args.kv_store) if args.kv_store else None
+    mod = mx.mod.Module(symbol, context=mx.context.Context.default_ctx())
+    batch_end = mx.callback.Speedometer(args.batch_size, args.disp_batches)
+    if on_step is not None:
+        batch_end = [batch_end, lambda _param: on_step(mod)]
+    mod.fit(train_iter,
+            eval_data=val_iter,
+            num_epoch=args.num_epochs,
+            kvstore=kv,
+            optimizer=args.optimizer,
+            optimizer_params={"learning_rate": args.lr,
+                              "momentum": args.momentum, "wd": args.wd},
+            initializer=mx.init.Xavier(magnitude=2.0),
+            batch_end_callback=batch_end,
+            eval_metric="acc")
+    score = mod.score(val_iter, "acc")
+    for name, val in score:
+        logging.info("final validation %s=%f", name, val)
+    return dict(score)["accuracy"]
+
+
+def fit_gluon(mx, net, train_iter, val_iter, args, on_step=None):
+    """``common.py`` ``fit_gluon`` (:55-81) line for line, with the port as
+    ``mx``; the same two additions (``on_step(net)`` after every
+    ``trainer.step``)."""
+    kv = mx.kv.create(args.kv_store) if args.kv_store else None
+    net.initialize(mx.init.Xavier(magnitude=2.0))
+    trainer = mx.gluon.Trainer(net.collect_params(), args.optimizer,
+                               {"learning_rate": args.lr,
+                                "momentum": args.momentum, "wd": args.wd},
+                               kvstore=kv)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    autograd = mx.autograd
+    for epoch in range(args.num_epochs):
+        train_iter.reset()
+        tic = time.time()
+        n = 0
+        for i, batch in enumerate(train_iter):
+            x, y = batch.data[0], batch.label[0]
+            if x.dtype == np.uint8:   # raw-record pipeline: cast on use
+                x = x.astype("float32")
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(x.shape[0] * max(kv.num_workers if kv else 1, 1))
+            if on_step is not None:
+                on_step(net)
+            n += x.shape[0]
+            if args.disp_batches and (i + 1) % args.disp_batches == 0:
+                logging.info("epoch %d batch %d speed %.1f samples/s",
+                             epoch, i + 1, n / (time.time() - tic))
+        logging.info("epoch %d done in %.1fs", epoch, time.time() - tic)
+    return evaluate_gluon(net, val_iter)
+
+
+def evaluate_gluon(net, val_iter):
+    """``common.py`` ``evaluate_gluon`` (:84-99) line for line."""
+    val_iter.reset()
+    correct = total = 0
+    for batch in val_iter:
+        x = batch.data[0]
+        if x.dtype == np.uint8:
+            x = x.astype("float32")
+        out = net(x).asnumpy()
+        y = batch.label[0].asnumpy()
+        keep = len(y) - batch.pad
+        correct += (out.argmax(1)[:keep] == y[:keep]).sum()
+        total += keep
+    acc = correct / max(total, 1)
+    logging.info("final validation accuracy=%f", acc)
+    return acc
+
+
+def synthetic_mnist(n_synth, seed=SEED):
+    """train_mnist.py ``load_mnist``'s synthetic stand-in (:63-75): ten
+    class templates plus noise, MNIST's shapes, from ``seed``."""
+    rs = np.random.RandomState(seed)
+    templates = rs.rand(10, 1, 28, 28).astype(np.float32)
+    y = (rs.rand(n_synth) * 10).astype(np.int64)
+    x = templates[y] + 0.25 * rs.randn(n_synth, 1, 28, 28).astype(np.float32)
+    x = np.clip(x, 0.0, 1.0)
+    cut = int(n_synth * 0.9)
+    return (x[:cut], y[:cut].astype(np.float32),
+            x[cut:], y[cut:].astype(np.float32))
+
+
+def mnist_nets(mx):
+    """train_mnist.py's four nets (:78-119) over the port: (name, fit,
+    builder)."""
+    sym, nn = mx.sym, mx.gluon.nn
+
+    def mlp_symbol():
+        data = sym.Variable("data")
+        net = sym.FullyConnected(data, num_hidden=128, name="fc1")
+        net = sym.Activation(net, act_type="relu")
+        net = sym.FullyConnected(net, num_hidden=64, name="fc2")
+        net = sym.Activation(net, act_type="relu")
+        net = sym.FullyConnected(net, num_hidden=10, name="fc3")
+        return sym.SoftmaxOutput(net, name="softmax")
+
+    def lenet_symbol():
+        data = sym.Variable("data")
+        net = sym.Convolution(data, kernel=(5, 5), num_filter=20)
+        net = sym.Activation(net, act_type="tanh")
+        net = sym.Pooling(net, pool_type="max", kernel=(2, 2), stride=(2, 2))
+        net = sym.Convolution(net, kernel=(5, 5), num_filter=50)
+        net = sym.Activation(net, act_type="tanh")
+        net = sym.Pooling(net, pool_type="max", kernel=(2, 2), stride=(2, 2))
+        net = sym.Flatten(net)
+        net = sym.FullyConnected(net, num_hidden=500)
+        net = sym.Activation(net, act_type="tanh")
+        net = sym.FullyConnected(net, num_hidden=10)
+        return sym.SoftmaxOutput(net, name="softmax")
+
+    def mlp_gluon():
+        net = nn.HybridSequential()
+        net.add(nn.Flatten(), nn.Dense(128, activation="relu"),
+                nn.Dense(64, activation="relu"), nn.Dense(10))
+        return net
+
+    def lenet_gluon():
+        net = nn.HybridSequential()
+        net.add(nn.Conv2D(20, kernel_size=5, activation="tanh"),
+                nn.MaxPool2D(pool_size=2, strides=2),
+                nn.Conv2D(50, kernel_size=5, activation="tanh"),
+                nn.MaxPool2D(pool_size=2, strides=2),
+                nn.Flatten(), nn.Dense(500, activation="tanh"),
+                nn.Dense(10))
+        return net
+
+    return (("mlp Module", fit_module, mlp_symbol),
+            ("lenet Module", fit_module, lenet_symbol),
+            ("mlp Gluon", fit_gluon, mlp_gluon),
+            ("lenet Gluon", fit_gluon, lenet_gluon))
+
+
+class StepTrail(object):
+    """``on_step`` of the fit copies: the card's copy of every weight (and
+    auxiliary state) after each step, each step's ms by the host clock to
+    ``synchronize`` (the copying left out), and, given the trail of a first
+    run, whether each step's weights equal that run's bit for bit."""
+
+    def __init__(self, torch, against=None):
+        self.torch = torch
+        self.against = against
+        self.weights, self.equal, self.ms = [], [], []
+        self._t = None
+
+    def start(self):
+        self.torch.cuda.synchronize()
+        self._t = time.perf_counter()
+
+    def __call__(self, model):
+        torch = self.torch
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - self._t) * 1e3)
+        if hasattr(model, "_exec_group"):
+            group = model._exec_group
+            arrays = [a for arrs in group.param_arrays + group.aux_arrays
+                      for a in arrs]
+        else:
+            arrays = [p.data() for p in model.collect_params().values()]
+        ws = [a._data.detach().clone() for a in arrays]
+        if self.against is None:
+            self.weights.append(ws)
+        else:
+            want = self.against.weights[len(self.equal)]
+            self.equal.append(len(ws) == len(want) and all(
+                torch.equal(a, b) for a, b in zip(ws, want)))
+        self._t = time.perf_counter()
+
+
+@contextlib.contextmanager
+def deterministic_kernels(torch):
+    """torch's deterministic algorithms inside (cuDNN's convolutions among
+    them): two runs of the same steps then give the same bits.  Without
+    them cuDNN's backward may add in another order from one run to the
+    next (phase 7b)."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.backends.cudnn.deterministic,
+              os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0])
+        torch.backends.cudnn.deterministic = before[1]
+        if before[2] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
+def store_pair(mx, what, fit, build, make_iters, args, card):
+    """``fit`` of ``build()`` with ``args.kv_store`` (a store), timed; then,
+    with torch's deterministic algorithms, again with the store and
+    without one, both from the same seeds: every step's weights
+    bit-equal.  Returns the timed run's accuracy, step ms, img/s and peak
+    memory, and the deterministic pair's step ms."""
+    import torch
+    from types import SimpleNamespace
+    runs = []
+    for kv_store, exact in ((args["kv_store"], False),
+                            (args["kv_store"], True), (None, True)):
+        mx.random.seed(SEED)
+        np.random.seed(SEED)
+        train_iter, val_iter = make_iters()
+        trail = StepTrail(torch, runs[1][1] if kv_store is None else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with deterministic_kernels(torch) if exact else \
+                contextlib.nullcontext():
+            trail.start()
+            acc = fit(mx, build(), train_iter, val_iter,
+                      SimpleNamespace(**dict(args, kv_store=kv_store)),
+                      on_step=trail)
+        wall = time.perf_counter() - t0
+        runs.append((acc, trail, torch.cuda.max_memory_allocated(), wall))
+        del train_iter, val_iter
+        gc.collect()
+        torch.cuda.empty_cache()
+    (acc, timed, peak, wall), (acc1, store, _, _), (acc0, plain, _, _) = runs
+
+    def steady(ms):
+        return sum(ms[1:]) / max(len(ms) - 1, 1)
+
+    mean = steady(timed.ms)
+    result = dict(accuracy=float(acc), steps=len(timed.ms),
+                  step_ms=timed.ms, step_ms_mean=mean,
+                  img_per_s=args["batch_size"] / mean * 1e3,
+                  peak_memory_bytes=peak, seconds=wall,
+                  deterministic_step_ms_mean=steady(store.ms),
+                  deterministic_no_store_step_ms_mean=steady(plain.ms),
+                  deterministic_accuracy=(float(acc1), float(acc0)),
+                  equal_steps=sum(plain.equal))
+    print("fit %s: kvstore %r, %d steps (batch %d, lr %s, momentum %s, wd "
+          "%s): step ms %s (mean after the first %.3f, %.1f img/s), final "
+          "accuracy %.4f, peak memory allocated %d bytes, %.1f s; with "
+          "torch's deterministic algorithms, with the store and without: "
+          "weights bit-equal after %d of %d steps, mean step %.3f and %.3f "
+          "ms (the store's copy, push and pull: %+.3f ms a step), accuracy "
+          "%.4f and %.4f | %s"
+          % (what, args["kv_store"], len(timed.ms), args["batch_size"],
+             args["lr"], args["momentum"], args["wd"],
+             ["%.3f" % v for v in timed.ms], mean, result["img_per_s"], acc,
+             peak, wall, sum(plain.equal), len(plain.equal),
+             steady(store.ms), steady(plain.ms),
+             steady(store.ms) - steady(plain.ms), acc1, acc0, card),
+          flush=True)
+    check(len(plain.equal) == len(store.ms) == len(timed.ms) > 0 and
+          all(plain.equal),
+          "fit %s: the weights with a store differ from those without "
+          "after steps %s" % (what, [i for i, e in enumerate(plain.equal)
+                                     if not e]))
+    check(acc1 == acc0 and 0.0 <= acc <= 1.0, "fit %s: accuracy %s with a "
+          "store, %s without" % (what, acc1, acc0))
+    return result
+
+
+def baseline_config1(mx, card):
+    """Phase 10b: BASELINE config 1, train_mnist.py (:78-119): the MLP and
+    LeNet symbols through ``fit_module`` and the two Gluon nets through
+    ``fit_gluon``, each with ``mx.kv.create("device")``, 2 epochs of
+    synthetic MNIST-shaped batches of 64, each step's weights bit-equal to
+    the run without a store."""
+    tx, ty, vx, vy = synthetic_mnist(MNIST_SYNTH)
+    args = dict(FIT_ARGS)
+
+    def make_iters():
+        return (mx.io.NDArrayIter(tx, ty, args["batch_size"], shuffle=True,
+                                  label_name="softmax_label"),
+                mx.io.NDArrayIter(vx, vy, args["batch_size"],
+                                  label_name="softmax_label"))
+
+    out = {}
+    for what, fit, build in mnist_nets(mx):
+        def built(build=build, fit=fit):
+            net = build()
+            if fit is fit_gluon:
+                net.hybridize()
+            return net
+        out[what] = store_pair(mx, "10b " + what, fit, built, make_iters,
+                               args, card)
+    return out
+
+
+def synthetic_iters(mx, args, shape):
+    """train_imagenet.py ``synthetic_iters`` (:50-77) line for line, with
+    the port as ``mx`` (one process: no rank sharding)."""
+    rs = np.random.RandomState(3)
+    n = args["batch_size"] * args["num_batches"]
+    y = (rs.rand(n) * args["num_classes"]).astype(np.int64)
+    x = rs.rand(n, *shape).astype(np.float32)
+    # inject a weak class signal so accuracy is measurable
+    x[np.arange(n), 0, 0, 0] = y / float(args["num_classes"])
+    cut = n - args["batch_size"]
+    if cut <= 0:
+        cut = n
+        vx, vy = x, y
+    else:
+        vx, vy = x[cut:], y[cut:]
+    tx, ty = x[:cut], y[:cut]
+    train = mx.io.NDArrayIter(tx, ty.astype(np.float32),
+                              args["batch_size"], shuffle=True,
+                              label_name="softmax_label")
+    val = mx.io.NDArrayIter(vx, vy.astype(np.float32),
+                            args["batch_size"], label_name="softmax_label")
+    return train, val
+
+
+def symbol_convnet(mx, num_classes):
+    """train_imagenet.py ``symbol_convnet`` (:105-121) line for line."""
+    net = mx.sym.Variable("data")
+    for i, filters in enumerate((32, 64, 128)):
+        net = mx.sym.Convolution(net, kernel=(3, 3), stride=(2, 2),
+                                 pad=(1, 1), num_filter=filters,
+                                 name="conv%d" % i)
+        net = mx.sym.BatchNorm(net, fix_gamma=False, name="bn%d" % i)
+        net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.Pooling(net, global_pool=True, pool_type="avg",
+                         kernel=(1, 1))
+    net = mx.sym.Flatten(net)
+    net = mx.sym.FullyConnected(net, num_hidden=num_classes, name="fc")
+    return mx.sym.SoftmaxOutput(net, name="softmax")
+
+
+def baseline_config2(mx, card):
+    """Phase 10c: BASELINE config 2, train_imagenet.py (:50-77, :153-160)
+    on ``synthetic_iters``: ResNet-50 v1 in f32 through ``fit_gluon``
+    (``--gluon-trainer``) and ``symbol_convnet`` through ``fit_module``
+    (``--module``), each with a ``"device"`` store, each step's weights
+    bit-equal to the run without a store."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    args, shape = dict(IMAGENET_ARGS), IMAGENET_SHAPE
+
+    def make_iters():
+        return synthetic_iters(mx, args, shape)
+
+    def resnet():
+        net = vision.resnet50_v1(classes=args["num_classes"])
+        net.hybridize()
+        return net
+
+    out = {"resnet50 Gluon": store_pair(
+        mx, "10c resnet50_v1 f32 Gluon", fit_gluon, resnet, make_iters,
+        args, card)}
+    out["symbol_convnet Module"] = store_pair(
+        mx, "10c symbol_convnet f32 Module", fit_module,
+        lambda: symbol_convnet(mx, args["num_classes"]), make_iters, args,
+        card)
+    r = out["resnet50 Gluon"]
+    print("fit 10c: resnet50_v1 f32 through fit_gluon with a store, batch "
+          "%d: %.3f ms a step, %.1f img/s, against 6c's %.3f ms (bf16, "
+          "DataParallelTrainer) and 9b's %.3f ms (f32, symbolic Module); "
+          "the store's copy of the weights and its push and pull %+.3f ms "
+          "a step (deterministic algorithms, %.3f with the store, %.3f "
+          "without); peak memory %d bytes | %s"
+          % (args["batch_size"], r["step_ms_mean"], r["img_per_s"],
+             PHASE_6C_MS, PHASE_9B_MS,
+             r["deterministic_step_ms_mean"] -
+             r["deterministic_no_store_step_ms_mean"],
+             r["deterministic_step_ms_mean"],
+             r["deterministic_no_store_step_ms_mean"],
+             r["peak_memory_bytes"], card), flush=True)
+    return out
+
+
+def lm_store_trainer(mx, card):
+    """Phase 10d: the LM of bench_transformer.py at full width in bf16
+    through ``gluon.Trainer(..., kvstore=mx.kv.create("device"))``, the
+    update on the store (sgd with momentum, multi_precision), beside a
+    copy of it through a Trainer without a store, both with torch's
+    deterministic algorithms: after every step the weights are equal, and
+    B1's forward and backward kernel counters (of the store-backed run,
+    zeroed just before each of its steps and read just after) rise by one
+    per layer per step while the torch-ops backward stays at 0.  Returns
+    (the net, its token batch, one training step of it, the numbers)."""
+    import torch
+    from incubator_mxnet_tpu_torch.models import TransformerLM
+    from incubator_mxnet_tpu_torch.ops.attention import flash_attention
+    cfg, batch, steps = LM_CONFIG, TRAIN_BATCH, LM_STORE_STEPS
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    mx.random.seed(SEED)
+    nets = []
+    for _ in range(2):
+        net = TransformerLM(**cfg)
+        net.initialize(mx.init.Xavier(rnd_type="gaussian"), ctx=ctx)
+        nets.append(net)
+    rs = np.random.RandomState(SEED + 10)
+    x = mx.nd.array(rs.randint(0, cfg["vocab"], (batch, cfg["seq_len"])),
+                    ctx=ctx, dtype="int32")
+    y = mx.nd.array(rs.randint(0, cfg["vocab"], (batch, cfg["seq_len"]))
+                    .astype(np.float32), ctx=ctx)
+    with mx.autograd.predict_mode():
+        for net in nets:
+            net(x)                          # resolves the deferred shapes
+    a, b = nets
+    pa, pb = list(a.collect_params().values()), \
+        list(b.collect_params().values())
+    with torch.no_grad():
+        for p, q in zip(pb, pa):
+            p.data()._data.copy_(q.data()._data)
+    for net in nets:
+        net.cast("bfloat16")
+    store = mx.kv.create("device")
+    trainers = (mx.gluon.Trainer(a.collect_params(), "sgd",
+                                 dict(LM_STORE_OPT), kvstore=store),
+                mx.gluon.Trainer(b.collect_params(), "sgd",
+                                 dict(LM_STORE_OPT), kvstore=None))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(net, trainer):
+        with mx.autograd.record():
+            loss = loss_fn(net(x).astype("float32"), y)
+        loss.backward()
+        trainer.step(batch)
+        return float(loss.mean().asscalar())
+
+    built_s = time.perf_counter() - t0
+    counters = ("launches", "backward_kernel_launches",
+                "backward_torch_calls", "backward_calls")
+    totals = dict.fromkeys(counters, 0)
+    losses, ms, equal = [], [], []
+    exact = deterministic_kernels(torch)
+    exact.__enter__()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        for c in counters:
+            setattr(flash_attention, c, 0)
+        t1 = time.perf_counter()
+        losses.append(step(a, trainers[0]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        for c in counters:
+            totals[c] += getattr(flash_attention, c)
+        step(b, trainers[1])
+        equal.append(all(torch.equal(p.data()._data, q.data()._data)
+                         for p, q in zip(pa, pb)))
+    exact.__exit__(None, None, None)
+    store_bytes = sum(v._data.numel() * v._data.element_size()
+                      for v in store._store.values())
+    n_params = sum(int(np.prod(p.shape)) for p in pa)
+    peak = torch.cuda.max_memory_allocated()
+    print("train 10d: TransformerLM %s, %d parameters in bf16, "
+          "gluon.Trainer(sgd %s, kvstore=mx.kv.create('device')), the "
+          "update on the store, batch %d x %d, built in %.1f s; torch's "
+          "deterministic algorithms: step ms %s, "
+          "losses %s; weights equal to the Trainer without a store after "
+          "each step %s; flash launches in %d steps %s (%d layers); the "
+          "store holds a second copy of the %d weights, %d bytes in bf16, "
+          "and the optimizer an f32 master copy and momentum; peak memory "
+          "allocated %d bytes | %s"
+          % (cfg, n_params, LM_STORE_OPT, batch, cfg["seq_len"], built_s,
+             ["%.3f" % v for v in ms], ["%.4f" % v for v in losses], equal,
+             steps, totals, cfg["n_layers"], n_params, store_bytes, peak,
+             card), flush=True)
+    expected = cfg["n_layers"] * steps
+    check(all(equal), "10d: the store-backed Trainer's weights differ from "
+          "the Trainer without a store after steps %s" % equal)
+    check(totals["launches"] == expected and
+          totals["backward_kernel_launches"] == expected and
+          totals["backward_calls"] == expected and
+          totals["backward_torch_calls"] == 0,
+          "10d: flash counters %s, expected %d forward and backward kernel "
+          "launches and no torch-ops backward" % (totals, expected))
+    check(all(math.isfinite(v) for v in losses), "10d: losses %s" % losses)
+    trainer = trainers[0]
+    del b, trainers, pb
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = dict(step_ms=ms, losses=losses, equal_steps=sum(equal),
+                  launches=totals, store_bytes=store_bytes,
+                  n_params=n_params, peak_memory_bytes=peak,
+                  built_s=built_s)
+    return a, x, lambda: step(a, trainer), result
+
+
+def _trace_rows(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _inside(t, span):
+    return span[0] <= t <= span[1]
+
+
+def flash_rows_in_spans(rows, sync):
+    """{kernel: (rows, rows launched inside their op's span, rows run
+    inside it)} for the flash kernels of FLASH_KERNELS in a dump, by
+    correlation id to their launch; a row runs inside its span when
+    ``sync`` made the span wait for it."""
+    spans, launch, kernels = {}, {}, []
+    for r in rows:
+        cat, args = r.get("cat"), r.get("args") or {}
+        if r.get("ph") != "X":
+            continue
+        if cat == "operator":
+            spans.setdefault(r["name"], []).append(
+                (r["ts"], r["ts"] + r["dur"]))
+        elif cat in ("cuda_runtime", "cuda_driver") and \
+                "correlation" in args:
+            launch[args["correlation"]] = r["ts"]
+        elif cat == "kernel":
+            kernels.append(r)
+    out = {}
+    for k in kernels:
+        kind = next((n for n in FLASH_KERNELS if n in k["name"]), None)
+        if kind is None:
+            continue
+        own = spans.get(FLASH_KERNELS[kind], [])
+        t = launch.get((k.get("args") or {}).get("correlation"))
+        n, launched, ran = out.get(kind, (0, 0, 0))
+        launched_in = t is not None and any(_inside(t, s) for s in own)
+        ran_in = any(_inside(k["ts"], s) and _inside(k["ts"] + k["dur"], s)
+                     for s in own)
+        out[kind] = (n + 1, launched + launched_in, ran + ran_in)
+    return out
+
+
+def host_split(rows):
+    """How the host time of eager ops splits, from a dump without sync:
+    the top-level op spans of the main thread; in each, the CUDA runtime
+    and driver calls, the rest of torch's ops (ATen dispatch), and the
+    framework's own Python (the span less both); and the host's time
+    between the spans, from the first span's start to the last one's end
+    (Gluon's blocks and the caller; a final wait for the card is left
+    out)."""
+    tid = threading.get_native_id()
+    spans = sorted((r for r in rows if r.get("cat") == "operator" and
+                    r.get("ph") == "X" and r.get("tid") == tid),
+                   key=lambda r: r["ts"])
+    top, end = [], -1.0
+    for s in spans:
+        if s["ts"] >= end:
+            top.append(s)
+            end = s["ts"] + s["dur"]
+    aten = sorted(((r["ts"], r["ts"] + r["dur"]) for r in rows
+                   if r.get("cat") == "cpu_op" and r.get("tid") == tid),
+                  key=lambda iv: iv[0])
+    runtime = [(r["ts"], r["ts"] + r["dur"]) for r in rows
+               if r.get("cat") in ("cuda_runtime", "cuda_driver")
+               and r.get("tid") == tid]
+    totals = dict(ops=len(top), span_us=0.0, runtime_us=0.0, aten_us=0.0,
+                  python_us=0.0)
+    for s in top:
+        a, b = s["ts"], s["ts"] + s["dur"]
+        tops, cur = [], -1.0
+        for lo, hi in aten:
+            if lo >= a and hi <= b and lo >= cur:
+                tops.append((lo, hi))
+                cur = hi
+        rt = [(lo, hi) for lo, hi in runtime if lo >= a and hi <= b]
+        rt_us = sum(hi - lo for lo, hi in rt)
+        rt_in_aten = sum(hi - lo for lo, hi in rt if any(
+            x <= lo and hi <= y for x, y in tops))
+        aten_us = sum(hi - lo for lo, hi in tops)
+        totals["span_us"] += b - a
+        totals["runtime_us"] += rt_us
+        totals["aten_us"] += aten_us - rt_in_aten
+        totals["python_us"] += (b - a) - aten_us - (rt_us - rt_in_aten)
+    totals["window_us"] = (top[-1]["ts"] + top[-1]["dur"] - top[0]["ts"]
+                           if top else 0.0)
+    totals["between_ops_us"] = totals["window_us"] - totals["span_us"]
+    n = max(totals["ops"], 1)
+    totals["per_op_us"] = {k: totals[k] / n for k in (
+        "span_us", "runtime_us", "aten_us", "python_us", "between_ops_us")}
+    return totals
+
+
+def profiler_on_card(mx, card, lm, tokens, lm_step, request_ms_4b):
+    """Phase 10e: ``mx.profiler`` on the card.  One LM request and one 10d
+    training step with ``sync=True``: every flash kernel row of the dump
+    launched and run inside its op's span (``_contrib_FlashAttention``,
+    ``_backward__contrib_FlashAttention``); ``dumps()`` lists the ops by
+    count and total.  Then without sync, one LM request and one ResNet-50
+    batch of 32 in bf16 (6b's serving): how an eager op's host time
+    splits.  Last, an LM request with the profiler stopped, against phase
+    4b's eager requests."""
+    import torch
+    from incubator_mxnet_tpu_torch import cuda_build
+    prof = mx.profiler
+    path = cuda_build.BUILD_DIR.parent / ("mx-profile-%d.json" % os.getpid())
+
+    def request():
+        with mx.autograd.predict_mode():
+            logits = lm(tokens)
+            mx.nd.argmax(mx.nd.slice_axis(logits, axis=1, begin=-1,
+                                          end=None), axis=-1).asnumpy()
+
+    request()
+    prof.set_config(filename=str(path), sync=True, profile_memory=True)
+    prof.set_state("run")
+    request()
+    lm_step()
+    prof.set_state("stop")
+    table = prof.dumps()
+    stats = prof.stats()
+    prof.dump()
+    rows = _trace_rows(path)
+    inside = flash_rows_in_spans(rows, sync=True)
+    names = {r["name"] for r in rows if r.get("cat") == "operator"}
+    kernels = sum(1 for r in rows if r.get("cat") == "kernel")
+    print("prof 10e: one LM request and one 10d step under "
+          "mx.profiler(sync=True): %d rows, %d op names, %d kernel rows; "
+          "flash kernel rows (rows, launched inside their op's span, run "
+          "inside it) %s | %s" % (len(rows), len(names), kernels, inside,
+                                  card), flush=True)
+    for line in table.splitlines()[:16]:
+        print("prof 10e dumps: " + line)
+    n_layers = LM_CONFIG["n_layers"]
+    for kind in FLASH_KERNELS:
+        n, launched, ran = inside.get(kind, (0, 0, 0))
+        check(n >= n_layers and launched == n and ran == n,
+              "10e: %s rows %d, %d launched and %d run inside their op's "
+              "span" % (kind, n, launched, ran))
+    for op in ("FullyConnected", "_contrib_FlashAttention",
+               "_backward__contrib_FlashAttention"):
+        check(op in names and stats.get(("operator", op), (0,))[0] > 0,
+              "10e: no %s span in the dump or in dumps()" % op)
+    # the host split, without sync: the LM request, ResNet-50 at batch 32
+    prof.set_config(sync=False, profile_memory=False)
+    splits = {}
+    resnet = _resnet_full(mx, np)
+    resnet.collect_params().setattr("grad_req", "null")
+    resnet.cast("bfloat16")
+    xr = mx.nd.array(np.random.RandomState(SEED + 7).rand(
+        RESNET_SERVE_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE), ctx=mx.gpu(0),
+        dtype="bfloat16")
+
+    def serve_resnet():
+        with mx.autograd.predict_mode():
+            resnet(xr).asnumpy()
+
+    serve_resnet()
+    for what, run in (("LM request", request),
+                      ("ResNet-50 bf16 batch 32", serve_resnet)):
+        off = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            off.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        prof.set_state("run")
+        t0 = time.perf_counter()
+        run()
+        on = (time.perf_counter() - t0) * 1e3
+        prof.set_state("stop")
+        prof.dump()
+        s = splits[what] = dict(host_split(_trace_rows(path)),
+                                wall_ms_profiled=on, wall_ms=off)
+        p = s["per_op_us"]
+        print("prof 10e host split, %s: %.3f ms with the profiler on (no "
+              "sync; off %s ms): %d top-level op spans in a %.1f us host "
+              "window; per op: span %.2f us = framework Python %.2f + ATen "
+              "dispatch %.2f + CUDA runtime %.2f, and %.2f us between the "
+              "spans (Gluon blocks, the caller) | %s"
+              % (what, on, ["%.3f" % v for v in off], s["ops"],
+                 s["window_us"], p["span_us"], p["python_us"], p["aten_us"],
+                 p["runtime_us"], p["between_ops_us"], card), flush=True)
+        check(s["ops"] > 0 and s["span_us"] > 0, "10e: no op spans in %s"
+              % what)
+    path.unlink()
+    del resnet, xr
+    # the profiler stopped: one op_span flag check an op
+    check(prof.state() == "stop" and mx.profiler.op_span("x") is None,
+          "10e: the profiler did not stop")
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    mean4b = sum(request_ms_4b) / len(request_ms_4b)
+    print("prof 10e: an LM request with the profiler stopped %s ms (mean "
+          "%.3f) against phase 4b's eager requests %s ms (mean %.3f) | %s"
+          % (["%.3f" % v for v in ms], sum(ms) / len(ms),
+             ["%.3f" % v for v in request_ms_4b], mean4b, card), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(flash_rows=inside, ops=len(names), kernel_rows=kernels,
+                host_split=splits, request_ms=ms, request_ms_4b=request_ms_4b)
+
+
+def store_phase(mx, card, request_ms_4b):
+    """Phase 10: 10a-10e; returns their numbers."""
+    import torch
+    t10 = time.perf_counter()
+    out = dict(kv=kv_on_card(mx, card), config1=baseline_config1(mx, card),
+               config2=baseline_config2(mx, card))
+    lm, tokens, lm_step, out["lm"] = lm_store_trainer(mx, card)
+    out["profiler"] = profiler_on_card(mx, card, lm, tokens, lm_step,
+                                       request_ms_4b)
+    del lm, lm_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t10
+    print("kv: phase 10 in %.1f s | %s" % (out["seconds"], card), flush=True)
     return out
 
 
@@ -5776,6 +6629,12 @@ def main():
     symbolic = symbolic_phase(mx, card)
     sym_launches = symbolic["attention"]["launches"]
 
+    # phase 10: the single-card KVStore, BASELINE configs 1 and 2 through
+    # common.py's wiring, the LM through a store-backed Trainer (kernel B1,
+    # forward and backward), and the profiler on the card
+    store = store_phase(mx, card, request_ms)
+    store_launches = store["lm"]["launches"]
+
     def entry(name, source, design, launches_, err, t,
               replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -5797,11 +6656,14 @@ def main():
     print("arrays: summary " + json.dumps(arrays, default=str), flush=True)
     print("zoo: summary " + json.dumps(zoo, default=str), flush=True)
     print("sym: summary " + json.dumps(symbolic, default=str), flush=True)
+    print("kv: summary " + json.dumps(store, default=str), flush=True)
     print(json.dumps({"kernels": [
         entry("flash_attention_fwd", BF16_SOURCE, FLASH_DESIGN,
-              launches["flash_attention_fwd"] + sym_launches["launches"],
+              launches["flash_attention_fwd"] + sym_launches["launches"] +
+              store_launches["launches"],
               errs[serving], bf16,
               symbolic_executor_launches=sym_launches["launches"],
+              store_trainer_launches=store_launches["launches"],
               max_abs_err_cases=errs, half_violations_cases=violations,
               tflops=bf16["tflops"],
               training_launches=train["launches"]["flash_attention_fwd"],
@@ -5853,12 +6715,15 @@ def main():
               ptxas=ptxas_resources(build_log, "flash_fwd_wide_f32_kernel")),
         entry("flash_attention_bwd", BWD_SOURCE, BWD_DESIGN,
               train["launches"]["flash_attention_bwd"] +
-              sym_launches["backward_kernel_launches"],
+              sym_launches["backward_kernel_launches"] +
+              store_launches["backward_kernel_launches"],
               max(backward_errs[case_key(*BACKWARD_CASES[0][:2], "bfloat16")
                                 + "_" + n] for n in ("dq", "dk", "dv")),
               backward, replaces="incubator_mxnet_tpu/ops/attention.py:168",
               training_steps=TRAIN_STEPS,
               symbolic_executor_launches=sym_launches[
+                  "backward_kernel_launches"],
+              store_trainer_launches=store_launches[
                   "backward_kernel_launches"], torch_ops_ms=backward[
                   "torch_ops_ms"], f16_ms=backward["f16_ms"],
               kernel_us=backward["kernel_us"],

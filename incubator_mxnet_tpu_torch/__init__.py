@@ -16,8 +16,10 @@ The package imports neither JAX nor anything of ``incubator_mxnet_tpu``.
 __version__ = "0.1.0"
 
 from .base import MXNetError  # noqa: F401
+from . import config  # noqa: F401
 from . import context  # noqa: F401
-from .context import Context, cpu, gpu, tpu, current_context  # noqa: F401
+from .context import (Context, cpu, gpu, tpu, current_context,  # noqa: F401
+                      num_devices)
 
 from . import ops  # noqa: F401
 from . import ndarray  # noqa: F401
@@ -35,6 +37,9 @@ from .initializer import Xavier  # noqa: F401
 from . import name  # noqa: F401
 from . import lr_scheduler  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import optimizer as opt  # noqa: F401  alias, as in mxnet
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401  alias, as in mxnet
 from . import gluon  # noqa: F401
 from . import parallel  # noqa: F401
 from . import models  # noqa: F401
@@ -53,3 +58,14 @@ from .symbol import Symbol  # noqa: F401
 from . import model  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
+from . import profiler  # noqa: F401
+from . import test_utils  # noqa: F401
+
+# settings read at import (MXTPU_PROFILER_AUTOSTART, MXTPU_SEED)
+if config.get_bool("PROFILER_AUTOSTART"):
+    import atexit as _atexit
+    profiler.set_config(continuous_dump=True)
+    profiler.set_state("run")
+    _atexit.register(lambda: profiler.set_state("stop"))
+if config.get_int("SEED") is not None:
+    random.seed(config.get_int("SEED"))

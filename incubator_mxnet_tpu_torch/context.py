@@ -15,7 +15,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "tpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "tpu", "current_context", "num_devices"]
 
 
 class Context:
@@ -109,3 +109,13 @@ def gpu(device_id=0):
 def tpu(device_id=0):
     """Alias of :func:`gpu`, so scripts written for the JAX build still run."""
     return Context("gpu", device_id)
+
+
+def num_devices(device_type="gpu"):
+    """Devices of ``device_type`` this process can address: the CUDA
+    devices for ``"gpu"`` (and its alias ``"tpu"``), one for the CPU."""
+    if device_type in ("cpu", "cpu_pinned", "cpu_shared"):
+        return 1
+    if device_type not in ("gpu", "tpu"):
+        raise ValueError("unknown device type %r" % (device_type,))
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0

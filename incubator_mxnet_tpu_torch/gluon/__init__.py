@@ -1,12 +1,14 @@
 """Gluon: the imperative layer API (ref: python/mxnet/gluon/__init__.py).
 
-Block/HybridBlock, Parameter/ParameterDict, the layers of the
-decoder-transformer LM and of the ResNets (convolution, pooling,
-BatchNorm), the model zoo's ResNets, the losses and the Trainer.
+Block/HybridBlock, Parameter/Constant/ParameterDict, the layers, the model
+zoo, the losses, the Trainer, ``utils`` and ``contrib.nn``.
 """
-from .parameter import Parameter, ParameterDict, DeferredInitializationError  # noqa: F401
+from .parameter import (Parameter, Constant, ParameterDict,  # noqa: F401
+                        DeferredInitializationError)
 from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from . import nn  # noqa: F401
 from . import loss  # noqa: F401
 from . import model_zoo  # noqa: F401
 from .trainer import Trainer  # noqa: F401
+from . import utils  # noqa: F401
+from . import contrib  # noqa: F401

@@ -1,10 +1,8 @@
 """Shared helpers of the zoo's factories: stamping spec-driven factories
 into a module (counterpart of
 ``incubator_mxnet_tpu/gluon/model_zoo/vision/_factories.py``), and the
-error every factory raises for ``pretrained=True``."""
+loading of a local weight file for ``pretrained=True``."""
 from __future__ import annotations
-
-from ....base import MXNetError
 
 
 def stamp_factory(module_globals, name, doc, builder, *args, **forced_kwargs):
@@ -25,10 +23,10 @@ def stamp_factory(module_globals, name, doc, builder, *args, **forced_kwargs):
     return ctor
 
 
-def no_pretrained(name):
-    """The error ``pretrained=True`` raises: the zoo's weight files are not
-    in the repository and nothing is downloaded."""
-    return MXNetError(
-        "pretrained %s: the model zoo's weight files are not in the "
-        "repository and nothing is downloaded; load weights with "
-        "convert.load_numpy_params" % name)
+def load_pretrained(net, pretrained, name, ctx, root):
+    """``net``, with the model store's ``<name>.params`` loaded into it on
+    ``ctx`` when ``pretrained``; a missing file raises ``MXNetError``."""
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_params(get_model_file(name, root=root), ctx=ctx)
+    return net

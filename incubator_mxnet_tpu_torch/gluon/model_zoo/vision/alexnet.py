@@ -11,7 +11,7 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ...nn import (HybridSequential, Conv2D, Dense, Dropout, MaxPool2D,
                    Flatten)
-from ._factories import no_pretrained
+from ._factories import load_pretrained
 
 __all__ = ["AlexNet", "alexnet"]
 
@@ -49,7 +49,7 @@ class AlexNet(HybridBlock):
 
 
 def alexnet(pretrained=False, ctx=None, root=None, **kwargs):
-    """AlexNet; ``pretrained=True`` raises ``MXNetError``."""
-    if pretrained:
-        raise no_pretrained("alexnet")
-    return AlexNet(**kwargs)
+    """AlexNet; ``pretrained=True`` loads ``alexnet.params`` from the
+    model store."""
+    return load_pretrained(AlexNet(**kwargs), pretrained, "alexnet", ctx,
+                           root)

@@ -6,7 +6,7 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ...nn import (HybridSequential, Conv2D, BatchNorm, Activation, Dense,
                    MaxPool2D, AvgPool2D, GlobalAvgPool2D, Flatten, Dropout)
-from ._factories import no_pretrained
+from ._factories import load_pretrained
 
 __all__ = ["DenseNet", "densenet121", "densenet161", "densenet169",
            "densenet201"]
@@ -92,11 +92,12 @@ densenet_spec = {121: (64, 32, [6, 12, 24, 16]),
 
 def get_densenet(num_layers, pretrained=False, ctx=None, root=None,
                  **kwargs):
-    """A DenseNet by depth; ``pretrained=True`` raises ``MXNetError``."""
-    if pretrained:
-        raise no_pretrained("densenet%d" % num_layers)
+    """A DenseNet by depth; ``pretrained=True`` loads its file from the
+    model store."""
     num_init_features, growth_rate, block_config = densenet_spec[num_layers]
-    return DenseNet(num_init_features, growth_rate, block_config, **kwargs)
+    return load_pretrained(
+        DenseNet(num_init_features, growth_rate, block_config, **kwargs),
+        pretrained, "densenet%d" % num_layers, ctx, root)
 
 
 def densenet121(**kwargs):

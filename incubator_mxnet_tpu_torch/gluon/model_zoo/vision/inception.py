@@ -8,7 +8,7 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ...nn import (HybridSequential, Conv2D, BatchNorm, Activation, Dense,
                    MaxPool2D, AvgPool2D, Dropout)
-from ._factories import no_pretrained
+from ._factories import load_pretrained
 
 __all__ = ["Inception3", "inception_v3"]
 
@@ -181,7 +181,7 @@ class Inception3(HybridBlock):
 
 
 def inception_v3(pretrained=False, ctx=None, root=None, **kwargs):
-    """Inception V3; ``pretrained=True`` raises ``MXNetError``."""
-    if pretrained:
-        raise no_pretrained("inceptionv3")
-    return Inception3(**kwargs)
+    """Inception V3; ``pretrained=True`` loads ``inceptionv3.params`` from
+    the model store."""
+    return load_pretrained(Inception3(**kwargs), pretrained, "inceptionv3",
+                           ctx, root)

@@ -11,7 +11,7 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ...nn import (HybridSequential, Conv2D, BatchNorm, Activation, Dense,
                    GlobalAvgPool2D, Flatten)
-from ._factories import no_pretrained
+from ._factories import load_pretrained
 
 __all__ = ["MobileNet", "mobilenet1_0", "mobilenet0_75", "mobilenet0_5",
            "mobilenet0_25", "get_mobilenet"]
@@ -59,11 +59,10 @@ class MobileNet(HybridBlock):
 
 def get_mobilenet(multiplier, pretrained=False, ctx=None, root=None,
                   **kwargs):
-    """A MobileNet by width multiplier; ``pretrained=True`` raises
-    ``MXNetError``."""
-    if pretrained:
-        raise no_pretrained("mobilenet%s" % multiplier)
-    return MobileNet(multiplier, **kwargs)
+    """A MobileNet by width multiplier; ``pretrained=True`` loads its file
+    from the model store."""
+    return load_pretrained(MobileNet(multiplier, **kwargs), pretrained,
+                           "mobilenet%s" % multiplier, ctx, root)
 
 
 def mobilenet1_0(**kwargs):

@@ -8,15 +8,15 @@ Mappings in Deep Residual Networks" (V2, pre-activation).  Every block
 flavour comes from one ``_ResidualUnit`` built from a declarative conv
 plan, and the ten ``resnetNN_vM`` factories are stamped from
 ``resnet_spec``; parameter names match the JAX build's one to one
-(``tests/data/zoo_param_names.json``).  ``pretrained=True`` raises: the
-zoo's weight files are not in the repository and nothing is downloaded.
+(``tests/data/zoo_param_names.json``).  ``pretrained=True`` loads a local
+file through ``model_store.get_model_file``; nothing is downloaded.
 """
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ...nn import (HybridSequential, Conv2D, BatchNorm, Activation, Dense,
                    MaxPool2D, GlobalAvgPool2D, Flatten)
-from ._factories import no_pretrained
+from ._factories import load_pretrained
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
@@ -206,19 +206,19 @@ resnet_block_versions = [{"basic_block": BasicBlockV1,
 
 def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
                **kwargs):
-    """Build a ResNet by (version, depth).  ``pretrained=True`` raises
-    ``MXNetError``: the zoo's weight files are not in the repository."""
+    """Build a ResNet by (version, depth).  ``pretrained=True`` loads its
+    file from the model store."""
     if num_layers not in resnet_spec:
         raise ValueError("Invalid number of layers: %d. Options are %s"
                          % (num_layers, str(sorted(resnet_spec))))
     if version not in (1, 2):
         raise ValueError("Invalid resnet version: %d. Options are 1 and 2."
                          % version)
-    if pretrained:
-        raise no_pretrained("resnet%d_v%d" % (num_layers, version))
     kind, layers, channels = resnet_spec[num_layers]
-    return resnet_net_versions[version - 1](
+    net = resnet_net_versions[version - 1](
         resnet_block_versions[version - 1][kind], layers, channels, **kwargs)
+    return load_pretrained(net, pretrained,
+                           "resnet%d_v%d" % (num_layers, version), ctx, root)
 
 
 from ._factories import stamp_factory  # noqa: E402

@@ -6,7 +6,7 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ...nn import (HybridSequential, Conv2D, MaxPool2D, Dropout, AvgPool2D,
                    Flatten, Activation)
-from ._factories import no_pretrained
+from ._factories import load_pretrained
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1", "get_squeezenet"]
 
@@ -83,11 +83,10 @@ class SqueezeNet(HybridBlock):
 
 def get_squeezenet(version, pretrained=False, ctx=None, root=None,
                    **kwargs):
-    """A SqueezeNet by version; ``pretrained=True`` raises
-    ``MXNetError``."""
-    if pretrained:
-        raise no_pretrained("squeezenet%s" % version)
-    return SqueezeNet(version, **kwargs)
+    """A SqueezeNet by version; ``pretrained=True`` loads its file from the
+    model store."""
+    return load_pretrained(SqueezeNet(version, **kwargs), pretrained,
+                           "squeezenet%s" % version, ctx, root)
 
 
 def squeezenet1_0(**kwargs):

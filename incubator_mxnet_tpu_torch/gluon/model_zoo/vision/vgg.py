@@ -11,7 +11,7 @@ from ...block import HybridBlock
 from ...nn import (HybridSequential, Conv2D, Dense, Dropout, MaxPool2D,
                    BatchNorm, Activation)
 from .... import initializer
-from ._factories import no_pretrained, stamp_factory
+from ._factories import load_pretrained, stamp_factory
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn",
            "vgg16_bn", "vgg19_bn", "get_vgg"]
@@ -62,15 +62,15 @@ class VGG(HybridBlock):
 
 
 def get_vgg(num_layers, pretrained=False, ctx=None, root=None, **kwargs):
-    """A VGG by depth; ``pretrained=True`` raises ``MXNetError``."""
+    """A VGG by depth; ``pretrained=True`` loads its file from the model
+    store."""
     if num_layers not in vgg_spec:
         raise ValueError("Invalid number of layers: %d. Options are %s"
                          % (num_layers, str(sorted(vgg_spec))))
-    if pretrained:
-        raise no_pretrained("vgg%d%s" % (
-            num_layers, "_bn" if kwargs.get("batch_norm") else ""))
+    name = "vgg%d%s" % (num_layers, "_bn" if kwargs.get("batch_norm") else "")
     layers, filters = vgg_spec[num_layers]
-    return VGG(layers, filters, **kwargs)
+    return load_pretrained(VGG(layers, filters, **kwargs), pretrained, name,
+                           ctx, root)
 
 
 for _depth in sorted(vgg_spec):

@@ -22,7 +22,8 @@ from .. import ndarray as _nd
 from .. import autograd
 from .. import initializer
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -275,6 +276,27 @@ class Parameter(object):
         self._data = OrderedDict(
             (ctx, d.astype(dtype)) for ctx, d in self._data.items())
         self._init_grad()
+
+
+class Constant(Parameter):
+    """A non-trainable constant (ref: gluon/parameter.py class Constant):
+    ``grad_req`` ``null``, filled from ``value`` by an initializer
+    registered as ``Constant_<name>``, so that its ``dumps()`` round-trips
+    through ``initializer.create``."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = _nd.array(value, ctx=cpu())
+        self.value = value
+
+        class Init(initializer.Initializer):
+            def _init_weight(self, _, arr):
+                arr._data.copy_(value._data)
+        Init.__name__ = "Constant_" + name
+        initializer._INIT_REGISTRY[Init.__name__.lower()] = Init
+
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=Init())
 
 
 def _attr_equal(a, b):

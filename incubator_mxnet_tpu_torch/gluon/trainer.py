@@ -3,41 +3,27 @@
 Applies an Optimizer to a set of Parameters after a recorded forward and
 ``backward()``: ``step(batch_size)`` scales the gradients by
 ``1 / batch_size`` and runs the optimizer's update on every parameter whose
-``grad_req`` is not ``null`` (``_update``, :375).  The kvstore follows the
-JAX build's rule (``kvstore.create_kvstore``, :754-782): one context and a
-store that is not ``dist`` means no store, so there is nothing to reduce
-(``_allreduce_grads``, :353, and ``update_on_kvstore`` have no work).
-Stores across several devices or processes come with multi-GPU (ROADMAP
-Queue A item 6) and raise until then; the JAX build's bucketed, overlapped,
+``grad_req`` is not ``null``.  The kvstore follows MXNet's
+``_init_kvstore`` (the JAX build's :144-185, ``kvstore.create_kvstore``):
+a type name on one context needs no store, so the update runs here; a
+``KVStore`` object is used, with the update on the store unless
+``update_on_kvstore=False`` (``step`` pushes the gradients and pulls the
+weights, or pulls the reduced gradients and updates here).  Parameters on
+several contexts and ``dist`` stores come with multi-GPU (ROADMAP Queue A
+item 7) and raise until then; the JAX build's bucketed, overlapped,
 quantized and elastic machinery is not ported.  ``save_states`` and
-``load_states`` checkpoint the optimizer: its pickled state per parameter
-(momentum, ...), with the optimizer itself, its ``num_update`` and its
-``lr_scheduler``.
+``load_states`` checkpoint the optimizer (through the store when the
+update runs there): its pickled state per parameter (momentum, ...), with
+the optimizer itself, its ``num_update`` and its ``lr_scheduler``.
 """
 from __future__ import annotations
 
 from ..base import MXNetError
+from .. import kvstore as kvs_mod
 from .. import optimizer as opt
 from .parameter import ParameterDict, Parameter
 
 __all__ = ["Trainer"]
-
-
-def _check_no_kvstore(kvstore, num_device):
-    """The JAX build's rule (kvstore.py create_kvstore) where it makes no
-    store: ``None``, or a store that is not ``dist`` on one device.  Any
-    other store raises until multi-GPU."""
-    if kvstore is None:
-        return
-    if not isinstance(kvstore, str):
-        raise TypeError("kvstore must be a str or None in the PyTorch port, "
-                        "got %r" % (kvstore,))
-    if num_device == 1 and "dist" not in kvstore:
-        return
-    raise MXNetError(
-        "kvstore %r over %d devices is not ported yet: stores across devices "
-        "and processes come with multi-GPU (ROADMAP Queue A item 6)"
-        % (kvstore, num_device))
 
 
 class Trainer(object):
@@ -60,12 +46,16 @@ class Trainer(object):
                     "got list of %s." % (type(param)))
             self._params.append(param)
         if compression_params is not None:
-            raise MXNetError("gradient compression is not ported yet")
+            raise MXNetError("gradient compression is not ported yet "
+                             "(ROADMAP item 11)")
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = optimizer_params.get("rescale_grad", 1.0)
         self._contexts = self._check_contexts()
         self._init_optimizer(optimizer, optimizer_params)
         self._kvstore = kvstore
+        self._update_on_kvstore_arg = update_on_kvstore
+        self._kvstore_obj = None
+        self._update_on_kvstore = False
         self._kv_initialized = False
 
     def _check_contexts(self):
@@ -96,8 +86,29 @@ class Trainer(object):
                           for _ in self._contexts]
 
     def _init_kvstore(self):
-        """ref: trainer.py _init_kvstore."""
-        _check_no_kvstore(self._kvstore, len(self._contexts))
+        """ref: trainer.py _init_kvstore: make or take the store, ``init``
+        every parameter's value in it and ``pull`` it back, and give the
+        store the optimizer when the update runs there."""
+        if len(self._contexts) != 1:
+            raise MXNetError(
+                "parameters on %d contexts need multi-GPU, which the PyTorch "
+                "port does not have yet (ROADMAP Queue A item 7)"
+                % len(self._contexts))
+        arg_arrays = {param.name: param.data(self._contexts[0])
+                      for param in self._params}
+        kvstore, update_on_kvstore = kvs_mod.create_kvstore(
+            self._kvstore, len(self._contexts), arg_arrays)
+        if kvstore is not None:
+            if self._update_on_kvstore_arg is not None:
+                update_on_kvstore = bool(self._update_on_kvstore_arg)
+            kvstore.init(list(range(len(self._params))),
+                         [p.list_data()[0] for p in self._params])
+            for i, param in enumerate(self._params):
+                kvstore.pull(i, param.list_data(), priority=-i)
+            if update_on_kvstore:
+                kvstore.set_optimizer(self._optimizer)
+        self._kvstore_obj = kvstore
+        self._update_on_kvstore = kvstore is not None and update_on_kvstore
         self._kv_initialized = True
 
     @property
@@ -114,16 +125,40 @@ class Trainer(object):
         self._optimizer.rescale_grad = self._scale / batch_size
         if not self._kv_initialized:
             self._init_kvstore()
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
+
+    def _allreduce_grads(self):
+        if self._kvstore_obj is None:
+            return
+        keys = [i for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+        if not keys:
+            return
+        grads = [self._params[i].list_grad() for i in keys]
+        self._kvstore_obj.push_many(keys, grads)
+        if not self._update_on_kvstore:
+            self._kvstore_obj.pull_many(keys, grads)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """ref: trainer.py update (the update without the reduce)."""
         if not self._kv_initialized:
             self._init_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError("update with the update on the store: create "
+                             "the Trainer with update_on_kvstore=False")
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        if self._update_on_kvstore:
+            # the push ran the update on the store's copy: fetch it
+            keys = [i for i, p in enumerate(self._params)
+                    if p.grad_req != "null"]
+            if keys:
+                self._kvstore_obj.pull_many(
+                    keys, [self._params[i].list_data() for i in keys])
+            return
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue
@@ -131,14 +166,22 @@ class Trainer(object):
                                       param.list_grad()):
                 upd(i, grad, arr)
 
+    def _states_updater(self):
+        """The updater that holds the optimizer's states: the store's when
+        the update runs there."""
+        return self._kvstore_obj._updater if self._update_on_kvstore \
+            else self._updaters[0]
+
     def save_states(self, fname):
         """Write the optimizer's states and the optimizer (with its update
-        count and learning-rate schedule) to ``fname`` (ref: trainer.py:202
-        save_states).  The states are pickled objects of this package."""
+        count and learning-rate schedule) to ``fname``, from the store when
+        the update runs there (ref: trainer.py:202 save_states).  The states
+        are pickled objects of this package."""
         if not self._kv_initialized:
             self._init_kvstore()
         with open(fname, "wb") as fout:
-            fout.write(self._updaters[0].get_states(dump_optimizer=True))
+            fout.write(self._states_updater().get_states(
+                dump_optimizer=True))
 
     def load_states(self, fname):
         """Read what :meth:`save_states` wrote and resume from it (ref:
@@ -150,8 +193,12 @@ class Trainer(object):
             self._init_kvstore()
         with open(fname, "rb") as f:
             states = f.read()
-        for updater in self._updaters:
-            updater.set_states(states)
-        self._optimizer = self._updaters[0].optimizer
+        if self._update_on_kvstore:
+            self._kvstore_obj._updater.set_states(states)
+            self._optimizer = self._kvstore_obj._updater.optimizer
+        else:
+            for updater in self._updaters:
+                updater.set_states(states)
+            self._optimizer = self._updaters[0].optimizer
         self._optimizer.param_dict = {i: param for i, param
                                       in enumerate(self._params)}

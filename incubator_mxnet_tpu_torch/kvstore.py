@@ -1,0 +1,223 @@
+"""KVStore: the key-value store that Trainer and Module keep weights in.
+
+Counterpart of ``incubator_mxnet_tpu/kvstore.py`` (``KVStore`` :257,
+``create`` :741, ``create_kvstore`` :754-782) for one process and one
+card.  ``create("local")`` and ``create("device")`` (``"nccl"`` is
+``"device"``) hold one copy of every value on the device of the value
+given to ``init``.  ``push`` sums a list of values in its order and keeps
+the store's dtype; with an updater (``set_optimizer``) the update runs on
+the store's copy, as MXNet's server-side optimizer does.  ``pull`` writes
+the store's value into every out array.
+
+Not ported, and raising with their ROADMAP item: ``dist_*`` stores
+(multi-GPU, item 7), ``row_sparse_pull`` (sparse, item 10) and gradient
+compression (item 11).  The JAX build's asynchronous handles, bucket and
+quantized wires and its recorder hooks wait for item 12.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from . import optimizer as opt
+from .base import MXNetError
+from .ndarray import NDArray
+from .ndarray import ndarray as _nd_mod
+
+__all__ = ["KVStore", "create", "create_kvstore"]
+
+_LOCAL_TYPES = ("local", "local_update_cpu", "local_allreduce_cpu",
+                "local_allreduce_device", "device", "nccl")
+
+
+def _int_key(k):
+    try:
+        return int(k)
+    except ValueError:
+        return k
+
+
+class KVStore(object):
+    """The store of one process (ref: include/mxnet/kvstore.h)."""
+
+    def __init__(self, type_="local"):
+        self._type = type_
+        self._store = {}           # key (str) -> NDArray, the store's copy
+        self._updater = None
+
+    # -- identity ----------------------------------------------------------
+    @property
+    def type(self):
+        return self._type
+
+    @property
+    def rank(self):
+        """One process: rank 0."""
+        return 0
+
+    @property
+    def num_workers(self):
+        return 1
+
+    # -- data path ---------------------------------------------------------
+    def init(self, key, value):
+        """Register each key once with a copy of its value (the first of a
+        list); a key given twice raises."""
+        keys, values = self._normalize(key, value)
+        for k, vlist in zip(keys, values):
+            if k in self._store:
+                raise ValueError("duplicate init of key %s" % k)
+            self._store[k] = vlist[0].copy()
+
+    def push(self, key, value, priority=0):
+        """Sum each key's values (in list order) into the store: through the
+        updater when one is set, else as the store's new value in the
+        store's dtype."""
+        keys, values = self._normalize(key, value)
+        for k, vlist in zip(keys, values):
+            if k not in self._store:
+                raise MXNetError("key %s has not been initialized" % k)
+            red = self._reduce(vlist)
+            if self._updater is not None:
+                self._updater(_int_key(k), red, self._store[k])
+            else:
+                _nd_mod._write(self._store[k]._data, red._data)
+
+    def pull(self, key, out=None, priority=0, ignore_sparse=True):
+        """Write each key's store value into every array of ``out``."""
+        if out is None:
+            raise ValueError("pull needs out arrays")
+        keys, outs = self._normalize(key, out)
+        for k, olist in zip(keys, outs):
+            if k not in self._store:
+                raise MXNetError("key %s has not been initialized" % k)
+            val = self._store[k]._data
+            for o in olist:
+                _nd_mod._write(o._data, val)
+
+    def push_many(self, keys, values, priority=0):
+        """Push a list of keys in one call."""
+        return self.push(list(keys), list(values), priority=priority)
+
+    def pull_many(self, keys, outs, priority=0):
+        """Pull a list of keys in one call."""
+        return self.pull(list(keys), outs, priority=priority)
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        raise MXNetError("row_sparse_pull needs sparse arrays, which the "
+                         "PyTorch port does not have yet (ROADMAP item 10)")
+
+    @staticmethod
+    def _reduce(vlist):
+        if len(vlist) == 1:
+            return vlist[0]
+        with torch.no_grad():
+            acc = vlist[0]._data
+            for v in vlist[1:]:
+                acc = acc + v._data.to(acc.device)
+        return NDArray(acc)
+
+    @staticmethod
+    def _normalize(key, value):
+        single = not isinstance(key, (list, tuple))
+        keys = [key] if single else list(key)
+        if single:
+            values = [value if isinstance(value, (list, tuple)) else [value]]
+        else:
+            values = [v if isinstance(v, (list, tuple)) else [v]
+                      for v in value]
+        if len(values) != len(keys):
+            raise ValueError("%d keys but %d values" % (len(keys),
+                                                        len(values)))
+        return [str(k) for k in keys], values
+
+    # -- optimizer / updater ----------------------------------------------
+    def set_updater(self, updater):
+        """``updater(key, merged_value, stored_value)`` runs on every push."""
+        self._updater = updater
+
+    def set_optimizer(self, optimizer):
+        """Run ``optimizer`` on the store: its updater shares the live
+        optimizer object, so a Trainer's per-step ``rescale_grad`` and
+        learning rate reach it."""
+        self._updater = opt.get_updater(optimizer)
+
+    def set_gradient_compression(self, compression_params):
+        raise MXNetError("gradient compression is not ported yet (ROADMAP "
+                         "item 11)")
+
+    def save_optimizer_states(self, fname, dump_optimizer=False):
+        """Write the store's updater states (with the optimizer when
+        ``dump_optimizer``) to ``fname``."""
+        if self._updater is None:
+            raise MXNetError("the store has no optimizer: call "
+                             "set_optimizer first")
+        with open(fname, "wb") as fout:
+            fout.write(self._updater.get_states(dump_optimizer))
+
+    def load_optimizer_states(self, fname):
+        """Read what :meth:`save_optimizer_states` wrote.  Only a file this
+        program (or one you trust) wrote: unpickling can run code."""
+        if self._updater is None:
+            raise MXNetError("the store has no optimizer: call "
+                             "set_optimizer first")
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+
+    # -- the calls of distributed training, trivial in one process --------
+    def barrier(self):
+        return None
+
+    def send_command_to_servers(self, head, body):
+        return None
+
+    def quiesce(self, timeout=None):
+        """Nothing is in flight in one process: drains 0 operations."""
+        return 0
+
+
+def create(name="local"):
+    """A store by type name (ref: kvstore.cc KVStore::Create)."""
+    if not isinstance(name, str):
+        raise TypeError("name must be a string")
+    if name in _LOCAL_TYPES:
+        return KVStore("device" if name in ("device", "nccl") else "local")
+    if name.startswith("dist"):
+        raise MXNetError("kvstore %r needs several processes, which the "
+                         "PyTorch port does not have yet (ROADMAP item 7)"
+                         % name)
+    raise ValueError("Unknown KVStore type %s" % name)
+
+
+def create_kvstore(kvstore, num_device, arg_params):
+    """``(store or None, update_on_kvstore)`` for a kvstore spec (ref:
+    model.py _create_kvstore).  A ``KVStore`` object is used as given; a
+    type name on one device needs no store; ``MXNET_UPDATE_ON_KVSTORE=0``
+    keeps the update local, and so does a ``"local"`` store over several
+    devices once a parameter exceeds 16M elements."""
+    try:
+        update_on_kvstore = bool(int(
+            os.environ.get("MXNET_UPDATE_ON_KVSTORE", "1")))
+    except ValueError:
+        update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            kv = create(kvstore)
+            if kvstore == "local":
+                max_size = max(int(np.prod(p.shape))
+                               for p in arg_params.values())
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return kv, update_on_kvstore

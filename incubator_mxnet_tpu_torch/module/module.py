@@ -4,12 +4,14 @@ Counterpart of ``incubator_mxnet_tpu/module/module.py`` (ref:
 python/mxnet/module/module.py): bind, init_params, init_optimizer,
 forward, backward and update over a ``DataParallelExecutorGroup`` on one
 context, the checkpoint files (``prefix-symbol.json``, ``prefix-%04d.params``,
-``.states``) and ``install_monitor``.  The update runs locally through
-``optimizer.get_updater``: a kvstore spec of None, ``"local"`` or
-``"device"`` on one context needs no store (as the JAX build's
-``create_kvstore`` resolves it); a ``KVStore`` object or a ``dist`` type
-waits for ROADMAP item 7 and raises.  The default context is the current
-one, the card (MXNet's is ``cpu()``).
+``.states``) and ``install_monitor``.  The kvstore spec resolves through
+``kvstore.create_kvstore`` (MXNet's ``model._create_kvstore``): None or a
+type name on one context needs no store, and the update runs here through
+``optimizer.get_updater``; a ``KVStore`` object takes the weights, and
+with ``update_on_kvstore`` the optimizer too (``update`` pushes the
+gradients and pulls the weights, MXNet's ``_update_params_on_kvstore``).
+A ``dist`` type waits for ROADMAP item 7 and raises.  The default context
+is the current one, the card (MXNet's is ``cpu()``).
 """
 from __future__ import annotations
 
@@ -21,29 +23,14 @@ import numpy as np
 from .. import context as ctx_mod
 from .. import ndarray as nd
 from .. import optimizer as opt
-from ..base import MXNetError
 from ..initializer import Uniform, InitDesc
 from ..io import DataDesc
+from ..kvstore import create_kvstore
 from ..ndarray import NDArray
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
 __all__ = ["Module"]
-
-
-def _resolve_kvstore(kvstore, num_device):
-    """The JAX build's ``create_kvstore`` for the stores this slice has:
-    none.  None, or a non-``dist`` type on one context, updates locally."""
-    if kvstore is None:
-        return
-    if not isinstance(kvstore, str):
-        raise MXNetError("a KVStore object needs the kvstore, which the "
-                         "PyTorch port does not have yet (ROADMAP item 7); "
-                         "pass kvstore=None or 'local'")
-    if "dist" in kvstore or num_device != 1:
-        raise MXNetError("kvstore %r needs the kvstore and multi-device "
-                         "training, which the PyTorch port does not have yet "
-                         "(ROADMAP item 7)" % kvstore)
 
 
 class Module(BaseModule):
@@ -291,14 +278,18 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """ref: module.py init_optimizer (the update runs locally)."""
+        """ref: module.py init_optimizer: the store (if any) takes every
+        parameter and the devices pull it back; with the update on the
+        store it takes the optimizer too."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
         if self._params_dirty:
             self._sync_params_from_devices()
-        _resolve_kvstore(kvstore, len(self._context))
+        kvstore, update_on_kvstore = create_kvstore(
+            kvstore, len(self._context),
+            {n: self._arg_params[n] for n in self._param_names})
 
         rescale_grad = 1.0 / self._exec_group.batch_size
         idx2name = dict(enumerate(self._param_names))
@@ -320,7 +311,19 @@ class Module(BaseModule):
                 optimizer.idx2name = idx2name.copy()
 
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kvstore is not None:
+            keys = list(range(len(self._param_names)))
+            kvstore.init(keys, [self._arg_params[n]
+                                for n in self._param_names])
+            kvstore.pull_many(keys, [self._exec_group.param_arrays[i]
+                                     for i in keys])
+            if update_on_kvstore:
+                kvstore.set_optimizer(optimizer)
+        if not update_on_kvstore:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -363,16 +366,24 @@ class Module(BaseModule):
 
     def update(self):
         """Apply the optimizer to every parameter with a gradient (ref:
-        module.py update → model._update_params, the local path)."""
+        module.py update → model._update_params_on_kvstore, or
+        model._update_params with the store's sum of the gradients when a
+        store keeps the update here)."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
-        for idx in range(len(self._param_names)):
-            for dev_i, (w, g) in enumerate(zip(
-                    self._exec_group.param_arrays[idx],
-                    self._exec_group.grad_arrays[idx])):
-                if g is None:
-                    continue
+        params = self._exec_group.param_arrays
+        grads = self._exec_group.grad_arrays
+        keys = [i for i in range(len(self._param_names))
+                if grads[i][0] is not None]
+        if self._kvstore is not None and keys:
+            self._kvstore.push_many(keys, [grads[i] for i in keys])
+            if self._update_on_kvstore:
+                self._kvstore.pull_many(keys, [params[i] for i in keys])
+                return
+            self._kvstore.pull_many(keys, [grads[i] for i in keys])
+        for idx in keys:
+            for dev_i, (w, g) in enumerate(zip(params[idx], grads[idx])):
                 self._updater(idx * len(self._context) + dev_i, g, w)
 
     def get_outputs(self, merge_multi_context=True):
@@ -392,16 +403,23 @@ class Module(BaseModule):
         self._params_dirty = False
 
     def save_optimizer_states(self, fname):
-        """ref: module.py save_optimizer_states (the updater's pickle)."""
+        """ref: module.py save_optimizer_states (the updater's pickle, the
+        store's when the update runs there)."""
         assert self.optimizer_initialized
-        with open(fname, "wb") as fout:
-            fout.write(self._updater.get_states())
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+        else:
+            with open(fname, "wb") as fout:
+                fout.write(self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         """ref: module.py load_optimizer_states."""
         assert self.optimizer_initialized
-        with open(fname, "rb") as f:
-            self._updater.set_states(f.read())
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+        else:
+            with open(fname, "rb") as f:
+                self._updater.set_states(f.read())
 
     def install_monitor(self, mon):
         assert self.binded

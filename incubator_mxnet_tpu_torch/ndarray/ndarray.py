@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import autograd, random_state
+from .. import autograd, config, profiler as _profiler, random_state
 from ..base import MXNetError, numpy_dtype, torch_dtype
 from ..context import Context, current_context
 from ..ops.registry import Operator, get_op
@@ -33,6 +33,9 @@ __all__ = ["NDArray", "array", "empty", "invoke", "waitall", "concatenate",
            "moveaxis"]
 
 _SCALARS = (int, float, bool, np.generic)
+
+# MXNet's synchronous engine: every op waits for the card (read at import)
+_NAIVE_ENGINE = config.naive_engine()
 
 
 def _write_mode(dst: torch.Tensor):
@@ -456,7 +459,19 @@ def invoke(op: Operator, inputs, params, out=None, hidden=False):
     gets ``generator``, the framework generator of its output's device (the
     inputs', or ``ctx``'s for an op without inputs).  ``hidden`` returns
     every output the op computes, the hidden ones too (BatchNorm's batch
-    statistics, which the symbolic executor blends into the moving ones)."""
+    statistics, which the symbolic executor blends into the moving ones).
+
+    While the profiler runs, the call is the op's span
+    (``profiler.op_span``); with ``MXTPU_ENGINE_TYPE=NaiveEngine`` it
+    waits for the card before it returns."""
+    with _profiler.op_span(op.name) or _profiler.NO_SPAN:
+        res = _dispatch(op, inputs, params, out, hidden)
+    if _NAIVE_ENGINE and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return res
+
+
+def _dispatch(op, inputs, params, out, hidden):
     params = {k: v for k, v in params.items() if v is not None or k == "axis"}
     ctx = params.pop("ctx", None)
     params.pop("name", None)

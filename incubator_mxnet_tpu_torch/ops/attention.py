@@ -53,7 +53,7 @@ import math
 import torch
 
 from ..base import MXNetError
-from .. import cuda_build
+from .. import cuda_build, profiler as _profiler
 from ._precision import f32_products as _f32_products
 from .registry import register
 
@@ -461,8 +461,11 @@ class _FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v, out, stats = ctx.saved_tensors
-        # a named span, so a profile can attribute the backward's kernels
-        with torch.profiler.record_function("flash_attention_backward"):
+        # a named span, so a profile can attribute the backward's kernels,
+        # and the op's backward span while the framework's profiler runs
+        with torch.profiler.record_function("flash_attention_backward"), \
+                _profiler.op_span("_backward__contrib_FlashAttention") or \
+                _profiler.NO_SPAN:
             if _backward_kernel_inputs(q, k, v) and \
                     not torch.is_grad_enabled():
                 dq, dk, dv = _flash_backward_cuda(q, k, v, out, grad_out,

@@ -62,9 +62,11 @@ class Optimizer(object):
         self._index_update_count = {}
         self.multi_precision = multi_precision
         self.idx2name = dict(param_idx2name or {})
+        self.sym_info = (sym.attr_dict(), sym.list_arguments()) \
+            if sym is not None else ()
         self.param_dict = param_dict if param_dict else {}
-        self.lr_mult = {}
-        self.wd_mult = {}
+        self.set_lr_mult({})
+        self.set_wd_mult({})
 
     # -- registry ----------------------------------------------------------
     @staticmethod
@@ -113,16 +115,29 @@ class Optimizer(object):
                               "defined.")
         self.lr = lr
 
+    def _sym_mults(self, key):
+        """``key`` (``__lr_mult__`` or ``__wd_mult__``) of every argument
+        of the symbol the optimizer was made for that carries it."""
+        if not self.sym_info:
+            return {}
+        attr, arg_names = self.sym_info
+        return {n: float(attr[n][key]) for n in arg_names
+                if key in attr.get(n, {})}
+
     def set_lr_mult(self, args_lr_mult):
-        """ref: optimizer.py set_lr_mult."""
-        self.lr_mult = dict(args_lr_mult)
+        """ref: optimizer.py set_lr_mult: the symbol's ``__lr_mult__``
+        attributes, then ``args_lr_mult``."""
+        self.lr_mult = self._sym_mults("__lr_mult__")
+        self.lr_mult.update(args_lr_mult)
 
     def set_wd_mult(self, args_wd_mult):
-        """ref: optimizer.py set_wd_mult — biases/gammas default to wd 0."""
-        self.wd_mult = {}
-        for n in self.idx2name.values():
-            if not (n.endswith("_weight") or n.endswith("_gamma")):
-                self.wd_mult[n] = 0.0
+        """ref: optimizer.py set_wd_mult: a named parameter whose name ends
+        in neither ``_weight`` nor ``_gamma`` (biases, BatchNorm's beta)
+        gets wd 0, then the symbol's ``__wd_mult__`` attributes, then
+        ``args_wd_mult``."""
+        self.wd_mult = {n: 0.0 for n in self.idx2name.values()
+                        if not (n.endswith("_weight") or n.endswith("_gamma"))}
+        self.wd_mult.update(self._sym_mults("__wd_mult__"))
         self.wd_mult.update(args_wd_mult)
 
     def _update_count(self, index):

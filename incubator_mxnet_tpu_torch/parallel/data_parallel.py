@@ -23,7 +23,7 @@ mesh; the port runs the same step eagerly in torch on one device:
   Block with the weights.
 
 A mesh of more than one device raises until multi-GPU (ROADMAP Queue A
-item 6).
+item 7).
 """
 from __future__ import annotations
 
@@ -111,7 +111,7 @@ class DataParallelTrainer(object):
         if mesh is not None and mesh.size != 1:
             raise MXNetError(
                 "DataParallelTrainer over a mesh of %d devices is not ported "
-                "yet: it comes with multi-GPU (ROADMAP Queue A item 6)"
+                "yet: it comes with multi-GPU (ROADMAP Queue A item 7)"
                 % mesh.size)
         self.block = block
         self.loss = loss

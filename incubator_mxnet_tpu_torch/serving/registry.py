@@ -91,6 +91,11 @@ def _nbytes(param_vals):
 _streams = {}
 _streams_lock = threading.Lock()
 
+# called with the program's key at the start of every CUDA graph capture,
+# before its eager run; a test sets it to hold a capture open (a weight
+# swap begun during a first capture)
+before_capture = None
+
 
 def serving_stream(device):
     """The one stream of ``device`` that every program replay, batch
@@ -236,6 +241,8 @@ class Program(object):
         return outs[0] if g.single else outs
 
     def _capture(self, params, xs, stream, gkey):
+        if before_capture is not None:
+            before_capture(self.key)
         h = self._handle
         inputs = [x.clone() for x in xs]
         # one eager run on the serving stream first (PyTorch's recipe):

@@ -19,14 +19,16 @@ jits one program per (shapes, is_train) and recomputes the forward inside
   forward again under recording, with the generator state that forward
   drew from and without touching the auxiliary states;
 * ``set_monitor_callback`` sees every node output, as
-  ``<node>_output<i>`` (graph_executor.cc:121).
+  ``<node>_output<i>`` (graph_executor.cc:121);
+* while the profiler runs, ``forward`` and ``backward`` are the spans
+  ``Executor.forward(<name>)`` and ``Executor.backward(<name>)``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .. import autograd, random_state
+from .. import autograd, profiler as _profiler, random_state
 from ..base import MXNetError, dtype_name
 from ..context import current_context
 from ..ndarray import NDArray
@@ -127,8 +129,8 @@ class Executor(object):
         if self._draws(is_train):
             state = random_state.generator(
                 self._ctx.torch_device()).get_state()
-        with torch.profiler.record_function(
-                "Executor.forward(%s)" % (self._symbol.name or "sym")):
+        with _profiler.op_span("Executor.forward(%s)" % (
+                self._symbol.name or "sym"), "symbolic") or _profiler.NO_SPAN:
             outs, leaves = self._run(is_train, record, update_aux=True)
         self._last = (bool(is_train), state)
         self._graph = (outs, leaves) if record else None
@@ -168,6 +170,11 @@ class Executor(object):
                          (g._data if isinstance(g, NDArray) else
                           torch.as_tensor(np.asarray(g))).to(o.device,
                                                              o.dtype))
+        with _profiler.op_span("Executor.backward(%s)" % (
+                self._symbol.name or "sym"), "symbolic") or _profiler.NO_SPAN:
+            self._write_grads(heads, seeds, leaves, is_train)
+
+    def _write_grads(self, heads, seeds, leaves, is_train):
         names = list(leaves)
         grads = [None] * len(names)
         if heads and names:

@@ -72,6 +72,15 @@ def test_port_imports_with_jax_blocked():
             "    register, contrib as sym_contrib, linalg as sym_linalg)\n"
             "from incubator_mxnet_tpu_torch.module import (base_module,\n"
             "    bucketing_module, executor_group)\n"
+            "from incubator_mxnet_tpu_torch import (config, kvstore,\n"
+            "    profiler, test_utils)\n"
+            "from incubator_mxnet_tpu_torch.gluon import utils as gutils\n"
+            "from incubator_mxnet_tpu_torch.gluon.contrib import nn as cnn\n"
+            "from incubator_mxnet_tpu_torch.gluon.model_zoo import (\n"
+            "    model_store)\n"
+            "assert mx.kv is kvstore and mx.opt is optimizer\n"
+            "assert mx.num_devices('cpu') == 1\n"
+            "assert mx.gluon.Constant and cnn.HybridConcurrent\n"
             "chip_smoke.register_rtc_softmax(mx)\n"
             "with mx.cpu():\n"
             "    x = mx.nd.ones((2, 3)) + 1\n"

@@ -30,6 +30,24 @@ def _cpu():
         yield
 
 
+@pytest.fixture(autouse=True)
+def _mxnet_wd_rule(monkeypatch):
+    """MXNet 1.2's ``Optimizer.__init__`` ends with ``set_lr_mult({})`` and
+    ``set_wd_mult({})``, so under Module a parameter whose name ends in
+    neither ``_weight`` nor ``_gamma`` gets wd 0.  The JAX build's leaves
+    both dicts empty (every parameter decays; ROADMAP C8), so its side of
+    these parity tests applies MXNet's rule by hand.  The nets here carry
+    no ``__lr_mult__``/``__wd_mult__`` attributes, so the name rule is all
+    of it."""
+    init = jmx.optimizer.Optimizer.__init__
+
+    def mxnet_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.set_wd_mult({})
+
+    monkeypatch.setattr(jmx.optimizer.Optimizer, "__init__", mxnet_init)
+
+
 def close(got, want, rel=REL):
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
@@ -360,11 +378,17 @@ def test_several_contexts_and_kvstores_raise():
     with pytest.raises(MXNetError, match="item 7"):
         m.bind([("data", (6, 5))], [("softmax_label", (6,))])
     pm, _ = _modules()
-    for kv in ("dist_sync", "dist_async", object()):
+    for kv in ("dist_sync", "dist_async"):
         with pytest.raises(MXNetError, match="item 7"):
             pm.init_optimizer(kvstore=kv, force_init=True)
+    with pytest.raises(TypeError, match="kvstore must be"):
+        pm.init_optimizer(kvstore=object(), force_init=True)
     for kv in (None, "local", "device"):
         pm.init_optimizer(kvstore=kv, force_init=True)
+        assert pm._kvstore is None and not pm._update_on_kvstore
+    store = tmx.kv.create("device")
+    pm.init_optimizer(kvstore=store, force_init=True)
+    assert pm._kvstore is store and pm._update_on_kvstore
     with tmx.gpu(0):
         assert tmx.mod.Module(psym)._context == [tmx.gpu(0)]
 
@@ -417,3 +441,150 @@ def test_server_module_symbol_and_json_sources_match_predict(label, tmp_path):
     fn, params, inputs = mod.serving_fn()
     assert inputs == ["data"] and torch.equal(params["fc_weight"],
                                               arg["fc_weight"]._data)
+
+
+# -- C8, C9: the optimizer's multipliers under Module --------------------------
+
+def _frozen_fc(lr_mult=None, wd_mult=None):
+    data = tmx.sym.var("data")
+    w = tmx.sym.var("fc_weight", lr_mult=lr_mult, wd_mult=wd_mult)
+    net = tmx.sym.FullyConnected(data, weight=w, num_hidden=3, name="fc")
+    return tmx.sym.SoftmaxOutput(net, name="softmax")
+
+
+def _one_sgd_step(sym, **opt):
+    rs = np.random.RandomState(21)
+    mod = tmx.mod.Module(sym, context=tmx.cpu())
+    mod.bind([("data", (4, 5))], [("softmax_label", (4,))])
+    w0 = {"fc_weight": rs.randn(3, 5).astype(np.float32),
+          "fc_bias": rs.randn(3).astype(np.float32)}
+    mod.set_params(w0, {})
+    mod.init_optimizer(kvstore=None, optimizer="sgd",
+                       optimizer_params=dict(learning_rate=0.5, **opt))
+    mod.forward_backward(tmx.io.DataBatch(
+        [tmx.nd.array(rs.randn(4, 5).astype(np.float32))],
+        [tmx.nd.array(np.array([0, 1, 2, 1], np.float32))]))
+    mod.update()
+    return w0, {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+
+
+def test_module_optimizer_gives_biases_no_weight_decay():
+    """C8: under Module the optimizer knows the parameters' names, so a
+    bias gets wd 0 and a weight ``wd`` (MXNet 1.2's set_wd_mult at
+    construction); one step moves a bias by its gradient alone."""
+    pm, _ = _modules()
+    pm.init_optimizer(kvstore=None, optimizer="sgd",
+                      optimizer_params=(("learning_rate", 0.5),
+                                        ("wd", 0.1)))
+    opt = pm._optimizer
+    for i, n in enumerate(pm._param_names):
+        assert opt._get_wd(i) == pytest.approx(
+            0.1 if n.endswith("_weight") else 0.0), n
+    _, decayed = _one_sgd_step(_frozen_fc(), wd=0.1)
+    _, no_wd = _one_sgd_step(_frozen_fc(), wd=0.0)
+    np.testing.assert_array_equal(decayed["fc_bias"], no_wd["fc_bias"])
+    assert not np.array_equal(decayed["fc_weight"], no_wd["fc_weight"])
+
+
+def test_symbol_lr_mult_zero_freezes_a_weight():
+    """C9: ``sym.Variable("fc_weight", lr_mult=0.0)`` reaches the optimizer
+    through Module: one sgd step at lr 0.5 leaves the weight as it was."""
+    w0, w1 = _one_sgd_step(_frozen_fc(lr_mult=0.0))
+    np.testing.assert_array_equal(w1["fc_weight"], w0["fc_weight"])
+    assert np.abs(w1["fc_bias"] - w0["fc_bias"]).max() > 1e-3
+    _, moved = _one_sgd_step(_frozen_fc())
+    assert np.abs(moved["fc_weight"] - w0["fc_weight"]).max() > 1e-3
+
+
+def test_symbol_wd_mult_zero_removes_the_decay():
+    """C9: ``wd_mult=0.0`` on a weight removes its decay: the step with wd
+    0.1 equals the step with wd 0, bit for bit."""
+    _, with_mult = _one_sgd_step(_frozen_fc(wd_mult=0.0), wd=0.1)
+    _, no_wd = _one_sgd_step(_frozen_fc(), wd=0.0)
+    _, decayed = _one_sgd_step(_frozen_fc(), wd=0.1)
+    np.testing.assert_array_equal(with_mult["fc_weight"], no_wd["fc_weight"])
+    assert not np.array_equal(decayed["fc_weight"], no_wd["fc_weight"])
+
+
+# -- Module with a KVStore -----------------------------------------------------
+
+def _store_run(m, sym, args, batches, kv, on_kvstore, monkeypatch):
+    monkeypatch.setenv("MXNET_UPDATE_ON_KVSTORE", "1" if on_kvstore else "0")
+    mod = m.mod.Module(sym, context=m.cpu())
+    mod.bind([("data", (6, 5))], [("softmax_label", (6,))])
+    mod.set_params({n: m.nd.array(v) for n, v in args.items()}, {})
+    mod.init_optimizer(kvstore=kv, optimizer="sgd", optimizer_params=OPT)
+    for x, y in batches:
+        mod.forward_backward(m.io.DataBatch([m.nd.array(x)],
+                                            [m.nd.array(y)]))
+        mod.update()
+    return mod, {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+
+
+@pytest.mark.parametrize("on_kvstore", [True, False])
+def test_module_with_a_store_matches_no_store_and_jax(on_kvstore,
+                                                      monkeypatch):
+    """A ``"device"`` store with the update on the store (push the
+    gradients, pull the weights) or not (push and pull the gradients, the
+    update here): the weights after three steps equal the no-store path
+    bit for bit, and the JAX build's Module given the same store within
+    1e-5."""
+    x, y = _data(18, 11)
+    batches = [(x[i:i + 6], y[i:i + 6]) for i in range(0, 18, 6)]
+    jsym, psym = _syms()
+    args, _ = _params(psym)
+    store = tmx.kv.create("device")
+    mod, got = _store_run(tmx, psym, args, batches, store, on_kvstore,
+                          monkeypatch)
+    assert mod._kvstore is store and mod._update_on_kvstore == on_kvstore
+    assert (mod._updater is None) == on_kvstore
+    _, plain = _store_run(tmx, psym, args, batches, None, on_kvstore,
+                          monkeypatch)
+    _, want = _store_run(jmx, jsym, args, batches, jmx.kv.create("device"),
+                         on_kvstore, monkeypatch)
+    for n in plain:
+        np.testing.assert_array_equal(got[n], plain[n])
+        close(got[n], want[n])
+    if on_kvstore:
+        # the store's copy is the weights
+        for i, n in enumerate(mod._param_names):
+            np.testing.assert_array_equal(
+                store._store[str(i)].asnumpy(), got[n])
+
+
+def test_module_optimizer_states_through_the_store(tmp_path, monkeypatch):
+    """With the update on the store, ``save_optimizer_states`` and
+    ``load_optimizer_states`` go through it: a module restored from the
+    checkpoint and the file continues bit-equal to the original."""
+    monkeypatch.setenv("MXNET_UPDATE_ON_KVSTORE", "1")
+    x, y = _data(24, 12)
+    batches = [tmx.io.DataBatch([tmx.nd.array(x[i:i + 6])],
+                                [tmx.nd.array(y[i:i + 6])])
+               for i in range(0, 24, 6)]
+    _, psym = _syms()
+    args, _ = _params(psym)
+
+    def fresh(params):
+        mod = tmx.mod.Module(psym, context=tmx.cpu())
+        mod.bind([("data", (6, 5))], [("softmax_label", (6,))])
+        mod.set_params(params, {})
+        mod.init_optimizer(kvstore=tmx.kv.create("device"), optimizer="sgd",
+                           optimizer_params=OPT)
+        return mod
+
+    a = fresh(args)
+    for b in batches[:2]:
+        a.forward_backward(b)
+        a.update()
+    a.save_optimizer_states(str(tmp_path / "s.states"))
+    b_mod = fresh({n: v.asnumpy() for n, v in a.get_params()[0].items()})
+    b_mod.load_optimizer_states(str(tmp_path / "s.states"))
+    assert b_mod._kvstore._updater.states.keys() == \
+        a._kvstore._updater.states.keys()
+    for m in (a, b_mod):
+        for b in batches[2:]:
+            m.forward_backward(b)
+            m.update()
+    for n, v in a.get_params()[0].items():
+        np.testing.assert_array_equal(b_mod.get_params()[0][n].asnumpy(),
+                                      v.asnumpy())

@@ -224,6 +224,49 @@ def test_registry_and_lr_policy():
         tmx.optimizer.create("no_such_optimizer")
 
 
+def test_default_wd_rule_by_name_at_construction():
+    """C8: MXNet 1.2's ``Optimizer.__init__`` ends with ``set_lr_mult({})``
+    and ``set_wd_mult({})``: a named parameter whose name ends in neither
+    ``_weight`` nor ``_gamma`` gets wd 0 from construction.  Gluon's
+    Trainer passes no names, so nothing changes there."""
+    names = {0: "fc_weight", 1: "fc_bias", 2: "bn_gamma", 3: "bn_beta",
+             4: "bn_moving_mean"}
+    opt = tmx.optimizer.create("sgd", learning_rate=0.5, wd=0.1,
+                               param_idx2name=names)
+    assert opt.wd_mult == {"fc_bias": 0.0, "bn_beta": 0.0,
+                           "bn_moving_mean": 0.0}
+    assert [opt._get_wd(i) for i in range(5)] == \
+        pytest.approx([0.1, 0.0, 0.1, 0.0, 0.0])
+    assert [opt._get_lr(i) for i in range(5)] == pytest.approx([0.5] * 5)
+    assert tmx.optimizer.create("sgd", wd=0.1).wd_mult == {}
+
+
+def test_symbol_lr_and_wd_mult_reach_the_optimizer():
+    """C9: the symbol's ``__lr_mult__``/``__wd_mult__`` attributes come after
+    the name rule and before the explicit dict (MXNet 1.2's set_lr_mult and
+    set_wd_mult)."""
+    data = tmx.sym.var("data")
+    w = tmx.sym.var("fc_weight", lr_mult=0.0, wd_mult=3.0)
+    b = tmx.sym.var("fc_bias", wd_mult=2.0)
+    net = tmx.sym.FullyConnected(data, weight=w, bias=b, num_hidden=2,
+                                 name="fc")
+    names = {0: "fc_weight", 1: "fc_bias"}
+    opt = tmx.optimizer.create("sgd", learning_rate=0.5, wd=0.1, sym=net,
+                               param_idx2name=names)
+    assert opt.lr_mult == {"fc_weight": 0.0}
+    assert opt.wd_mult == {"fc_weight": 3.0, "fc_bias": 2.0}
+    assert opt._get_lr(0) == 0.0 and opt._get_lr(1) == pytest.approx(0.5)
+    assert opt._get_wd(0) == pytest.approx(0.3)
+    assert opt._get_wd(1) == pytest.approx(0.2)
+    opt.set_wd_mult({"fc_bias": 0.5})
+    assert opt.wd_mult == {"fc_weight": 3.0, "fc_bias": 0.5}
+    opt.set_lr_mult({"fc_weight": 2.0})
+    assert opt._get_lr(0) == pytest.approx(1.0)
+    restored = tmx.optimizer.get_updater(opt)
+    restored.set_states(restored.get_states(dump_optimizer=True))
+    assert restored.optimizer.sym_info == opt.sym_info
+
+
 @pytest.fixture
 def card():
     import torch

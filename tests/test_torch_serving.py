@@ -889,9 +889,19 @@ def test_card_swap_recaptures_and_eviction_drops_graphs(card):
 
 
 @pytest.mark.cuda
-def test_card_swap_during_a_first_capture(card):
+def test_card_swap_during_a_first_capture(card, monkeypatch):
+    """The swap begins while the first capture is held open by the
+    registry's ``before_capture`` hook, so it lands during the capture
+    every time."""
     net = _mlp(ctx=card)
     x = _card_requests(1, seed=42)[0]
+    capturing, swapped = threading.Event(), threading.Event()
+
+    def hold(_key):
+        capturing.set()
+        swapped.wait(WAIT)
+
+    monkeypatch.setattr(serving.registry, "before_capture", hold)
     with serving.Server(max_batch=8, max_wait_ms=5) as srv:
         h = srv.load("m", block=net, example=tmx.nd.array(x[None], ctx=card))
         _fn, pv = net.serving_fn(tmx.nd.array(x[None], ctx=card))
@@ -906,9 +916,11 @@ def test_card_swap_during_a_first_capture(card):
 
         t = threading.Thread(target=capture)
         t.start()
-        while t.is_alive() and not tickets:
-            tickets.append(srv.begin_swap("m", new))
+        assert capturing.wait(WAIT)
+        tickets.append(srv.begin_swap("m", new))
+        swapped.set()
         t.join(WAIT)
+        monkeypatch.setattr(serving.registry, "before_capture", None)
         assert not errors and tickets
         assert tickets[0].commit() == 2
         y = srv.predict("m", x, timeout=WAIT)

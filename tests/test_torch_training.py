@@ -114,6 +114,98 @@ def test_gluon_trainer_trajectory_matches_jax(start):
              tnet, numpy_params(tnet), 1e-6)
 
 
+def _trainer_run(m, net, tokens, labels, steps, **trainer_kw):
+    """``steps`` recorded steps of ``net`` through ``m.gluon.Trainer``;
+    returns the trainer and the weights after each step."""
+    tr = m.gluon.Trainer(net.collect_params(), "sgd", dict(OPT),
+                         **trainer_kw)
+    loss_fn = m.gluon.loss.SoftmaxCrossEntropyLoss()
+    x = m.nd.array(tokens, dtype="int32")
+    y = m.nd.array(labels)
+    trail = []
+    for _ in range(steps):
+        with m.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        tr.step(BATCH)
+        trail.append({n: p.data().asnumpy()
+                      for n, p in net.collect_params().items()})
+    return tr, trail
+
+
+@pytest.mark.parametrize("update_on_kvstore", [True, False])
+def test_gluon_trainer_with_a_store_matches_no_store_and_jax(
+        start, update_on_kvstore):
+    """``kvstore=mx.kv.create("device")``: the update on the store (push
+    the gradients, pull the weights) or here (push and pull the
+    gradients).  After every step the weights equal the path without a
+    store bit for bit, and after the last the JAX build's Trainer given
+    the same store within 1e-6, as the gate test above."""
+    tokens, labels, params = start
+    jnet = _jax_net(params)
+    _, jtrail = _trainer_run(jmx, jnet, tokens, labels, 3,
+                             kvstore=jmx.kv.create("device"),
+                             update_on_kvstore=update_on_kvstore)
+    with tmx.cpu():
+        tnet = _port_net(params)
+        store = tmx.kv.create("device")
+        tr, got = _trainer_run(tmx, tnet, tokens, labels, 3, kvstore=store,
+                               update_on_kvstore=update_on_kvstore)
+        _, plain = _trainer_run(tmx, _port_net(params), tokens, labels, 3,
+                                kvstore=None)
+    assert tr._kvstore_obj is store
+    assert tr._update_on_kvstore == update_on_kvstore
+    assert (store._updater is not None) == update_on_kvstore
+    for g, w in zip(got, plain):
+        for (n, a), b in zip(sorted(g.items()), [v for _, v in
+                                                 sorted(w.items())]):
+            np.testing.assert_array_equal(a, b, err_msg=n)
+    _compare(jnet, jtrail[-1], tnet, got[-1], 1e-6)
+
+
+@pytest.mark.parametrize("update_on_kvstore", [True, False])
+def test_trainer_states_through_the_store(tmp_path, update_on_kvstore):
+    """``save_states``/``load_states`` go through the store when the update
+    runs there: a trainer restored from the file continues bit-equal."""
+    rs = np.random.RandomState(5)
+    w0 = rs.randn(3, 4).astype(np.float32)
+    xs = [rs.randn(2, 4).astype(np.float32) for _ in range(4)]
+
+    def make(weight):
+        net = tmx.gluon.nn.Dense(3, in_units=4, use_bias=False)
+        net.initialize()
+        net.weight.set_data(tmx.nd.array(weight))
+        tr = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9},
+                               kvstore=tmx.kv.create("device"),
+                               update_on_kvstore=update_on_kvstore)
+        return net, tr
+
+    def step(net, tr, x):
+        with tmx.autograd.record():
+            loss = (net(tmx.nd.array(x)) ** 2).sum()
+        loss.backward()
+        tr.step(2)
+
+    with tmx.cpu():
+        a, ta = make(w0)
+        for x in xs[:2]:
+            step(a, ta, x)
+        ta.save_states(str(tmp_path / "t.states"))
+        b, tb = make(a.weight.data().asnumpy())
+        tb.load_states(str(tmp_path / "t.states"))
+        assert tb._update_on_kvstore == update_on_kvstore
+        for x in xs[2:]:
+            step(a, ta, x)
+            step(b, tb, x)
+        np.testing.assert_array_equal(b.weight.data().asnumpy(),
+                                      a.weight.data().asnumpy())
+        if update_on_kvstore:
+            assert tb._optimizer is tb._kvstore_obj._updater.optimizer
+            with pytest.raises(tmx.MXNetError, match="update_on_kvstore"):
+                tb.update(2)
+
+
 def _dpt_run(start, dtype, optimizer="sgd", opt_params=OPT):
     tokens, labels, params = start
     jnet = _jax_net(params)
@@ -224,7 +316,7 @@ def test_data_parallel_trainer_learning_rate_and_mesh(start):
         ttr.set_learning_rate(0.01)
         assert ttr.learning_rate == 0.01
         two = tmx.parallel.make_mesh({"dp": 2}, [tmx.cpu(0), tmx.cpu(1)])
-        with pytest.raises(tmx.MXNetError, match="Queue A item 6"):
+        with pytest.raises(tmx.MXNetError, match="Queue A item 7"):
             tmx.parallel.DataParallelTrainer(
                 tnet, tmx.gluon.loss.SoftmaxCrossEntropyLoss(), mesh=two)
     with pytest.raises(ValueError):
@@ -288,10 +380,16 @@ def test_trainer_kvstore_rule_and_learning_rate():
             tr = tmx.gluon.Trainer(net.collect_params(), "sgd",
                                    {"learning_rate": 0.1}, kvstore=kv)
             tr.step(1)      # no store: nothing to reduce, the update runs
+            assert tr._kvstore_obj is None and not tr._update_on_kvstore
+        store = tmx.kv.create("local")
+        tr = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1}, kvstore=store)
+        tr.step(1)          # a store object: the update runs on it
+        assert tr._kvstore_obj is store and tr._update_on_kvstore
         tr.set_learning_rate(0.2)
         assert tr.learning_rate == 0.2
         tr = tmx.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
-        with pytest.raises(tmx.MXNetError, match="Queue A item 6"):
+        with pytest.raises(tmx.MXNetError, match="item 7"):
             tr.step(1)
 
 
