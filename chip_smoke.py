@@ -9,7 +9,7 @@ Inception-v3 and train AlexNet, then train the symbolic ResNet-50 through
 Module.fit, serve it through Server(module=), and run the LM's attention
 layer as a Symbol through the Executor, then train BASELINE configs 1 and
 2 and the LM through the single-card KVStore, and profile the LM and
-ResNet-50 with mx.profiler.
+ResNet-50 with mx.profiler, then run those paths through mx.engine.bulk.
 
 Run from the root of a checkout, with one CUDA card and the CUDA toolkit:
 
@@ -263,9 +263,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              ``sync=True``: the flash kernel rows inside their op's span;
              the host split of an eager op (the LM request, ResNet-50 bf16
              at batch 32); an LM request with the profiler stopped;
-11. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
-   launches of B1 in 9c and 10d; phases 6-8 launch none), then the card's
-   name and power limit, and last ``{"ok": true, "device": {...}}``.
+11. bulk  — ``mx.engine.bulk`` on the card (segments recorded and replayed
+             as CUDA graphs; ``flush_stats()`` and ``cache_sizes()`` after
+             each part): the graphs' contracts at a small size (a capture,
+             replays bit-equal to eager, a new input address, outputs that
+             survive the next replay, draws bit-equal to eager ones, a
+             backward graph); 11a bench_eager.py's chains (eager, bulk(65),
+             bulk(256), the view chain, the recorded training chain), bit-
+             equal, one flush a scope and no capture in the timed loop,
+             ops/s; 11b 4b's LM request (run beside 4b on its net),
+             ResNet-50 v1 and Inception-v3 bf16 at batch 32 under bulk(64)
+             and bulk(n), bit-equal to eager, ms a batch and one replay's
+             trace (the LM's: one flash_fwd_sm90_kernel row a layer); 11c
+             the LM step (bf16) and ResNet-50 f32 b64 as one recorded
+             segment, one flush (autograd), losses bit-equal, gradients
+             compared, the step's trace (B1's forward kernel in the forward
+             graph and again in the backward graph's recompute, its
+             backward kernel); 11d one case per op of 7a's sweep captured
+             and replayed, bit-equal to eager, the ops registered not
+             deferrable listed; 11e the symbolic ResNet-50 cut at stage 3
+             into two Modules under SequentialModule, weights bit-equal to
+             one Module after each of 3 steps, PythonLossModule after the
+             MLP of 10b, print_summary's total; 11f autograd.get_symbol of
+             the LM's attention layer through the Executor, equal to eager,
+             B1's forward and backward kernels once each;
+12. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
+   launches of B1 in 9c, 10d and 11; phases 6-8 launch none), then the
+   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -281,6 +305,7 @@ import subprocess
 import sys
 import threading
 import time
+import weakref
 
 import numpy as np
 
@@ -5210,11 +5235,14 @@ def attention_symbol(mx, d_model, heads):
     return mx.sym.MakeLoss(mx.sym.sum(o), name="loss")
 
 
-def attention_eager(mx, values, d_model, heads):
+def attention_eager(mx, values, d_model, heads, copies=None):
     """The same ops as :func:`attention_symbol`, called through ``nd`` under
-    ``autograd.record()``: (loss, {name: gradient})."""
+    ``autograd.record()``: (loss, {name: gradient}); ``copies`` receives
+    the arrays the ops took."""
     nd = mx.nd
     arrays = {n: v.copy() for n, v in values.items()}
+    if copies is not None:
+        copies.update(arrays)
     for v in arrays.values():
         v.attach_grad()
     with mx.autograd.record():
@@ -6218,6 +6246,884 @@ def store_phase(mx, card, request_ms_4b):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: engine bulking (mx.engine.bulk: recorded segments replayed as
+# CUDA graphs) on the paths of the earlier phases, and the rest of the
+# Module/Symbol surface (SequentialModule, PythonLossModule, print_summary,
+# autograd.get_symbol)
+# ---------------------------------------------------------------------------
+# bench_eager.py:93-95
+BULK_CHAIN, BULK_SHAPE, BULK_ITERS = 64, (64, 64), 30
+# a segment size no request of this script reaches: one flush a request
+BULK_WHOLE = 100000
+BULK_CNN_BATCH = 32
+BULK_RESNET_TRAIN_BATCH = 64
+BULK_SEQ_STEPS = 3
+# 4b, 6b, 8b and 4d measured by this script on an NVIDIA H100 80GB HBM3,
+# 700.00 W (PERF.md §5)
+BULK_REFERENCE_MS = {"lm_request": 27.503, "resnet50_batch": 27.658,
+                     "inception_v3_batch": 76.447, "lm_train_step": 118.40}
+
+
+def bulk_chain(a, b, c, n):
+    """bench_eager.py's _chain_eager (:1258-1264)."""
+    for _ in range(n // 4):
+        a = a * b
+        a = a + c
+        a = a.abs()
+        a = a - c
+    return a
+
+
+def bulk_chain_views(a, b, c, n, shape=BULK_SHAPE):
+    """bench_eager.py's _chain_views (:1267-1282)."""
+    x = a
+    h, w = shape
+    for _ in range(n // 4):
+        x = x * b
+        x = x.reshape((h * w,))
+        x = x + 1.0
+        x = x.reshape(shape)
+        x = x.transpose((1, 0))
+        x = x.abs()
+        x = x[0:h]
+        x = x - c
+    return x
+
+
+def same_bits(torch, a, b):
+    """Whether two tensors hold the same bits (NaN payloads included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.detach().contiguous(), b.detach().to(a.device).contiguous()
+    if a.is_floating_point():
+        view = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a, b)
+
+
+def max_diff(a, b):
+    return float((a.detach().float() - b.detach().float().to(
+        a.device)).abs().max())
+
+
+def bulk_report(mx, what):
+    """Print flush_stats() and cache_sizes() after a phase."""
+    stats, sizes = mx.engine.flush_stats(), mx.engine.cache_sizes()
+    print("bulk %s: flush_stats %s, cache_sizes %s" % (
+        what, json.dumps(stats), json.dumps(sizes)), flush=True)
+    return dict(flush_stats=stats, cache_sizes=sizes)
+
+
+def bulk_pool_bytes(mx):
+    """Bytes of the engine's graph memory pool on the card."""
+    import torch
+    return graph_pool_bytes(torch, mx.engine.graph_pool(
+        torch.device("cuda", 0)))
+
+
+def bulk_release(mx):
+    """Drop the engine's cached graphs after a part of phase 11 (their
+    memory stays in the engine's pool for the next part)."""
+    import torch
+    mx.engine.clear_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bulk_scope(mx, size):
+    return mx.engine.bulk(size) if size else contextlib.nullcontext()
+
+
+def bulk_card_contracts(mx, card, shape=(64, 64)):
+    """The engine's card contracts at a small size: a segment captured and
+    replayed bit-equal to eager; an input that moves once (a weight after
+    a load) gets one graph more and is never copied, and two alternating
+    inputs replay their own graphs; an input at a new address on every call
+    gets two captures more, then is copied into the entry's own buffer and
+    replayed without one; an output of replay 1 unchanged after replay 2;
+    the graphs hold no input alive; draws in two scopes
+    bit-equal to two eager draws from the same seed; a recorded segment's
+    backward captured, then replayed, with eager's gradients."""
+    import numpy as np
+    import torch
+    eng = mx.engine
+    rs = np.random.RandomState(SEED + 111)
+    gpu = mx.gpu(0)
+    a, b, c = (mx.nd.array(rs.rand(*shape).astype(np.float32) + k,
+                           ctx=gpu) for k in (0.0, 0.5, 0.0))
+    want = bulk_chain(a, b, c, 16)._data.clone()
+    eng.reset_flush_stats()
+    outs = []
+    for _ in range(3):
+        with eng.bulk(64):
+            outs.append(bulk_chain(a, b, c, 16))
+    first = [o._data.clone() for o in outs]
+    g = eng.flush_stats()["graphs"]
+    res = {"captures": g["captures"], "replays": g["replays"]}
+    check(g["captures"] == 1 and g["replays"] == 2, "11 contracts: graphs "
+          "%s, want 1 capture and 2 replays" % g)
+    check(all(same_bits(torch, o._data, want) for o in outs), "11 contracts:"
+          " a replay differs from eager")
+    def captures_for(ins, what):
+        before = eng.flush_stats()["graphs"]["captures"]
+        for k, (x, y) in enumerate(ins):
+            want2 = bulk_chain(x, y, c, 16)._data.clone()
+            with eng.bulk(64):
+                got2 = bulk_chain(x, y, c, 16)
+            check(same_bits(torch, got2._data, want2), "11 contracts: %s, "
+                  "call %d differs from eager" % (what, k))
+        return eng.flush_stats()["graphs"]["captures"] - before
+
+    # the chain's entry: the cache's most recently used
+    entry = eng._replay_cache[list(eng._replay_cache)[-1]]
+    # a weight that moves once, then two alternating: no copy
+    b2 = b.copy()
+    res["captures_moved_once"] = captures_for([(a, b2)] * 3, "moved once")
+    res["captures_alternating"] = captures_for([(a, b), (a, b2)] * 2,
+                                               "alternating")
+    check(res["captures_moved_once"] == 1 and
+          res["captures_alternating"] == 0 and
+          all(buf is None for buf in entry.owned),
+          "11 contracts: %d captures for an input moved once, %d for two "
+          "alternating, owned slots %s: want 1, 0 and none"
+          % (res["captures_moved_once"], res["captures_alternating"],
+             [buf is not None for buf in entry.owned]))
+    # an activation made anew for every call: two captures, then copies
+    fresh = [mx.nd.array(rs.rand(*shape).astype(np.float32), ctx=gpu)
+             for _ in range(5)]
+    res["captures_fresh"] = [captures_for([(x, b)], "fresh input")
+                             for x in fresh]
+    check(res["captures_fresh"] == [1, 1, 0, 0, 0] and
+          sum(buf is not None for buf in entry.owned) == 1,
+          "11 contracts: captures %s for five fresh inputs (want 1, 1, 0, "
+          "0, 0), owned slots %s"
+          % (res["captures_fresh"], [buf is not None for buf in entry.owned]))
+    # the graphs pin no input: a dropped input is freed
+    ref = weakref.ref(b2._data)
+    del b2
+    gc.collect()
+    check(ref() is None, "11 contracts: a graph holds a dropped input")
+    check(all(same_bits(torch, o._data, f) for o, f in zip(outs, first)),
+          "11 contracts: an output changed under a later replay")
+    # draws: the framework generator advances per replay as eagerly
+    mx.random.seed(SEED)
+    draws = []
+    for _ in range(3):
+        with eng.bulk(8):
+            draws.append(mx.nd.random.uniform(shape=(4096,), ctx=gpu)._data)
+    mx.random.seed(SEED)
+    eager = [mx.nd.random.uniform(shape=(4096,), ctx=gpu)._data
+             for _ in range(3)]
+    res["rng_bit_equal"] = [same_bits(torch, x, y)
+                            for x, y in zip(draws, eager)]
+    check(all(res["rng_bit_equal"]) and not same_bits(torch, draws[1],
+                                                      draws[2]),
+          "11 contracts: bulked draws %s against eager" % res["rng_bit_equal"])
+    # a recorded segment: forward graph, backward graph
+    w = mx.nd.array(rs.rand(shape[1], 32).astype(np.float32), ctx=gpu)
+    w.attach_grad()
+
+    def step(size):
+        with bulk_scope(mx, size):
+            with mx.autograd.record():
+                h = mx.nd.relu(mx.nd.dot(a, w)) * 0.5
+                loss = (h * h).sum()
+            loss.backward()
+        return loss._data.clone(), w.grad._data.clone()
+
+    loss_e, grad_e = step(0)
+    eng.reset_flush_stats()
+    got = [step(64) for _ in range(3)]
+    g = eng.flush_stats()["graphs"]
+    res["backward"] = g
+    check(g["backward_captures"] == 1 and g["backward_replays"] == 2,
+          "11 contracts: backward graphs %s" % g)
+    check(all(same_bits(torch, l, loss_e) and same_bits(torch, gr, grad_e)
+              for l, gr in got), "11 contracts: a bulked step's loss or "
+          "gradient differs from eager")
+    print("bulk 11 contracts: %s | %s" % (json.dumps(res), card), flush=True)
+    return res
+
+
+def bulk_chains(mx, card):
+    """Phase 11a: bench_eager.py's chains on the card (CHAIN 64, SHAPE
+    (64, 64) f32, ITERS 30): eager, bulk(CHAIN + 1), bulk(4 * CHAIN), the
+    view chain eager and under bulk(4 * CHAIN), and the recorded training
+    chain eager and under bulk(CHAIN + 8): bit-equal to eager, one flush a
+    scope and no capture in the timed loop; ops/s of each mode and the
+    first flush's capture ms."""
+    import numpy as np
+    import torch
+    eng = mx.engine
+    rs = np.random.RandomState(0)
+    gpu = mx.gpu(0)
+    a = mx.nd.array(rs.rand(*BULK_SHAPE).astype(np.float32), ctx=gpu)
+    b = mx.nd.array(rs.rand(*BULK_SHAPE).astype(np.float32) + 0.5, ctx=gpu)
+    c = mx.nd.array(rs.rand(*BULK_SHAPE).astype(np.float32), ctx=gpu)
+    res = {}
+    modes = (("eager", 0, bulk_chain), ("bulk", BULK_CHAIN + 1, bulk_chain),
+             ("bulk4", 4 * BULK_CHAIN, bulk_chain),
+             ("views_eager", 0, bulk_chain_views),
+             ("views_bulk", 4 * BULK_CHAIN, bulk_chain_views))
+    for name, size, chain in modes:
+        want = chain(a, b, c, BULK_CHAIN)._data.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with bulk_scope(mx, size):
+            first = chain(a, b, c, BULK_CHAIN)
+        first = first._data
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        replay_before = eng.cache_sizes()["replay"]
+        eng.reset_flush_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BULK_ITERS):
+            with bulk_scope(mx, size):
+                out = chain(a, b, c, BULK_CHAIN)
+        out = out._data
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stats = eng.flush_stats()
+        res[name] = dict(ops_per_s=BULK_CHAIN * BULK_ITERS / dt,
+                         first_scope_ms=first_ms, flushes=sum(
+                             stats["causes"].values()),
+                         captures=stats["graphs"]["captures"])
+        check(same_bits(torch, out, want) and same_bits(torch, first, want),
+              "11a %s: the result differs from eager" % name)
+        if size:
+            check(sum(stats["causes"].values()) == BULK_ITERS and
+                  stats["graphs"]["captures"] == 0 and
+                  eng.cache_sizes()["replay"] == replay_before,
+                  "11a %s: %s, replay cache %d -> %d: want one flush a "
+                  "scope and no capture" % (name, stats, replay_before,
+                                            eng.cache_sizes()["replay"]))
+        print("bulk 11a %s: %.1f ops/s (%d iterations of %d ops), first "
+              "scope %.3f ms (capture included), %d flushes, %d captures "
+              "in the timed loop | %s"
+              % (name, res[name]["ops_per_s"], BULK_ITERS, BULK_CHAIN,
+                 first_ms, res[name]["flushes"], res[name]["captures"],
+                 card), flush=True)
+    a.attach_grad()
+
+    def train_step(size):
+        with bulk_scope(mx, size):
+            with mx.autograd.record():
+                out = bulk_chain(a, b, c, BULK_CHAIN)
+                loss = (out * out).sum()
+            loss.backward()
+        return loss
+
+    loss_e = train_step(0)._data.clone()
+    grad_e = a.grad._data.clone()
+    for name, size in (("train_eager", 0), ("train_bulk", BULK_CHAIN + 8)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(size)._data
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        eng.reset_flush_stats()
+        t0 = time.perf_counter()
+        for _ in range(BULK_ITERS):
+            loss = train_step(size)
+        loss = loss._data
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stats = eng.flush_stats()
+        res[name] = dict(ops_per_s=BULK_CHAIN * BULK_ITERS / dt,
+                         first_scope_ms=first_ms,
+                         flushes=sum(stats["causes"].values()),
+                         graphs=stats["graphs"])
+        check(same_bits(torch, loss, loss_e) and
+              same_bits(torch, a.grad._data, grad_e),
+              "11a %s: loss or gradient differs from eager (%.3e, %.3e)"
+              % (name, max_diff(loss, loss_e), max_diff(a.grad._data,
+                                                        grad_e)))
+        if size:
+            check(stats["causes"]["autograd"] == BULK_ITERS and
+                  sum(stats["causes"].values()) == BULK_ITERS and
+                  stats["graphs"]["captures"] == 0 and
+                  stats["graphs"]["backward_captures"] == 0,
+                  "11a %s: %s" % (name, stats))
+        print("bulk 11a %s: %.1f ops/s forward ops (%d steps), first step "
+              "%.3f ms, flushes %d, graphs %s | %s"
+              % (name, res[name]["ops_per_s"], BULK_ITERS, first_ms,
+                 res[name]["flushes"], json.dumps(stats["graphs"]), card),
+              flush=True)
+    res["report"] = bulk_report(mx, "11a")
+    return res
+
+
+def _segment_length(mx, run):
+    """The instructions of the one segment ``run`` records under
+    bulk(BULK_WHOLE), from the flush statistics."""
+    mx.engine.reset_flush_stats()
+    with mx.engine.bulk(BULK_WHOLE):
+        run()
+    lengths = mx.engine.flush_stats()["segment_lengths"]
+    return max(lengths) if lengths else 0
+
+
+def _replay_trace(mx, run, names):
+    """(kernel rows by name among ``names``, device-busy us, wall us) of
+    one call of ``run`` under torch.profiler (:func:`profiled`)."""
+    prof, wall_us = profiled(run)
+    kernels = trace_kernels(prof)
+    busy = sum(us for us, _ in kernels.values())
+    rows = {n: sum(cnt for k, (_, cnt) in kernels.items() if n in k)
+            for n in names}
+    return rows, busy, wall_us
+
+
+def _timed_ms(run, reps, torch):
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def bulk_serve(mx, card, what, forward, want, reps, reference_ms,
+               flash_layers=None):
+    """One model's batch under bulk(): eager, bulk(64) and bulk(n) with n
+    its op count (one segment); each bulked output bit-equal to ``want``
+    on the capture and on a replay; ms a batch of each against the
+    earlier phase's; one replay of bulk(n) traced for its device-busy ms
+    (and its flash_fwd_sm90_kernel rows, one per layer, for the LM)."""
+    import torch
+    n = _segment_length(mx, forward)
+    res = {"ops": n, "reference_ms": reference_ms}
+    for name, size in (("eager", 0), ("bulk64", 64), ("bulk_n", n)):
+        for rep in range(2):
+            with bulk_scope(mx, size):
+                out = forward()
+            got = out._data
+            check(same_bits(torch, got, want), "11b %s %s call %d: output "
+                  "differs from the eager batch (max %.3e)"
+                  % (what, name, rep, max_diff(got, want)))
+            del out, got
+
+        def run(size=size):
+            with bulk_scope(mx, size):
+                forward()._data
+        ms = _timed_ms(run, reps, torch)
+        res[name] = dict(ms=ms, ms_mean=sum(ms) / len(ms))
+    rows, busy, wall = _replay_trace(mx, lambda: run(n), ("flash_fwd_sm90",))
+    res["trace"] = dict(busy_ms=busy / 1e3, wall_ms=wall / 1e3,
+                        flash_fwd_sm90_kernel=rows["flash_fwd_sm90"])
+    res["pool_bytes"] = bulk_pool_bytes(mx)
+    if flash_layers is not None:
+        check(rows["flash_fwd_sm90"] == flash_layers, "11b %s: %d "
+              "flash_fwd_sm90_kernel rows in one replay's trace, want %d"
+              % (what, rows["flash_fwd_sm90"], flash_layers))
+    print("bulk 11b %s: %d ops a batch; eager %.3f ms, bulk(64) %.3f ms, "
+          "bulk(%d) %.3f ms a batch (the earlier phase: %.3f ms); one "
+          "bulk(%d) replay traced: wall %.3f ms, device busy %.3f ms, "
+          "flash_fwd_sm90_kernel rows %d; engine graph pool %s bytes | %s"
+          % (what, n, res["eager"]["ms_mean"], res["bulk64"]["ms_mean"], n,
+             res["bulk_n"]["ms_mean"], reference_ms, n, wall / 1e3,
+             busy / 1e3, rows["flash_fwd_sm90"], res["pool_bytes"], card),
+          flush=True)
+    return res
+
+
+def bulk_lm_serving(mx, card, net, tokens, want):
+    """Phase 11b, the LM: the full-width LM's eager request of 4b (bf16)
+    under bulk(64) and bulk(n)."""
+    def forward():
+        with mx.autograd.predict_mode():
+            return net(tokens)
+    mx.engine.reset_flush_stats()
+    res = bulk_serve(mx, card, "LM request", forward, want._data, 3,
+                     BULK_REFERENCE_MS["lm_request"],
+                     flash_layers=LM_CONFIG["n_layers"])
+    res["report"] = bulk_report(mx, "11b LM")
+    bulk_release(mx)
+    return res
+
+
+def bulk_cnn_serving(mx, card):
+    """Phase 11b, the CNNs: ResNet-50 v1 (6b) and Inception-v3 (8b), bf16
+    at batch 32, under bulk(64) and bulk(n), bit-equal to their eager
+    batch."""
+    import numpy as np
+    import torch
+    res = {}
+    for name, size, ref in (("resnet50_v1", RESNET_IMAGE,
+                             BULK_REFERENCE_MS["resnet50_batch"]),
+                            ("inception_v3", 299,
+                             BULK_REFERENCE_MS["inception_v3_batch"])):
+        mx.random.seed(SEED)
+        from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+        net = getattr(vision, name)(classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net.collect_params().setattr("grad_req", "null")
+        with mx.autograd.predict_mode():
+            net(mx.nd.zeros((1, 3, size, size), ctx=mx.gpu(0)))
+        net.cast("bfloat16")
+        rs = np.random.RandomState(SEED + 7)
+        x = mx.nd.array(rs.rand(BULK_CNN_BATCH, 3, size, size).astype(
+            np.float32), ctx=mx.gpu(0), dtype="bfloat16")
+
+        def forward(net=net, x=x):
+            with mx.autograd.predict_mode():
+                return net(x)
+        want = forward()._data.clone()
+        mx.engine.reset_flush_stats()
+        res[name] = bulk_serve(mx, card, name, forward, want, 4, ref)
+        res[name]["report"] = bulk_report(mx, "11b " + name)
+        bulk_release(mx)
+        del net, x, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def _grads(net):
+    return {n: p.grad()._data.clone() for n, p in
+            net.collect_params().items() if p.grad_req != "null"}
+
+
+def bulk_train_step(mx, card, what, net, x, y, loss_fn, reference_ms,
+                    trainer, flash_layers=None):
+    """Phase 11c for one model: forward and loss under record() inside
+    bulk(n), then backward() inside it (one flush, cause autograd): the
+    loss bit-equal to the unbulked step's and each gradient bit-equal or
+    its largest difference printed, on the capture and on a replay; step
+    ms (with the Trainer's update) bulked and eager; the traced replay of
+    a bulked step (forward and backward flash rows for the LM); peak
+    memory."""
+    import numpy as np
+    import torch
+
+    def loss_of():
+        with mx.autograd.record():
+            out = net(x)
+            if out.dtype != np.float32:
+                out = out.astype("float32")
+            return loss_fn(out, y).mean()
+
+    def step(size):
+        with bulk_scope(mx, size):
+            loss = loss_of()
+            loss.backward()
+        return loss._data
+
+    n = _segment_length(mx, lambda: loss_of())
+    loss_e = step(0).clone()
+    grads_e = _grads(net)
+    mx.engine.reset_flush_stats()
+    res = {"ops": n, "reference_ms": reference_ms, "grad_max_diff": {}}
+    for rep in range(2):
+        loss = step(n)
+        stats = mx.engine.flush_stats()
+        check(same_bits(torch, loss, loss_e), "11c %s call %d: loss %r, "
+              "unbulked %r" % (what, rep, float(loss), float(loss_e)))
+        diffs = {k: max_diff(g, grads_e[k]) for k, g in _grads(net).items()
+                 if not same_bits(torch, g, grads_e[k])}
+        res["grad_max_diff"]["call%d" % rep] = diffs
+    check(stats["causes"]["autograd"] == 2 and
+          sum(stats["causes"].values()) == 2, "11c %s: flushes %s, want "
+          "one a step, cause autograd" % (what, stats))
+    res["graphs"] = stats["graphs"]
+    for name, size in (("eager", 0), ("bulk_n", n)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run(size=size):
+            step(size)
+            trainer.step(x.shape[0])
+        ms = _timed_ms(run, 3, torch)
+        res[name] = dict(ms=ms, ms_mean=sum(ms) / len(ms),
+                         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    rows, busy, wall = _replay_trace(
+        mx, lambda: step(n), ("flash_fwd_sm90", "flash_bwd"))
+    res["trace"] = dict(busy_ms=busy / 1e3, wall_ms=wall / 1e3, rows=rows)
+    res["pool_bytes"] = bulk_pool_bytes(mx)
+    if flash_layers is not None:
+        check(rows["flash_fwd_sm90"] == 2 * flash_layers and
+              rows["flash_bwd"] == 2 * flash_layers, "11c %s: kernel rows "
+              "%s in a bulked step's trace, want %d forward (the forward "
+              "graph and the backward graph's recompute) and %d backward "
+              "(dQ and dK/dV a layer)" % (what, rows, 2 * flash_layers,
+                                           2 * flash_layers))
+    differ = any(res["grad_max_diff"].values())
+    print("bulk 11c %s: %d ops recorded into one segment; loss bit-equal to "
+          "the unbulked step; gradients that differ (largest difference): "
+          "%s%s; step ms eager %.3f, bulk(%d) %.3f (the earlier "
+          "phase: %.3f); peak memory eager %d, bulk %d bytes; a bulked "
+          "step traced: wall %.3f ms, device busy %.3f ms, rows %s; graphs "
+          "%s; engine graph pool %s bytes | %s"
+          % (what, n, json.dumps(res["grad_max_diff"]),
+             " (cause: the segment's backward recomputes the forward and "
+             "takes torch.autograd.grad inside a captured graph, where the "
+             "unbulked step's autograd may add a weight's contributions in "
+             "another order)" if differ else "",
+             res["eager"]["ms_mean"], n, res["bulk_n"]["ms_mean"],
+             reference_ms, res["eager"]["peak_memory_bytes"],
+             res["bulk_n"]["peak_memory_bytes"], wall / 1e3, busy / 1e3,
+             json.dumps(rows), json.dumps(res["graphs"]), res["pool_bytes"],
+             card), flush=True)
+    return res
+
+
+def bulk_training(mx, card):
+    """Phase 11c: the LM step of 4d (bf16 weights, batch 8 x 1024) and
+    ResNet-50 v1 f32 at batch 64 (under deterministic_kernels), each step
+    recorded into one segment."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch.models import TransformerLM, HostXavier
+    res = {}
+    cfg = LM_CONFIG
+    net = TransformerLM(**cfg)
+    net.pos_embed.init = None
+    net.initialize(HostXavier(SEED), ctx=mx.gpu(0))
+    rs = np.random.RandomState(0)
+    x = mx.nd.array(rs.randint(0, cfg["vocab"], (TRAIN_BATCH,
+                                                 cfg["seq_len"])),
+                    ctx=mx.gpu(0), dtype="int32")
+    net(x).wait_to_read()
+    net.cast("bfloat16")
+    y = mx.nd.array(rs.randint(0, cfg["vocab"], (TRAIN_BATCH,
+                                                 cfg["seq_len"])).astype(
+        np.float32), ctx=mx.gpu(0))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 1e-4})
+    mx.engine.reset_flush_stats()
+    res["lm"] = bulk_train_step(
+        mx, card, "LM", net, x, y, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+        BULK_REFERENCE_MS["lm_train_step"], trainer,
+        flash_layers=cfg["n_layers"])
+    res["lm"]["report"] = bulk_report(mx, "11c LM")
+    bulk_release(mx)
+    del net, trainer, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    with deterministic_kernels(torch):
+        mx.random.seed(SEED)
+        from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+        net = vision.resnet50_v1(classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        rs = np.random.RandomState(SEED + 3)
+        x = mx.nd.array(rs.rand(BULK_RESNET_TRAIN_BATCH, 3, RESNET_IMAGE,
+                                RESNET_IMAGE).astype(np.float32),
+                        ctx=mx.gpu(0))
+        y = mx.nd.array(rs.randint(0, 1000, BULK_RESNET_TRAIN_BATCH).astype(
+            np.float32), ctx=mx.gpu(0))
+        net(x).wait_to_read()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.01, "momentum": 0.9})
+        mx.engine.reset_flush_stats()
+        res["resnet50"] = bulk_train_step(
+            mx, card, "ResNet-50 f32 batch %d" % BULK_RESNET_TRAIN_BATCH,
+            net, x, y, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+            float("nan"), trainer)
+        res["resnet50"]["report"] = bulk_report(mx, "11c ResNet-50")
+    bulk_release(mx)
+    del net, trainer, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def bulk_ops(mx, card):
+    """Phase 11d: one case per op of 7a's sweep inside bulk(): the op's
+    output after a capture and after a replay bit-equal to its eager output
+    (within two eager runs' spread for an op that differs between them);
+    the ops registered not deferrable are listed; a deferrable op that
+    was not deferred fails the phase, and one whose meta inference or
+    capture fails raises."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch.ops.registry import _REGISTRY, get_op
+    eng = mx.engine
+    flagged = sorted({op.name for op in _REGISTRY.values()
+                      if not op.deferrable})
+    print("bulk 11d: ops registered not deferrable: %s" % flagged,
+          flush=True)
+    rs = np.random.default_rng(SEED)
+    seen, not_deferred, spread, failures = set(), [], {}, []
+    t0 = time.perf_counter()
+    for case in sweep_cases():
+        _, name, params, specs, dtypes, _, _ = case
+        if name in seen:
+            continue
+        seen.add(name)
+        op = get_op(name)
+        dtype = dtypes[0]
+        xs = [mx.nd.array(a, ctx=mx.gpu(0), dtype=dtype if a.dtype.kind ==
+                          "f" else "int32")
+              for a in _sweep_arrays(rs, specs, dtype)]
+
+        def call():
+            out = mx.nd.invoke(op, xs, dict(params))
+            return out if isinstance(out, list) else [out]
+        e1 = [o._data.clone() for o in call()]
+        e2 = [o._data.clone() for o in call()]
+        for rep in range(2):
+            eng.reset_flush_stats()
+            with eng.bulk(64):
+                outs = call()
+                deferred = any(type(o._slot) is eng._Pending for o in outs)
+            got = [o._data for o in outs]
+            graphs = eng.flush_stats()["graphs"]
+            if not deferred:
+                if op.deferrable:
+                    not_deferred.append(name)
+                break
+            if rep == 1 and graphs["replays"] != 1:
+                failures.append("%s: no replay (%s)" % (name, graphs))
+            for g, a_, b_ in zip(got, e1, e2):
+                if same_bits(torch, g, a_):
+                    continue
+                if not same_bits(torch, a_, b_):
+                    d = max_diff(a_, b_)
+                    spread[name] = d
+                    if max_diff(g, a_) <= d:
+                        continue
+                failures.append("%s call %d: max diff %.3e from eager"
+                                % (name, rep, max_diff(g, a_)))
+        del xs
+    seconds = time.perf_counter() - t0
+    res = dict(ops=len(seen), not_deferrable=flagged,
+               deferrable_not_deferred=sorted(set(not_deferred)),
+               eager_spread=spread, failures=failures, seconds=seconds)
+    print("bulk 11d: %d ops of 7a's sweep inside bulk(), captured then "
+          "replayed, in %.1f s; deferrable but run eagerly: %s; "
+          "differing between two eager runs: %s; failures: %s | %s"
+          % (len(seen), seconds, res["deferrable_not_deferred"],
+             json.dumps(spread), failures, card), flush=True)
+    check(not failures and not not_deferred, "11d: failures %s, deferrable "
+          "ops run eagerly %s" % (failures, not_deferred))
+    res["report"] = bulk_report(mx, "11d")
+    bulk_release(mx)
+    return res
+
+
+def resnet_symbol_parts(mx, num_layers=50, split_stage=3,
+                        num_classes=1000):
+    """:func:`resnet_symbol` cut before stage ``split_stage``: (the stem
+    and the stages before it, ``data`` -> the rest and SoftmaxOutput), with
+    the whole net's layer names."""
+    bottle_neck, units = RESNET_SPECS[num_layers]
+    filters = (256, 512, 1024, 2048) if bottle_neck else (64, 128, 256, 512)
+    x = mx.sym.var("data")
+    x = _sym_conv_bn(mx, x, 64, (7, 7), (2, 2), (3, 3), "stem")
+    x = mx.sym.Pooling(x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                       pool_type="max", name="stem_pool")
+    parts = []
+    for s, (n_units, f) in enumerate(zip(units, filters)):
+        if s + 1 == split_stage:
+            parts.append(x)
+            x = mx.sym.var("data")
+        for u in range(n_units):
+            stride = (1, 1) if (s == 0 or u > 0) else (2, 2)
+            x = _sym_residual_unit(mx, x, f, stride, dim_match=(u > 0),
+                                   name="stage%d_unit%d" % (s + 1, u + 1),
+                                   bottle_neck=bottle_neck)
+    x = mx.sym.Pooling(x, global_pool=True, pool_type="avg", kernel=(7, 7),
+                       name="pool_final")
+    x = mx.sym.Flatten(x, name="flat")
+    x = mx.sym.FullyConnected(x, num_hidden=num_classes, name="fc1")
+    parts.append(mx.sym.SoftmaxOutput(x, name="softmax"))
+    return parts
+
+
+def _module_weights(mod):
+    arg, aux = mod.get_params()
+    return {n: v._data.clone() for n, v in list(arg.items()) +
+            list(aux.items())}
+
+
+def bulk_modules(mx, card, batch=BULK_RESNET_TRAIN_BATCH, steps=BULK_SEQ_STEPS,
+                 image=RESNET_IMAGE, classes=1000):
+    """Phase 11e: the symbolic ResNet-50 cut at stage 3 into two Modules
+    chained by SequentialModule(auto_wiring=True), f32 at batch 64, for 3
+    steps, its weights after each step bit-equal to one Module over the
+    whole symbol (deterministic kernels); PythonLossModule after the MLP of
+    10b; print_summary of the symbolic ResNet-50."""
+    import numpy as np
+    import torch
+    res = {}
+    shapes = {"data": (batch, 3, image, image)}
+    whole = resnet_symbol(mx, num_classes=classes)
+    rs = np.random.RandomState(SEED + 11)
+    arg_np, aux_np = symbol_weights(np, whole, dict(
+        shapes, softmax_label=(batch,)), rs)
+    batches = [(rs.rand(batch, 3, image, image).astype(np.float32),
+                rs.randint(0, classes, batch).astype(np.float32))
+               for _ in range(steps)]
+    opt = dict(SYM_TRAIN_OPT)
+
+    def fresh(mod, data_shapes, label_shapes):
+        mod.bind(data_shapes, label_shapes)
+        mod.init_params(arg_params={n: mx.nd.array(v, ctx=mx.gpu(0))
+                                    for n, v in arg_np.items()},
+                        aux_params={n: mx.nd.array(v, ctx=mx.gpu(0))
+                                    for n, v in aux_np.items()},
+                        allow_missing=False, allow_extra=True)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=opt)
+        return mod
+
+    data_shapes = [("data", shapes["data"])]
+    label_shapes = [("softmax_label", (batch,))]
+    with deterministic_kernels(torch):
+        single = fresh(mx.mod.Module(whole, context=mx.gpu(0)), data_shapes,
+                       label_shapes)
+        part1, part2 = resnet_symbol_parts(mx, num_classes=classes)
+        seq = mx.mod.SequentialModule()
+        seq.add(mx.mod.Module(part1, label_names=None, context=mx.gpu(0)))
+        seq.add(mx.mod.Module(part2, context=mx.gpu(0)), take_labels=True,
+                auto_wiring=True)
+        fresh(seq, data_shapes, label_shapes)
+        same, ms = [], {"single": [], "sequential": []}
+        for xb, yb in batches:
+            db = mx.io.DataBatch(data=[mx.nd.array(xb, ctx=mx.gpu(0))],
+                                 label=[mx.nd.array(yb, ctx=mx.gpu(0))])
+            for name, mod in (("single", single), ("sequential", seq)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mod.forward(db, is_train=True)
+                mod.backward()
+                mod.update()
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+            w1, w2 = _module_weights(single), _module_weights(seq)
+            diff = {n: max_diff(w2[n], v) for n, v in w1.items()
+                    if not same_bits(torch, w2[n], v)}
+            same.append(diff)
+    res["sequential"] = dict(step_ms=ms, differing_weights=same)
+    print("bulk 11e: symbolic ResNet-50 cut at stage 3 into two Modules "
+          "under SequentialModule(auto_wiring=True), f32 batch %d, %d steps "
+          "beside one Module over the whole symbol (deterministic kernels): "
+          "weights that differ after each step %s; step ms %s | %s"
+          % (batch, steps, json.dumps(same), json.dumps(ms), card),
+          flush=True)
+    check(all(not d for d in same), "11e: SequentialModule's weights differ "
+          "from the single Module's: %s" % same)
+    del single, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    # PythonLossModule after 10b's MLP
+    mlp = mnist_nets(mx)[0][2]()
+    feat = mlp.get_internals()["fc3_output"]
+    x, y = synthetic_mnist(320)[:2]
+    x, y = x[:256].reshape(256, -1), y[:256]
+    seq = mx.mod.SequentialModule()
+    seq.add(mx.mod.Module(feat, label_names=None, context=mx.gpu(0)))
+    seq.add(mx.mod.PythonLossModule(), take_labels=True)
+    it = mx.io.NDArrayIter(x, y, batch_size=64, shuffle=False)
+    seq.fit(it, num_epoch=3, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.05},
+            initializer=mx.init.Xavier())
+    seq.forward(mx.io.DataBatch(data=[mx.nd.array(x, ctx=mx.gpu(0))],
+                                label=[mx.nd.array(y, ctx=mx.gpu(0))]),
+                is_train=False)
+    scores = seq.get_outputs()[0].asnumpy()
+    acc = float((scores.argmax(1) == y).mean())
+    res["python_loss"] = dict(train_accuracy=acc)
+    print("bulk 11e: PythonLossModule after the MLP of 10b (softmax "
+          "gradient in numpy), 3 epochs of 256 synthetic digits: training "
+          "accuracy %.4f | %s" % (acc, card), flush=True)
+    check(np.isfinite(scores).all() and acc > 0.5, "11e: PythonLossModule "
+          "accuracy %.4f" % acc)
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        text = mx.viz.print_summary(whole, shape={
+            "data": (1, 3, image, image), "softmax_label": (1,)})
+    total = [ln for ln in text.splitlines() if ln.startswith("Total params")]
+    res["print_summary_total"] = total[0] if total else None
+    arg_shapes, _, aux_shapes = whole.infer_shape(data=(1, 3, image, image),
+                                                  softmax_label=(1,))
+    counted = sum(int(np.prod(s)) for n, s in zip(
+        whole.list_arguments(), arg_shapes) if n not in (
+            "data", "softmax_label")) + sum(int(np.prod(s))
+                                            for s in aux_shapes)
+    print("bulk 11e: print_summary of the symbolic ResNet-50: %s (its "
+          "arguments and auxiliary states hold %d values)"
+          % (res["print_summary_total"], counted), flush=True)
+    check(res["print_summary_total"] == "Total params: %d" % counted,
+          "11e: %s, counted %d" % (res["print_summary_total"], counted))
+    return res
+
+
+def bulk_get_symbol(mx, card, batch=SYM_ATTN["batch"], seq=SYM_ATTN["seq"],
+                    d_model=SYM_ATTN["d_model"], heads=SYM_ATTN["heads"]):
+    """Phase 11f: one recorded forward of the LM's attention layer (bf16,
+    D = 128) through nd, autograd.get_symbol of its loss, bound through the
+    Executor with the same arrays: forward and backward equal to eager,
+    with B1's forward and backward kernels once each."""
+    import numpy as np
+    import torch
+    from incubator_mxnet_tpu_torch.autograd import _trace
+    from incubator_mxnet_tpu_torch.ops.attention import flash_attention
+    rs = np.random.RandomState(SEED + 93)
+    shapes = {"data": (batch, seq, d_model)}
+    for n in ("q", "k", "v", "o"):
+        shapes[n + "_weight"] = (d_model, d_model)
+    values = {n: mx.nd.array((rs.standard_normal(s) * (
+        1.0 if n == "data" else 1.0 / math.sqrt(s[-1]))).astype(np.float32),
+        ctx=mx.gpu(0), dtype="bfloat16") for n, s in shapes.items()}
+    copies = {}
+    loss, grads = attention_eager(mx, values, d_model, heads, copies)
+    name_of = {id(a): n for n, a in copies.items()}
+    sym, arrays = _trace(loss)
+    ops = [node._op.name for node in sym._topo() if not node.is_variable()]
+    ex = sym.bind(mx.gpu(0), dict(arrays), args_grad={
+        n: mx.nd.zeros(a.shape, ctx=mx.gpu(0), dtype="bfloat16")
+        for n, a in arrays.items()}, grad_req="write")
+    counters = ("launches", "backward_kernel_launches", "backward_torch_calls")
+    for c in counters:
+        setattr(flash_attention, c, 0)
+    out = ex.forward(is_train=True)[0]
+    ex.backward()
+    torch.cuda.synchronize()
+    launches = {c: getattr(flash_attention, c) for c in counters}
+    same = {"loss": same_bits(torch, out._data, loss._data)}
+    for n, a in arrays.items():
+        same[name_of[id(a)]] = same_bits(torch, ex.grad_dict[n]._data,
+                                         grads[name_of[id(a)]]._data)
+    res = dict(ops=ops, arguments=sym.list_arguments(), launches=launches,
+               bit_equal=same)
+    print("bulk 11f: autograd.get_symbol of the LM's attention layer (batch "
+          "%d x %d, d_model %d, %d heads, D = %d, bf16): %d ops %s, "
+          "arguments %s; bound through the Executor: flash counters %s, "
+          "output and gradients equal to eager %s | %s"
+          % (batch, seq, d_model, heads, d_model // heads, len(ops), ops,
+             sym.list_arguments(), json.dumps(launches), json.dumps(same),
+             card), flush=True)
+    check(launches["launches"] == 1 and
+          launches["backward_kernel_launches"] == 1 and
+          launches["backward_torch_calls"] == 0,
+          "11f: flash counters %s (want 1, 1, 0)" % launches)
+    check(all(same.values()), "11f: the symbol differs from eager: %s"
+          % same)
+    return res
+
+
+def bulk_phase(mx, card):
+    """Phase 11 after phase 10: 11a, 11b's CNNs, 11c, 11d, 11e, 11f and the
+    engine's card contracts (11b's LM runs beside 4b, on its net)."""
+    t0 = time.perf_counter()
+    res = dict(contracts=bulk_card_contracts(mx, card),
+               chains=bulk_chains(mx, card),
+               cnn_serving=bulk_cnn_serving(mx, card),
+               training=bulk_training(mx, card),
+               ops=bulk_ops(mx, card),
+               modules=bulk_modules(mx, card),
+               get_symbol=bulk_get_symbol(mx, card))
+    res["seconds"] = time.perf_counter() - t0
+    print("bulk: phase 11 in %.1f s | %s" % (res["seconds"], card),
+          flush=True)
+    return res
+
+
 def main():
     import torch
     # phase 1: device
@@ -6479,6 +7385,7 @@ def main():
         check(bool(torch.isfinite(logits._data).all()), "non-finite logits")
         check(ids.shape == (batch,) and ids.min() >= 0
               and ids.max() < cfg["vocab"], "token ids out of range: %s" % ids)
+    first_logits = all_logits[0]
     del all_logits
     expected = n_requests * cfg["n_layers"]
     check(launches["flash_attention_fwd"] == expected,
@@ -6506,7 +7413,9 @@ def main():
 
     # phase 4f: the serving runtime on the same net (Server, CUDA graphs)
     runtime = serve_runtime(mx, net, card, rs)
-    del net, requests
+    # phase 11b's LM: 4b's request under mx.engine.bulk, on the same net
+    bulk_lm = bulk_lm_serving(mx, card, net, requests[0], first_logits)
+    del net, requests, first_logits
     gc.collect()
 
     # phase 4e: the same LM at head dim 512 (8 heads), route A
@@ -6635,6 +7544,13 @@ def main():
     store = store_phase(mx, card, request_ms)
     store_launches = store["lm"]["launches"]
 
+    # phase 11: engine bulking (recorded segments replayed as CUDA graphs;
+    # B1's forward and backward inside them) and the rest of the
+    # Module/Symbol surface
+    bulk = bulk_phase(mx, card)
+    bulk["lm_serving"] = bulk_lm
+    bulk_rows = bulk["training"]["lm"]["trace"]["rows"]
+
     def entry(name, source, design, launches_, err, t,
               replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -6657,6 +7573,7 @@ def main():
     print("zoo: summary " + json.dumps(zoo, default=str), flush=True)
     print("sym: summary " + json.dumps(symbolic, default=str), flush=True)
     print("kv: summary " + json.dumps(store, default=str), flush=True)
+    print("bulk: summary " + json.dumps(bulk, default=str), flush=True)
     print(json.dumps({"kernels": [
         entry("flash_attention_fwd", BF16_SOURCE, FLASH_DESIGN,
               launches["flash_attention_fwd"] + sym_launches["launches"] +
@@ -6670,6 +7587,9 @@ def main():
               serving_runtime_launches=runtime["launches"],
               serving_runtime_replay8_trace_launches=runtime["replay8"][
                   "flash_fwd_sm90_kernel"],
+              bulk_replay_trace_launches=dict(
+                  lm_request=bulk_lm["trace"]["flash_fwd_sm90_kernel"],
+                  lm_train_step=bulk_rows["flash_fwd_sm90"]),
               training_steps=TRAIN_STEPS,
               small_training_launches=small_train_launches),
         entry("flash_attention_fwd_f16", BF16_SOURCE, F16_DESIGN,
@@ -6724,6 +7644,10 @@ def main():
               symbolic_executor_launches=sym_launches[
                   "backward_kernel_launches"],
               store_trainer_launches=store_launches[
+                  "backward_kernel_launches"],
+              bulk_replay_trace_launches=dict(
+                  lm_train_step=bulk_rows["flash_bwd"]),
+              get_symbol_executor_launches=bulk["get_symbol"]["launches"][
                   "backward_kernel_launches"], torch_ops_ms=backward[
                   "torch_ops_ms"], f16_ms=backward["f16_ms"],
               kernel_us=backward["kernel_us"],

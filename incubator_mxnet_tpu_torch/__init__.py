@@ -22,6 +22,7 @@ from .context import (Context, cpu, gpu, tpu, current_context,  # noqa: F401
                       num_devices)
 
 from . import ops  # noqa: F401
+from . import engine  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401  canonical alias, as in mxnet
 from .ndarray import NDArray  # noqa: F401
@@ -58,6 +59,9 @@ from .symbol import Symbol  # noqa: F401
 from . import model  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
+from . import executor_manager  # noqa: F401
+from . import visualization  # noqa: F401
+from . import visualization as viz  # noqa: F401  alias, as in mxnet
 from . import profiler  # noqa: F401
 from . import test_utils  # noqa: F401
 

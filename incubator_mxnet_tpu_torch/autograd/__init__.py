@@ -15,7 +15,11 @@ builds no graph.  What stays MXNet's:
   one ``torch.autograd.Function``;
 - ``grad(create_graph=True)`` returns gradients that are themselves on the
   tape, so a second (third, ...) derivative follows, as the reference's
-  higher-order backward.
+  higher-order backward;
+- :func:`backward` and :func:`grad` first flush the open ``mx.engine.bulk``
+  segment (cause ``autograd``), whose recorded ops become one tape node;
+- :func:`get_symbol` turns a recorded history into a Symbol, each node with
+  its parameters (ref: MXAutogradGetSymbol).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from ..base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad", "head_seed", "Function"]
+           "backward", "grad", "head_seed", "Function", "get_symbol"]
 
 _state = threading.local()
 # every array with a grad buffer, by id; backward delivers into those its
@@ -127,7 +131,18 @@ def mark_variables(variables, gradients, grad_reqs="write"):
             _variables[id(v)] = v
 
 
+def _flush_heads(heads):
+    """Land the open bulk segment, and any other segment a head waits on,
+    with the flush cause ``autograd``."""
+    from .. import engine
+    engine.flush(cause="autograd")
+    for h in heads:
+        if type(h._slot) is engine._Pending:
+            engine.resolve_nd(h, "autograd")
+
+
 def _head_tensors(heads, head_grads):
+    _flush_heads(heads)
     outs, seeds = [], []
     for i, h in enumerate(heads):
         if not h._data.requires_grad:
@@ -195,6 +210,43 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                                     allow_unused=True)
     return [NDArray(torch.zeros_like(v._data) if g is None else g,
                     ctx=v.context) for g, v in zip(grads, variables)]
+
+
+def _trace(x):
+    """(Symbol, {variable name: array}) of ``x``'s recorded history: each
+    recorded call becomes a node with its op and parameters, every array
+    no recorded call made a variable ``data<i>`` (numbered as the JAX
+    build's ``trace_to_symbol`` numbers them: one number per array met)."""
+    from ..symbol.symbol import _make_node, var
+    node_of, nodes, arrays = {}, {}, {}
+
+    def build(ref):
+        # ref: an output's ``_rec`` (call, output index), or an array
+        if id(ref) in node_of:
+            return node_of[id(ref)]
+        if not isinstance(ref, tuple):
+            name = "data%d" % len(node_of)
+            node_of[id(ref)] = var(name)
+            arrays[name] = ref
+            return node_of[id(ref)]
+        call, idx = ref
+        node = nodes.get(id(call))
+        if node is None:
+            op, params, inputs = call
+            node = nodes[id(call)] = _make_node(
+                op, [build(a) for a in inputs], dict(params))
+        out = node if node.num_outputs == 1 else node[idx]
+        node_of[id(ref)] = out
+        return out
+
+    return build(x._rec or x), arrays
+
+
+def get_symbol(x):
+    """The Symbol of ``x``'s recorded history (ref: autograd.py get_symbol,
+    MXAutogradGetSymbol): bound with the arrays the history started from,
+    it computes ``x`` again."""
+    return _trace(x)[0]
 
 
 class _FunctionBridge(torch.autograd.Function):

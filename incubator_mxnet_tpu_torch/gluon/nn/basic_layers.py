@@ -13,7 +13,6 @@ import numpy as np
 from ..block import Block, HybridBlock
 from ... import autograd, initializer
 from ...base import dtype_name
-from ...ops.nn import update_moving_stats
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
            "Dropout", "BatchNorm", "InstanceNorm", "LayerNorm", "Embedding",
@@ -206,11 +205,13 @@ class BatchNorm(HybridBlock):
         y, batch_mean, batch_var = F.BatchNorm(
             x, gamma, beta, running_mean, running_var, output_mean_var=True,
             **self._kwargs)
-        if autograd.is_training():
-            update_moving_stats(
-                self._kwargs,
-                [running_mean._data, running_var._data],
-                [batch_mean._data, batch_var._data])
+        if autograd.is_training() and \
+                not self._kwargs.get("use_global_stats", False):
+            # a store through the registry: a bulk segment records it
+            F._moving_stats_update(
+                running_mean, running_var, batch_mean, batch_var,
+                momentum=self._kwargs.get("momentum", 0.9),
+                out=[running_mean, running_var])
         return y
 
     def __repr__(self):

@@ -5,16 +5,24 @@ MXExecutorSetMonitorCallback, src/executor/graph_executor.cc:121).
 ``install`` sets ``Executor.set_monitor_callback``, so every node output of
 a monitored forward reaches :meth:`Monitor.stat_helper` as
 ``<node>_output<i>``; ``toc`` adds the matching arguments and returns the
-statistics of the window.
+statistics of the window.  A monitored array whose value is deferred in an
+``mx.engine.bulk`` segment flushes it with the cause ``monitor``.
 """
 from __future__ import annotations
 
 import logging
 import re
 
+from . import engine
 from .ndarray import NDArray
 
 __all__ = ["Monitor"]
+
+
+def _landed(array):
+    """Resolve a deferred array under the flush cause ``monitor``."""
+    if isinstance(array, NDArray) and type(array._slot) is engine._Pending:
+        engine.resolve_nd(array, "monitor")
 
 
 class Monitor(object):
@@ -40,6 +48,7 @@ class Monitor(object):
         """Callback attached to executors (ref: monitor.py stat_helper)."""
         if not self.activated or not self.re_prog.match(name):
             return
+        _landed(array)
         self.queue.append((self.step, name, self.stat_func(array)))
 
     def install(self, exe):
@@ -72,6 +81,7 @@ class Monitor(object):
         for exe in self.exes:
             for name, array in zip(exe._arg_names, exe.arg_arrays):
                 if self.re_prog.match(name):
+                    _landed(array)
                     self.queue.append((self.step, name,
                                        self.stat_func(array)))
         entries = self.queue

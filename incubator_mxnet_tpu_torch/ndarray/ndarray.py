@@ -8,9 +8,11 @@ tensor is mutable, so a view is a torch view: basic indexing and
 results never alias their inputs (``invoke`` copies a view an op returns).
 
 Work is asynchronous on a CUDA context as on the TPU: ``asnumpy`` is the
-sync point, and ``waitall`` maps to ``torch.cuda.synchronize``.  The JAX
-build's engine bulking and its tsan, lens and compile-safety hooks are not
-part of this slice.
+sync point, and ``waitall`` maps to ``torch.cuda.synchronize``.  Inside
+``mx.engine.bulk`` an array may hold a deferred value (``engine._Pending``)
+in its slot: ``shape``, ``ndim``, ``size``, ``dtype`` and ``context`` read
+its metadata, and reading ``_data`` resolves it (see ``engine.py``).  The
+JAX build's tsan, lens and compile-safety hooks are not part of the port.
 
 Autograd is torch's (see ``autograd``): ``invoke`` runs an op with torch's
 grad mode on only under ``autograd.record()``, and every in-place write
@@ -20,12 +22,16 @@ the update ops' ``out=W``).
 """
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
-from .. import autograd, config, profiler as _profiler, random_state
+from .. import autograd, config, engine as _engine
+from .. import profiler as _profiler, random_state
 from ..base import MXNetError, numpy_dtype, torch_dtype
 from ..context import Context, current_context
+from ..engine import _Pending
 from ..ops.registry import Operator, get_op
 from ..ops.tensor import checked_reshape
 
@@ -38,6 +44,14 @@ _SCALARS = (int, float, bool, np.generic)
 _NAIVE_ENGINE = config.naive_engine()
 
 
+def _basic(key):
+    """Whether ``key`` is basic indexing (ints, slices, None, ...)."""
+    if isinstance(key, tuple):
+        return all(_basic(k) for k in key)
+    return key is None or key is Ellipsis or isinstance(key, (int, slice)) \
+        and not isinstance(key, bool)
+
+
 def _write_mode(dst: torch.Tensor):
     """Grad mode for an in-place write into ``dst``: recorded under
     ``record()``, except into a tensor autograd tracks as a leaf (or a view
@@ -48,6 +62,7 @@ def _write_mode(dst: torch.Tensor):
 
 
 def _write(dst: torch.Tensor, src):
+    _engine.before_write(dst)
     with _write_mode(dst):
         if isinstance(src, torch.Tensor):
             dst.copy_(src)
@@ -62,29 +77,53 @@ class NDArray:
 
     _grad = None
     _grad_req = "null"
+    # a view of a deferred array (engine.defer_view): its base array, flat
+    # offset and shape, the base's version it extracted, recorded or not
+    _vbase = None
+    _voff = 0
+    _vshape = None
+    _vver = 0
+    _vrec = False
+    _bver = 0       # bumped when a deferred store rebinds this array
+    _rec = None     # (call, output index) of a recorded call (_keep_call)
 
-    def __init__(self, data: torch.Tensor, ctx=None):
-        self._data = data
+    def __init__(self, data, ctx=None):
+        self._slot = data
         self._ctx = ctx if ctx is not None else Context.from_torch_device(
             data.device)
+
+    @property
+    def _data(self):
+        """The tensor; a deferred value is resolved (its segment flushed)
+        first, and a tensor a pending store will rewrite waits for it."""
+        d = self._slot
+        if type(d) is _Pending:
+            return _engine.resolve_nd(self)
+        if _engine._HOMED:
+            _engine.flush_homed(d)
+        return d
+
+    @_data.setter
+    def _data(self, value):
+        self._slot = value
 
     # -- basic properties --------------------------------------------------
     @property
     def shape(self):
-        return tuple(self._data.shape)
+        return tuple(self._slot.shape)
 
     @property
     def ndim(self):
-        return self._data.ndim
+        return self._slot.ndim
 
     @property
     def size(self):
-        return self._data.numel()
+        return self._slot.numel()
 
     @property
     def dtype(self):
         """numpy dtype of the array; ``torch.bfloat16`` for bfloat16."""
-        return numpy_dtype(self._data.dtype)
+        return numpy_dtype(self._slot.dtype)
 
     @property
     def context(self):
@@ -145,6 +184,9 @@ class NDArray:
     def copyto(self, other):
         """ref: ndarray.py copyto / CopyFromTo (src/ndarray/ndarray.cc)."""
         if isinstance(other, NDArray):
+            if _engine.in_bulk() and other.shape == self.shape and \
+                    _engine.defer_setitem(other, slice(None), self):
+                return other
             _write(other._data, self._data)
             return other
         if isinstance(other, Context):
@@ -178,8 +220,9 @@ class NDArray:
 
     # -- sync --------------------------------------------------------------
     def wait_to_read(self):
-        if self._data.is_cuda:
-            torch.cuda.synchronize(self._data.device)
+        d = self._data
+        if d.is_cuda:
+            torch.cuda.synchronize(d.device)
 
     def wait_to_write(self):
         self.wait_to_read()
@@ -193,7 +236,7 @@ class NDArray:
         shape = kwargs.get("shape", shape)
         new_shape = checked_reshape(self.shape, shape,
                                     kwargs.get("reverse", False))
-        return NDArray(self._tracked().reshape(new_shape), ctx=self._ctx)
+        return self._view(lambda t: t.reshape(new_shape))
 
     def reshape_like(self, other):
         return self.reshape(other.shape)
@@ -215,7 +258,7 @@ class NDArray:
         if not 0 <= b <= e <= n:
             raise IndexError("slice [%s:%s) out of range for axis size %d"
                              % (start, stop, n))
-        return NDArray(self._tracked()[b:e], ctx=self._ctx)
+        return self._view(lambda t: t[b:e])
 
     def at(self, idx):
         """A view of row ``idx`` of axis 0, the axis dropped (a 1-d array
@@ -225,8 +268,19 @@ class NDArray:
         if not 0 <= j < n:
             raise IndexError("index %d is out of bounds for axis 0 with size "
                              "%d" % (idx, n))
-        t = self._tracked()
-        return NDArray(t[j] if self.ndim > 1 else t[j:j + 1], ctx=self._ctx)
+        if self.ndim > 1:
+            return self._view(lambda t: t[j])
+        return self._view(lambda t: t[j:j + 1])
+
+    def _view(self, fn):
+        """The array ``fn`` (a torch view) makes of this one: over a
+        deferred value, a deferred view when the scope can record it."""
+        if type(self._slot) is _Pending:
+            v = _engine.defer_view(self, fn)
+            if v is not None:
+                return v
+            _engine.resolve_nd(self, "view")
+        return NDArray(fn(self._tracked()), ctx=self._ctx)
 
     def _tracked(self):
         """The tensor to view: with its autograd history under ``record()``,
@@ -247,9 +301,14 @@ class NDArray:
     def __getitem__(self, key):
         """Basic indexing (ints, slices, ``None``, ``...``) returns a view
         that writes through to this array; indexing by arrays copies."""
+        if type(self._slot) is _Pending and _basic(key):
+            return self._view(lambda t: t[key])
         return NDArray(self._tracked()[self._key(key)], ctx=self._ctx)
 
     def __setitem__(self, key, value):
+        if _engine.in_bulk() and _basic(key) and \
+                _engine.defer_setitem(self, key, value):
+            return
         if isinstance(value, NDArray):
             value = value._data
         elif not isinstance(value, _SCALARS):
@@ -258,12 +317,14 @@ class NDArray:
             _write(self._data, value.expand(self._data.shape)
                    if isinstance(value, torch.Tensor) else value)
             return
-        with _write_mode(self._data):
-            self._data[self._key(key)] = value
+        dst = self._data
+        _engine.before_write(dst)
+        with _write_mode(dst):
+            dst[self._key(key)] = value
 
     # -- python protocol ---------------------------------------------------
     def __len__(self):
-        return self._data.shape[0]
+        return self.shape[0]
 
     def __repr__(self):
         shape_info = "x".join(str(s) for s in self.shape)
@@ -372,7 +433,8 @@ class NDArray:
         res = self._binop(other, op_name, scalar_op)
         if res is NotImplemented:
             return NotImplemented
-        _write(self._data, res._data)
+        if not (_engine.in_bulk() and _engine.defer_store(self, res)):
+            _write(self._data, res._data)
         return self
 
     def __iadd__(self, o):
@@ -461,14 +523,107 @@ def invoke(op: Operator, inputs, params, out=None, hidden=False):
     every output the op computes, the hidden ones too (BatchNorm's batch
     statistics, which the symbolic executor blends into the moving ones).
 
+    Inside ``mx.engine.bulk`` the call is recorded into the open segment
+    when it can be (``_defer``); an op that is not deferrable runs here
+    after its inputs resolve.  Under ``record()`` every output keeps
+    ``_rec``, the call that made it (``autograd.get_symbol`` reads it).
+
     While the profiler runs, the call is the op's span
     (``profiler.op_span``); with ``MXTPU_ENGINE_TYPE=NaiveEngine`` it
     waits for the card before it returns."""
     with _profiler.op_span(op.name) or _profiler.NO_SPAN:
-        res = _dispatch(op, inputs, params, out, hidden)
+        res = None
+        if not hidden and _engine._active(_engine._current()):
+            res = _defer(op, inputs, params, out)
+        if res is None:
+            res = _dispatch(op, inputs, params, out, hidden)
     if _NAIVE_ENGINE and torch.cuda.is_initialized():
         torch.cuda.synchronize()
     return res
+
+
+def _keep_call(outs, op, params, inputs):
+    """Give each output ``_rec = (call, output index)``, ``call`` being
+    (op, params, per input its own ``_rec`` or, for an array no recorded
+    call made, the array).  The chain holds the calls, not the arrays
+    between them, so it keeps no intermediate value alive."""
+    call = (op, params, [a._rec or a for a in inputs])
+    for j, o in enumerate(outs):
+        o._rec = (call, j)
+
+
+def _defer(op, inputs, params, out):
+    """Record the call into the open bulk segment: its results (or its
+    ``out=`` targets, rebound to the pending outputs), or None to run it
+    eagerly."""
+    if not op.deferrable:
+        return None
+    recording = autograd.is_recording() and op.differentiable
+    if recording and out is not None:
+        return None
+    params = {k: v for k, v in params.items() if v is not None or k == "axis"}
+    ctx = params.pop("ctx", None)
+    params.pop("name", None)
+    write_plan = None
+    touts = None
+    if out is not None or op.mutate_inputs:
+        touts = [] if out is None else (
+            [out] if isinstance(out, NDArray) else list(out))
+        if op.mutate_inputs:
+            if not touts:
+                return None
+            write_plan = [(0, touts[0])] + [
+                (j + 1, inputs[idx])
+                for j, idx in enumerate(op.mutate_inputs[1:])]
+        elif op.fvisible is None and len(touts) <= op.num_visible_outputs:
+            write_plan = list(enumerate(touts))
+        else:
+            return None
+        st = _engine._current()
+        if not all(_engine.can_rebind(st, t, recording)
+                   for _, t in write_plan):
+            return None
+    vals = [_engine.read_deferred(a) for a in inputs]
+    is_train = autograd.is_training()
+    kw = dict(params)
+    device = None
+    if op.num_inputs == 0:
+        ctx = Context(ctx) if ctx is not None else current_context()
+        device = kw["device"] = ctx.torch_device()
+    if op.takes_is_train:
+        kw["is_train"] = is_train
+    gen = None
+    if op.needs_rng:
+        if op.draws(params, is_train):
+            dev = device if device is not None else vals[0].device
+            gen = random_state.generator(dev)
+        else:
+            kw["generator"] = None
+    out_reqs = None if write_plan is None else [
+        (slot, t.shape, t._slot.dtype) for slot, t in write_plan]
+    pend = _engine.maybe_defer(op, kw, vals, is_train, gen=gen, rec=recording,
+                               nd_inputs=inputs, out_reqs=out_reqs,
+                               params=params, device=device)
+    if pend is None:
+        return None
+    if write_plan is not None:
+        st = _engine._current()
+        for slot, t in write_plan:
+            _engine._rebind(st, t, pend[slot], recording)
+        if out is None:
+            outs = [NDArray(pend[0])]
+            pend[0].owners.append(weakref.ref(outs[0]))
+            return outs[0]
+        return touts[0] if len(touts) == 1 else touts
+    outs = []
+    for p in pend:
+        o = NDArray(p)
+        p.owners.append(weakref.ref(o))
+        outs.append(o)
+    outs = outs[:op.visible_outputs(params, len(outs))]
+    if recording:
+        _keep_call(outs, op, params, inputs)
+    return outs[0] if len(outs) == 1 else outs
 
 
 def _dispatch(op, inputs, params, out, hidden):
@@ -504,6 +659,8 @@ def _dispatch(op, inputs, params, out, hidden):
             _write(t._data, r)
         return targets[0] if len(targets) == 1 else targets
     outs = [NDArray(r) for r in res]
+    if recording:
+        _keep_call(outs, op, params, inputs)
     return outs[0] if len(outs) == 1 else outs
 
 
@@ -579,8 +736,10 @@ def moveaxis(tensor, source, destination):
 
 
 def waitall():
-    """Block until all outstanding work has executed
-    (ref: mx.nd.waitall → Engine::WaitForAll)."""
+    """Block until all outstanding work has executed, this thread's open
+    bulk segment and the graphs it replays included (ref: mx.nd.waitall →
+    Engine::WaitForAll, which flushes the bulk segment first)."""
+    _engine.flush(cause="read")
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)

@@ -15,8 +15,13 @@ reached by ``nd.Custom(*data, op_type=...)``, whose fcompute is one
   that needs no gradient (a label, an array without ``attach_grad``) gets
   ``req="null"`` and no gradient.
 
-The user's code runs with recording paused.  ``sym.Custom`` comes with the
-symbolic slice.
+The user's code runs with recording paused.  ``sym.Custom`` makes a
+symbol node of a registered op (:func:`custom_sym`); the Executor runs it
+through the same registry op, so its forward and backward are the custom
+op's methods, and its outputs' shapes and dtypes come from the prop's
+``infer_shape``/``infer_type`` (the op reads its inputs on the host, so a
+run on ``meta`` tensors cannot give them).  A custom op is never deferred
+by ``mx.engine.bulk``.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from .base import MXNetError, numpy_dtype, torch_dtype
 from .ops.registry import Operator, _REGISTRY
 
 __all__ = ["CustomOp", "CustomOpProp", "register",
-           "get_all_registered_operators", "custom_nd"]
+           "get_all_registered_operators", "custom_nd", "custom_sym"]
 
 _CUSTOM_PROPS = {}
 
@@ -139,16 +144,32 @@ def _make_custom_operator(op_type, prop_cls):
     """A registry op for one registered CustomOpProp.  The prop is made per
     call from the call's params, as strings (MXNet's convention)."""
 
+    def make_prop(params):
+        return prop_cls(**{k: str(v) for k, v in params.items()
+                           if k not in ("is_train", "device")})
+
+    def finfer(input_shapes_dtypes, params, is_train=False):
+        prop = make_prop(params)
+        _, out_shapes, _ = prop.infer_shape(
+            [list(s) for s, _ in input_shapes_dtypes])
+        _, out_types, _ = prop.infer_type(
+            [numpy_dtype(d) for _, d in input_shapes_dtypes])
+        return [(tuple(s), numpy_dtype(t))
+                for s, t in zip(out_shapes, out_types)]
+
     def fcompute(*inputs, **params):
-        kwargs = {k: str(v) for k, v in params.items()}
-        prop = prop_cls(**kwargs)
+        prop = make_prop(params)
         if len(inputs) != len(prop.list_arguments()):
             raise MXNetError("Custom op %r takes %d inputs (%s), got %d" % (
                 op_type, len(prop.list_arguments()), prop.list_arguments(),
                 len(inputs)))
         return _CustomFunction.apply(prop, autograd.is_training(), *inputs)
 
+    # the user's code may read its inputs on the host: never deferred
     return Operator("_custom_" + op_type, fcompute, num_inputs=None,
+                    deferrable=False, finfer=finfer,
+                    fargnames=lambda p: make_prop(p).list_arguments(),
+                    fnum_outputs=lambda p: len(make_prop(p).list_outputs()),
                     doc="Custom op %r (prop %s; ref: operator.py register)"
                         % (op_type, prop_cls.__name__))
 
@@ -184,3 +205,16 @@ def custom_nd(*args, op_type=None, **kwargs):
     out = kwargs.pop("out", None)
     kwargs.pop("name", None)
     return invoke(op, list(args), kwargs, out=out)
+
+
+def custom_sym(*args, op_type=None, name=None, **kwargs):
+    """``sym.Custom(*data, op_type='name', **params)``: a node of the
+    registered custom op (ref: the JAX build's operator.py:227)."""
+    from .symbol.symbol import _make_node
+    if op_type is None:
+        raise TypeError("Custom requires op_type=")
+    op = _REGISTRY.get("_custom_" + op_type)
+    if op is None:
+        raise MXNetError("Custom op type %r is not registered (have: %s)"
+                         % (op_type, get_all_registered_operators()))
+    return _make_node(op, list(args), kwargs, name=name)

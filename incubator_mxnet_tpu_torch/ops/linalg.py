@@ -126,7 +126,8 @@ def _linalg_gelqf(A):
     return _t(q), _t(r)
 
 
-@register("_linalg_syevd", num_inputs=1, num_outputs=2, input_names=("A",))
+@register("_linalg_syevd", num_inputs=1, num_outputs=2, input_names=("A",),
+          deferrable=False)
 def _linalg_syevd(A):
     """A = Uᵀ·diag(L)·U for a symmetric A: (U with the eigenvectors in its
     rows, the eigenvalues L ascending) (ref: la_op.cc:554).  A vector's

@@ -353,7 +353,23 @@ def update_moving_stats(params, moving, batch):
     m = params.get("momentum", 0.9)
     with torch.no_grad():
         for r, b in zip(moving, batch):
-            r.copy_(m * r + (1 - m) * b)
+            r.copy_(_moving_average(r, b, m))
+
+
+def _moving_average(moving, batch, momentum):
+    return momentum * moving + (1 - momentum) * batch
+
+
+@register("_moving_stats_update", num_inputs=4, num_outputs=2,
+          differentiable=False)
+def _moving_stats_update(moving_mean, moving_var, batch_mean, batch_var,
+                         momentum=0.9):
+    """:func:`update_moving_stats`'s formula as one op for the mean and the
+    variance, which the Gluon BatchNorm stores with ``out=`` the moving
+    statistics (so ``mx.engine.bulk`` records it); not in the JAX build's
+    registry."""
+    return (_moving_average(moving_mean, batch_mean, momentum),
+            _moving_average(moving_var, batch_var, momentum))
 
 
 def _rsqrt(x):

@@ -18,18 +18,27 @@ random numbers (``needs_rng``), and how many of its outputs a call shows
 its data's (``finfer_params``), its output count where the parameters set
 it (``fnum_outputs``), and its output shapes and dtypes, from a run of the
 fcompute on ``meta`` tensors (:meth:`Operator.infer`, the counterpart of
-``jax.eval_shape``).
+``jax.eval_shape``), memoised per call signature (:func:`infer_cached`).
+An op that cannot live inside a captured CUDA graph (it reads a value on
+the host, its output shape depends on the data, or it synchronizes) is
+registered ``deferrable=False``: ``mx.engine.bulk`` then runs it eagerly,
+after its pending inputs flush (the JAX build's ``no_jit``).
 """
 from __future__ import annotations
 
 import inspect
+import os
+from collections import OrderedDict
 from typing import Callable, Optional
+
+import numpy as np
 
 import torch
 
 from ..base import MXNetError, numpy_dtype, torch_dtype
 
-__all__ = ["Operator", "register", "get_op"]
+__all__ = ["Operator", "register", "get_op", "BoundedCache", "infer_cached",
+           "hashable"]
 
 _REGISTRY: dict[str, "Operator"] = {}
 
@@ -80,6 +89,13 @@ class Operator:
         place, from every output of a training call (BatchNorm's moving
         statistics); the symbolic executor calls it, as MXNet's operator
         does in its forward.
+    finfer : ``(input_shapes_dtypes, params, is_train) -> [(shape,
+        dtype)]``, the outputs where a run on ``meta`` tensors cannot give
+        them (a custom op's ``infer_shape``/``infer_type``).
+    deferrable : False for an op that cannot be recorded into a bulk
+        segment, which replays as one captured CUDA graph on the card: it
+        reads a value on the host, its output shape depends on the data, or
+        it synchronizes with the card.
     """
 
     def __init__(self, name: str, fcompute: Callable, *,
@@ -88,7 +104,8 @@ class Operator:
                  mutate_inputs=(), nograd_inputs=(), differentiable=True,
                  takes_is_train=False, needs_rng=False, fvisible=None,
                  aux_input_names=(), fargnames=None, finfer_params=None,
-                 fnum_outputs=None, fupdate_aux=None, doc: str = ""):
+                 fnum_outputs=None, fupdate_aux=None, finfer=None,
+                 deferrable=True, doc: str = ""):
         self.name = name
         self.fcompute = fcompute
         self.num_inputs = num_inputs
@@ -107,6 +124,8 @@ class Operator:
         self.finfer_params = finfer_params
         self.fnum_outputs = fnum_outputs
         self.fupdate_aux = fupdate_aux
+        self.finfer = finfer
+        self.deferrable = bool(deferrable)
         self.doc = doc
         try:
             sig = inspect.signature(fcompute)
@@ -134,7 +153,10 @@ class Operator:
         ``input_shapes_dtypes`` [(shape, dtype)]: the fcompute run on
         ``meta`` tensors, which compute nothing (a creation op gets
         ``device="meta"``, an op that draws ``generator=None``).  An op that
-        reads values on the host cannot run so and raises ``MXNetError``."""
+        reads values on the host cannot run so and raises ``MXNetError``;
+        ``finfer`` answers for such an op where it is given."""
+        if self.finfer is not None:
+            return self.finfer(input_shapes_dtypes, params, is_train)
         metas = [torch.empty(tuple(s), dtype=torch_dtype(d), device="meta")
                  for s, d in input_shapes_dtypes]
         kw = {k: v for k, v in params.items()
@@ -174,6 +196,103 @@ class Operator:
 
     def __repr__(self):
         return "Operator(%s)" % self.name
+
+
+class BoundedCache(object):
+    """Recency-ordered dict with least-recently-used eviction (the JAX
+    build's ``engine.BoundedCache``).  The bound is the environment
+    variable ``env`` (``GRAFT_REPLAY_CACHE_SIZE``, default 1024; 0 or less
+    is unbounded), read at every insertion.  ``on_evict(value)`` runs for
+    each evicted value (the engine frees a captured graph there)."""
+
+    DEFAULT_SIZE = 1024
+
+    def __init__(self, env="GRAFT_REPLAY_CACHE_SIZE", on_evict=None):
+        self._env = env
+        self._d = OrderedDict()
+        self._on_evict = on_evict
+
+    def _bound(self):
+        try:
+            return int(os.environ.get(self._env, str(self.DEFAULT_SIZE)))
+        except ValueError:
+            return self.DEFAULT_SIZE
+
+    def get(self, key, default=None):
+        try:
+            self._d.move_to_end(key)
+        except KeyError:
+            return default
+        return self._d[key]
+
+    def __getitem__(self, key):
+        self._d.move_to_end(key)
+        return self._d[key]
+
+    def __setitem__(self, key, value):
+        self._d[key] = value
+        self._d.move_to_end(key)
+        bound = self._bound()
+        if bound > 0:
+            while len(self._d) > bound:
+                _, old = self._d.popitem(last=False)
+                if self._on_evict is not None:
+                    self._on_evict(old)
+
+    def __contains__(self, key):
+        return key in self._d
+
+    def __iter__(self):
+        return iter(self._d)
+
+    def __len__(self):
+        return len(self._d)
+
+    def clear(self):
+        self._d.clear()
+
+
+def hashable(value):
+    """A hashable form of an op's parameter value that tells apart what
+    computes differently (``2`` and ``2.0``, ``True`` and ``1``); raises
+    ``TypeError`` for a value that has none (a tensor)."""
+    if isinstance(value, dict):
+        return ("dict",) + tuple(sorted((k, hashable(v))
+                                        for k, v in value.items()))
+    if isinstance(value, (list, tuple)):
+        return (type(value).__name__,) + tuple(hashable(v) for v in value)
+    if isinstance(value, np.ndarray):
+        return ("ndarray", value.dtype.str, value.shape, value.tobytes())
+    if isinstance(value, torch.Tensor):
+        raise TypeError("a tensor parameter has no hashable form")
+    if isinstance(value, (bool, int, float, complex, np.generic)):
+        return (type(value).__name__, value)
+    hash(value)
+    return value
+
+
+# (op name, input (shape, dtype)s, hashable params, is_train) -> the
+# inferred [(shape, dtype)]: the first meta inference in a process costs
+# seconds (torch loads its meta kernels) and every one costs about a
+# dispatch, so a recorded op would otherwise be slower than a run one
+_infer_cache = BoundedCache()
+
+
+def infer_cached(op, input_shapes_dtypes, params, is_train=False):
+    """:meth:`Operator.infer`, memoised per call signature (a call whose
+    parameters have no hashable form is inferred every time)."""
+    try:
+        key = (op.name, tuple((tuple(s), str(d))
+                              for s, d in input_shapes_dtypes),
+               hashable({k: v for k, v in params.items()
+                         if k not in ("ctx", "name")}), bool(is_train))
+    except TypeError:
+        return op.infer(input_shapes_dtypes, params, is_train)
+    out = _infer_cache.get(key)
+    if out is None:
+        out = op.infer(input_shapes_dtypes, params, is_train)
+        _infer_cache[key] = out
+    return out
 
 
 def register(name, **kwargs):

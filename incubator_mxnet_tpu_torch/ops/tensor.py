@@ -1,8 +1,7 @@
 """Shape-manipulation, indexing, ordering and sequence operators.
 
 Counterpart of ``incubator_mxnet_tpu/ops/tensor.py``: every op it
-registers except the engine's ``_bulk_view_*`` (:108, :120; ROADMAP item
-5) and the sparse storage twins ``_cast_storage_dense``/
+registers except the sparse storage twins ``_cast_storage_dense``/
 ``_sparse_retain_dense`` (:454, :465; item 10); the creation ops are in
 ``init_ops.py``.  Many ops return
 torch views; ``ndarray.invoke`` copies them so results never alias
@@ -141,6 +140,28 @@ def _slice(data, begin=(), end=(), step=()):
         else:
             out = out[(slice(None),) * axis + (sl,)]
     return out
+
+
+@register("_bulk_view_extract", num_inputs=1)
+def _bulk_view_extract(data, offset=0, shape=()):
+    """A contiguous row-major view of ``data`` as a value: ``shape`` from
+    flat position ``offset`` (the program node the engine records for a
+    view of a deferred array; ref: the JAX build's tensor.py:108)."""
+    size = 1
+    for s in shape:
+        size *= s
+    return data.reshape(-1)[offset:offset + size].reshape(tuple(shape))
+
+
+@register("_bulk_view_write", num_inputs=2)
+def _bulk_view_write(base, value, offset=0):
+    """``base`` with the span of ``value`` from flat position ``offset``
+    replaced by ``value`` cast to the base's dtype (write-through to a
+    view of a deferred array; ref: the JAX build's tensor.py:120)."""
+    flat = base.reshape(-1).clone()
+    v = value.reshape(-1)
+    flat[offset:offset + v.numel()] = v.to(base.dtype)
+    return flat.reshape(base.shape)
 
 
 @register("slice_axis", num_inputs=1)

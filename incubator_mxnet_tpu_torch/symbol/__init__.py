@@ -1,9 +1,9 @@
 """``sym``: Symbol, the Executor and one generated function per operator.
 
 Counterpart of ``incubator_mxnet_tpu/symbol/__init__.py`` (ref:
-python/mxnet/symbol/__init__.py).  ``sym.Custom`` and the tracing of an
-autograd history into a Symbol (``autograd.get_symbol``) are not ported
-yet (ROADMAP item 5b).
+python/mxnet/symbol/__init__.py), with ``sym.Custom`` (a node of a custom
+op registered by ``mx.operator.register``).  The tracing of an autograd
+history into a Symbol is ``autograd.get_symbol``.
 """
 from __future__ import annotations
 
@@ -30,6 +30,13 @@ def zeros(shape, dtype="float32", **kwargs):
 def ones(shape, dtype="float32", **kwargs):
     """A node of ones (ref: symbol.py ones)."""
     return _creation("ones", shape, dtype)
+
+
+def Custom(*args, **kwargs):
+    """A node of a Python custom op (ref: src/operator/custom/custom.cc;
+    register it with ``mx.operator.register``)."""
+    from ..operator import custom_sym
+    return custom_sym(*args, **kwargs)
 
 
 _register.populate(sys.modules[__name__].__dict__)

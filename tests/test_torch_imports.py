@@ -78,6 +78,11 @@ def test_port_imports_with_jax_blocked():
             "from incubator_mxnet_tpu_torch.gluon.contrib import nn as cnn\n"
             "from incubator_mxnet_tpu_torch.gluon.model_zoo import (\n"
             "    model_store)\n"
+            "from incubator_mxnet_tpu_torch import (engine, visualization,\n"
+            "    executor_manager)\n"
+            "from incubator_mxnet_tpu_torch.analysis import engine_check\n"
+            "from incubator_mxnet_tpu_torch.module import (\n"
+            "    sequential_module, python_module)\n"
             "assert mx.kv is kvstore and mx.opt is optimizer\n"
             "assert mx.num_devices('cpu') == 1\n"
             "assert mx.gluon.Constant and cnn.HybridConcurrent\n"

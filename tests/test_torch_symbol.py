@@ -406,4 +406,5 @@ def test_mx_namespaces_exist():
         assert hasattr(tmx, name), name
     assert tmx.mod.Module and tmx.io.NDArrayIter and tmx.gluon.SymbolBlock
     assert tmx.sym.contrib.FlashAttention and tmx.sym.linalg.gemm2
-    assert not hasattr(tmx.sym, "Custom")
+    assert tmx.sym.Custom and tmx.mod.SequentialModule
+    assert tmx.mod.PythonModule and tmx.mod.PythonLossModule
