@@ -9,7 +9,9 @@ Inception-v3 and train AlexNet, then train the symbolic ResNet-50 through
 Module.fit, serve it through Server(module=), and run the LM's attention
 layer as a Symbol through the Executor, then train BASELINE configs 1 and
 2 and the LM through the single-card KVStore, and profile the LM and
-ResNet-50 with mx.profiler, then run those paths through mx.engine.bulk.
+ResNet-50 with mx.profiler, then run those paths through mx.engine.bulk,
+then feed ResNet-50 from train_imagenet.py's RecordIO path and the LM from
+a gluon.data DataLoader.
 
 Run from the root of a checkout, with one CUDA card and the CUDA toolkit:
 
@@ -287,9 +289,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              MLP of 10b, print_summary's total; 11f autograd.get_symbol of
              the LM's attention layer through the Executor, equal to eager,
              B1's forward and backward kernels once each;
-12. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
-   launches of B1 in 9c, 10d and 11; phases 6-8 launch none), then the
-   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+12. data  — the data plane (RecordIO, mx.image, ImageRecordIter,
+             gluon.data), its host work on the card's CPU: 12a the native
+             RecordIO library built from src/io/recordio.cc, its files
+             byte-identical to the Python framing's and read across, the
+             prefetch reader, one pipeline with ctx=gpu(0) and ctx=cpu(0)
+             bit-equal, imdecode's MXNetError naming OpenCV where cv2 is
+             absent; 12b train_imagenet.py's record path (:80-101) over
+             2,560 raw 224² records: one epoch drained with no model, the
+             first batch's loss through ResNet-50 bit-equal to NDArrayIter's,
+             then fit_gluon (10c's wiring) for 10 steps fed by it: step ms,
+             img/s, the share of a step in next(), the copy's ms, beside
+             10c's synthetic step; 12c the augmenting pipeline over 1,024
+             raw 256² records (crop, flip, jitter, lighting, normalize) at
+             preprocess_threads 1, 4 and 8 against 6c's step; 12d gluon.data
+             (RandomResizedCrop, flip, ToTensor, Normalize) through a
+             DataLoader of 4 workers, img/s; ToTensor, Normalize and Resize
+             on the card against the CPU, the pipeline with num_workers=0
+             over the card's and the CPU's copy of the images, a
+             DataLoader(num_workers=2) feeding steps inside mx.engine.bulk;
+             12e the full-width LM trained 3 steps from a
+             DataLoader(num_workers=2), its losses equal to the same steps
+             fed directly, B1's forward and backward kernels once a layer a
+             step; what is left out without OpenCV is printed;
+13. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
+   launches of B1 in 9c, 10d, 11 and 12e; phases 6-8 launch none), the
+   whole run's seconds, then the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -299,6 +325,7 @@ import json
 import logging
 import math
 import os
+import random
 import re
 import shutil
 import subprocess
@@ -7124,8 +7151,752 @@ def bulk_phase(mx, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the data plane (RecordIO, mx.image, ImageRecordIter, gluon.data)
+# feeding the card: train_imagenet.py's record path into ResNet-50 and a
+# DataLoader into the LM
+# ---------------------------------------------------------------------------
+# train_imagenet.py's record path (:80-101): 10 batches of 256 raw 224²
+# records; the augmenting pipeline over 256² records cropped to 224²
+DATA_RECORDS = 2560
+DATA_AUG_RECORDS, DATA_AUG_RAW, DATA_AUG_BATCH = 1024, (3, 256, 256), 128
+DATA_THREADS = (1, 4, 8)
+DATA_READERS = 4            # preprocess_threads and prefetch_buffer of 12b
+# 12d: gluon.data at ImageNet's widths
+DATA_GLUON_IMAGES, DATA_GLUON_SIZE, DATA_GLUON_CROP = 512, 256, 224
+DATA_GLUON_BATCH, DATA_GLUON_WORKERS = 64, 4
+IMAGENET_MEAN_STD = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+# the bound of Resize on the card against the CPU, on images in [0, 255]:
+# 2^-15 of the range.  Both compute the filter in f32 and neither is exact:
+# the CPU's f32 result lies up to 1.8e-5 of the range (2^-15.8) from the
+# same resize in f64 (256² -> 224², 4 seeds); the CPU tests hold the CPU
+# within 6-28 ulps of jax.image.resize, which computes in f32 alike.  A
+# uint8 output truncates to the other side where a value lies within that
+# gap of an integer, so the two are at most one uint8 step apart; how many
+# values do depends on how many exact results fall on integers (the scale
+# ratio), so that share is reported, not bounded
+DATA_RESIZE_TOL = 2.0 ** -15 * 255
+LM_LOADER_STEPS = 3
+# what phase 12 leaves out where OpenCV is not installed, and where it is
+DATA_NO_CV2 = ("JPEG/PNG decode (imdecode, imread, ImageRecordIter and "
+               "ImageRecordDataset over encoded records, ImageDetIter), "
+               "OpenCV resizes (ResizeAug, ForceResizeAug, RandomSizedCropAug, "
+               "resize_short, _DetResizeAug), pack_img/unpack_img")
+DATA_NOT_DRIVEN = ("the OpenCV resizes (ResizeAug, ForceResizeAug, "
+                   "RandomSizedCropAug, resize_short, _DetResizeAug), "
+                   "ImageDetIter, PNG records, imread, pack_img/unpack_img")
+
+
+@contextlib.contextmanager
+def env_var(name, value):
+    """``os.environ[name] = value`` inside, the old value restored after."""
+    before = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = before
+
+
+def seeded(seed=SEED):
+    """Seed every host generator the data plane draws from: Python's
+    ``random`` (augmenters, ImageIter's shuffle) and ``np.random``
+    (LightingAug, the samplers, the gluon transforms)."""
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+def raw_images(n, shape, seed):
+    """``n`` HWC uint8 images of CHW ``shape`` and their labels (0-999),
+    from ``seed``."""
+    rs = np.random.RandomState(seed)
+    c, h, w = shape
+    imgs = np.frombuffer(rs.bytes(n * c * h * w), np.uint8).reshape(n, h, w, c)
+    return imgs, rs.randint(0, 1000, n).astype(np.float32)
+
+
+def write_records(mx, prefix, imgs, labels):
+    """Raw records (``tools/im2rec.py --pack-raw``'s layout) with an index;
+    returns the seconds the writes took."""
+    t0 = time.perf_counter()
+    w = mx.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i in range(len(imgs)):
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(labels[i]), i, 0), imgs[i].tobytes()))
+    w.close()
+    return time.perf_counter() - t0
+
+
+def drain(it):
+    """Images of one epoch of ``it`` (a DataIter or a DataLoader) and the
+    seconds it took; every batch's arrays are read to the host."""
+    t0 = time.perf_counter()
+    count = 0
+    for batch in it:
+        if isinstance(batch, (list, tuple)):
+            x = batch[0]
+        else:
+            x = batch.data[0]
+        count += x.shape[0] - getattr(batch, "pad", 0)
+        x.wait_to_read()
+    return count, time.perf_counter() - t0
+
+
+def data_card_contracts(mx, card, tmp, n=512, batch=64):
+    """Phase 12a: the native writer and reader on the card's host (the same
+    bytes as the Python framing, files read across, the prefetch reader in
+    order); one pipeline with ``ctx=gpu(0)`` and with ``ctx=cpu(0)``,
+    bit-equal batches on their devices; ``imdecode`` raises ``MXNetError``
+    naming OpenCV where cv2 is absent."""
+    import torch
+    from incubator_mxnet_tpu_torch import _native, cuda_build
+    shape = (3, 32, 32)
+    imgs, labels = raw_images(n, shape, SEED + 20)
+    t0 = time.perf_counter()
+    _native.io_lib()
+    build_s = time.perf_counter() - t0
+    files = {}
+    for native in (True, False):
+        with env_var("MXTPU_NATIVE_IO", "1" if native else "0"):
+            prefix = os.path.join(tmp, "a%d" % native)
+            write_s = write_records(mx, prefix, imgs, labels)
+            files[native] = prefix
+            r = mx.recordio.MXRecordIO(prefix + ".rec", "r")
+            check(r._native_handle is native, "12a: NATIVE_IO=%d chose the "
+                  "other framing" % native)
+            r.close()
+        print("data 12a: %d raw %s records written %s in %.3f s"
+              % (n, shape, "natively" if native else "in Python", write_s),
+              flush=True)
+    for ext in (".rec", ".idx"):
+        with open(files[True] + ext, "rb") as a, \
+                open(files[False] + ext, "rb") as b:
+            check(a.read() == b.read(), "12a: the native and Python %s "
+                  "files differ" % ext)
+    want = [mx.recordio.pack(mx.recordio.IRHeader(0, float(labels[i]), i, 0),
+                             imgs[i].tobytes()) for i in range(n)]
+    for native in (True, False):
+        with env_var("MXTPU_NATIVE_IO", "1" if native else "0"):
+            r = mx.recordio.MXIndexedRecordIO(
+                files[not native] + ".idx", files[not native] + ".rec", "r")
+            got = [r.read() for _ in range(n)] + [r.read()]
+            keyed = [r.read_idx(k) for k in (n - 1, 0, n // 2)]
+            r.close()
+        check(got == want + [None] and keyed == [want[n - 1], want[0],
+                                                 want[n // 2]],
+              "12a: the %s reader misreads the other framing's file"
+              % ("native" if native else "Python"))
+    pr = _native.NativePrefetchReader(files[True] + ".rec", 16)
+    got = [pr.read() for _ in range(n + 1)]
+    pr.close()
+    check(got == want + [None], "12a: the prefetch reader's records differ")
+    out = {}
+    for ctx in (mx.gpu(0), mx.cpu(0)):
+        seeded()
+        it = mx.io.ImageRecordIter(
+            path_imgrec=files[True] + ".rec", path_imgidx=files[True] + ".idx",
+            data_shape=shape, batch_size=batch, shuffle=True, rand_crop=True,
+            rand_mirror=True, brightness=0.4, pca_noise=0.1, mean=True,
+            std=True, preprocess_threads=1, prefetch_buffer=2, ctx=ctx)
+        batches = list(it)
+        out[ctx.device_type] = batches
+        check(all(b.data[0]._data.device == ctx.torch_device() and
+                  b.label[0]._data.device == ctx.torch_device()
+                  for b in batches), "12a: batches not on %s" % ctx)
+    check(len(out["gpu"]) == len(out["cpu"]) == -(-n // batch) and all(
+        torch.equal(g.data[0]._data.cpu(), c.data[0]._data) and
+        torch.equal(g.label[0]._data.cpu(), c.label[0]._data)
+        for g, c in zip(out["gpu"], out["cpu"])),
+        "12a: ctx=gpu(0) and ctx=cpu(0) batches differ")
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    # without OpenCV (absent, or its import blocked here) imdecode raises
+    blocked = sys.modules.get("cv2")
+    sys.modules["cv2"] = None
+    try:
+        mx.image.imdecode(b"\x89PNG\r\n\x1a\n")
+        fail("12a: imdecode ran without OpenCV")
+    except mx.MXNetError as exc:
+        check("OpenCV" in str(exc), "12a: imdecode's error names no "
+              "OpenCV: %s" % exc)
+        print("data 12a: OpenCV %s: imdecode raises MXNetError (%s)"
+              % ("blocked" if cv2 else "absent", str(exc)[:72]), flush=True)
+    finally:
+        if blocked is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = blocked
+    jpeg = None
+    if cv2 is not None:
+        jpeg = jpeg_contract(mx, cv2, tmp, imgs[:batch], labels[:batch])
+    print("data 12a: native RecordIO library %s built in %.2f s; native and "
+          "Python files byte-identical, read across both ways and by key; "
+          "prefetch reader in order; %d batches with ctx=gpu(0) bit-equal to "
+          "ctx=cpu(0) | %s"
+          % (cuda_build.host_lib_path("recordio").name, build_s,
+             len(out["gpu"]), card), flush=True)
+    return dict(records=n, build_s=build_s, batches=len(out["gpu"]),
+                opencv=cv2 is not None, jpeg=jpeg)
+
+
+def write_jpeg_records(mx, cv2, prefix, imgs, labels, quality=95):
+    """JPEG records of RGB ``imgs`` (OpenCV, quality 95); returns the
+    payloads' decoded RGB images."""
+    w = mx.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    decoded = []
+    for i in range(len(imgs)):
+        ok, buf = cv2.imencode(".jpg", cv2.cvtColor(imgs[i], cv2.COLOR_RGB2BGR),
+                               [cv2.IMWRITE_JPEG_QUALITY, quality])
+        check(ok, "12a: cv2.imencode failed")
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(labels[i]), i, 0), buf.tobytes()))
+        decoded.append(cv2.cvtColor(cv2.imdecode(buf, cv2.IMREAD_COLOR),
+                                    cv2.COLOR_BGR2RGB))
+    w.close()
+    return np.stack(decoded)
+
+
+def jpeg_contract(mx, cv2, tmp, imgs, labels):
+    """Where OpenCV is installed: JPEG records through ImageRecordIter
+    (decode 'auto', four decode threads) give what cv2.imdecode gives."""
+    prefix = os.path.join(tmp, "jpeg")
+    want = write_jpeg_records(mx, cv2, prefix, imgs, labels)
+    it = mx.io.ImageRecordIter(
+        path_imgrec=prefix + ".rec", path_imgidx=prefix + ".idx",
+        data_shape=(3,) + imgs.shape[1:3], batch_size=len(imgs),
+        dtype="uint8", aug_list=[], preprocess_threads=4, prefetch_buffer=0,
+        ctx=mx.cpu(0))
+    got = it.next().data[0].asnumpy()
+    it.close()
+    check(np.array_equal(got, want.transpose(0, 3, 1, 2)), "12a: JPEG "
+          "records decode other than cv2.imdecode")
+    print("data 12a: OpenCV %s installed: %d JPEG records through "
+          "ImageRecordIter equal cv2.imdecode's images" % (cv2.__version__,
+                                                           len(imgs)),
+          flush=True)
+    return dict(opencv=cv2.__version__, records=len(imgs))
+
+
+def close_record_iter(it):
+    """Stop an ImageRecordIter's prefetch thread and its decode pool."""
+    it.close()
+    for inner in it.iters:
+        inner.close()
+
+
+class CardFeed(object):
+    """The DataIter protocol over host batches copied to the card: each
+    ``next()``'s wait for the host pipeline and the copy's ms (the card
+    synchronized before and after it) are recorded."""
+
+    def __init__(self, torch, it, ctx):
+        self.torch, self.it, self.ctx = torch, it, ctx
+        self.next_ms, self.h2d_ms = [], []
+        self.provide_data = it.provide_data
+        self.provide_label = it.provide_label
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next()
+
+    def reset(self):
+        self.it.reset()
+
+    def next(self):
+        t0 = time.perf_counter()
+        batch = self.it.next()
+        t1 = time.perf_counter()
+        self.torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        data = [a.as_in_context(self.ctx) for a in batch.data]
+        label = [a.as_in_context(self.ctx) for a in batch.label]
+        self.torch.cuda.synchronize()
+        self.next_ms.append((t1 - t0) * 1e3)
+        self.h2d_ms.append((time.perf_counter() - t2) * 1e3)
+        return type(batch)(data, label, batch.pad)
+
+
+def record_pipeline(mx, card, tmp, c10):
+    """Phase 12b: train_imagenet.py's record path (:80-101):
+    ``ImageRecordIter(dtype="uint8", aug_list=[], shuffle=True,
+    ctx=cpu(0), preprocess_threads=4, prefetch_buffer=4)`` over 2,560 raw
+    224² records; one epoch drained with no model; the first batch's loss
+    through ResNet-50 v1 bit-equal to the same batch's through
+    ``NDArrayIter``; then ``fit_gluon`` (10c's wiring, a ``"device"``
+    store) for one epoch of 10 steps fed by it, the batches copied to the
+    card: step ms, img/s, the share of each step in ``next()``, the copy's
+    ms, beside 10c's synthetic step (``c10``) measured in this run."""
+    import torch
+    from types import SimpleNamespace
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    shape, bs, gpu = IMAGENET_SHAPE, IMAGENET_ARGS["batch_size"], mx.gpu(0)
+    imgs, labels = raw_images(DATA_RECORDS, shape, SEED + 21)
+    prefix = os.path.join(tmp, "imagenet_raw")
+    write_s = write_records(mx, prefix, imgs, labels)
+    rec_bytes = os.path.getsize(prefix + ".rec")
+
+    def make(shuffle=True):
+        return mx.io.ImageRecordIter(
+            path_imgrec=prefix + ".rec", path_imgidx=prefix + ".idx",
+            data_shape=shape, batch_size=bs, shuffle=shuffle, dtype="uint8",
+            aug_list=[], preprocess_threads=DATA_READERS,
+            prefetch_buffer=DATA_READERS, ctx=mx.cpu(0))
+
+    seeded()
+    count, drain_s = drain(make())
+    check(count == DATA_RECORDS, "12b: the epoch held %d images" % count)
+    # the first batch against NDArrayIter over the same images
+    seeded()
+    it = make()
+    keys = list(it.iters[0].seq[:bs])
+    first = it.next()
+    close_record_iter(it)
+    host = imgs[keys].transpose(0, 3, 1, 2)
+    check(np.array_equal(first.data[0].asnumpy(), host) and np.array_equal(
+        first.label[0].asnumpy(), labels[keys]), "12b: the first batch "
+        "is not the records it names")
+    ref = mx.io.NDArrayIter(host.astype(np.float32), labels[keys], bs).next()
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(magnitude=2.0), ctx=gpu)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = []
+    with deterministic_kernels(torch):
+        for x, y in ((first.data[0].as_in_context(gpu).astype("float32"),
+                      first.label[0].as_in_context(gpu)),
+                     (ref.data[0], ref.label[0])):
+            with mx.autograd.record():
+                losses.append(loss_fn(net(x), y).asnumpy())
+    check(np.array_equal(losses[0], losses[1]) and
+          np.isfinite(losses[0]).all(), "12b: the first batch's loss "
+          "differs from NDArrayIter's (mean %r, %r)"
+          % (losses[0].mean(), losses[1].mean()))
+    del net, first, ref, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    # pageable copies of one batch, alone
+    copies = {}
+    for what, arr in (("uint8", host), ("float32", host.astype(np.float32))):
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.to(gpu.torch_device())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        copies[what] = dict(bytes=t.numel() * t.element_size(), ms=ms[1:])
+    del host
+    # one epoch of fit_gluon fed by the record path
+    args = dict(IMAGENET_ARGS, num_batches=DATA_RECORDS // bs)
+    mx.random.seed(SEED)
+    seeded()
+    train = CardFeed(torch, make(), gpu)
+    val = CardFeed(torch, mx.io.ResizeIter(make(False), 1), gpu)
+    trail = StepTrail(torch)
+    net = vision.resnet50_v1(classes=1000)
+    net.hybridize()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trail.start()
+    acc = fit_gluon(mx, net, train, val, SimpleNamespace(**args),
+                    on_step=trail)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(trail.ms)
+    check(steps == DATA_RECORDS // bs and len(train.next_ms) == steps,
+          "12b: %d steps, %d batches" % (steps, len(train.next_ms)))
+    ms = trail.ms[1:]
+    mean = sum(ms) / len(ms)
+    share = [n_ / s for n_, s in zip(train.next_ms[1:], ms)]
+    h2d = sum(train.h2d_ms[1:]) / len(ms)
+    nxt = sum(train.next_ms[1:]) / len(ms)
+    c10_ms = c10["step_ms_mean"]
+    print("data 12b: %d raw records of %s (%d bytes) written in %.3f s "
+          "(%.1f MB/s); one epoch drained with no model: %.3f s, %.1f img/s "
+          "(preprocess_threads %d, prefetch_buffer %d, ctx=cpu(0)) | %s"
+          % (DATA_RECORDS, shape, rec_bytes, write_s, rec_bytes / write_s
+             / 1e6, drain_s, count / drain_s, DATA_READERS, DATA_READERS,
+             card), flush=True)
+    print("data 12b: the first batch's loss through ResNet-50 v1 equals "
+          "NDArrayIter's bit for bit (mean %.6f); a pageable copy of one "
+          "batch to the card: uint8 %d bytes %s ms, float32 %d bytes %s ms "
+          "| %s" % (float(losses[0].mean()), copies["uint8"]["bytes"],
+                    ["%.3f" % v for v in copies["uint8"]["ms"]],
+                    copies["float32"]["bytes"],
+                    ["%.3f" % v for v in copies["float32"]["ms"]], card),
+          flush=True)
+    print("data 12b: ResNet-50 v1 f32 through fit_gluon (kvstore 'device', "
+          "batch %d) fed by ImageRecordIter: %d steps %s ms (mean after the "
+          "first %.3f, %.1f img/s; 10c's synthetic step in this run %.3f ms, "
+          "%.1f img/s); next() %.3f ms a step (%.1f%% of the step, each "
+          "%s), the copy to the card %.3f ms a step; accuracy %.4f, peak "
+          "memory allocated %d bytes, %.1f s | %s"
+          % (bs, steps, ["%.3f" % v for v in trail.ms], mean, bs / mean * 1e3,
+             c10_ms, bs / c10_ms * 1e3, nxt, 100 * nxt / mean,
+             ["%.3f" % v for v in share], h2d, acc, peak, wall, card),
+          flush=True)
+    close_record_iter(train.it)
+    close_record_iter(val.it.data_iter)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(write_s=write_s, rec_bytes=rec_bytes, drain_s=drain_s,
+                drain_img_per_s=count / drain_s, first_loss=float(
+                    losses[0].mean()), copies=copies, step_ms=trail.ms,
+                step_ms_mean=mean, img_per_s=bs / mean * 1e3, next_ms=nxt,
+                next_share=nxt / mean, h2d_ms=h2d, accuracy=float(acc),
+                peak_memory_bytes=peak, c10_step_ms=c10_ms)
+
+
+def augment_pipeline(mx, card, tmp, step_img_s):
+    """Phase 12c: ``ImageRecordIter(data_shape=(3, 224, 224),
+    rand_crop=True, rand_mirror=True, brightness=0.4, contrast=0.4,
+    saturation=0.4, pca_noise=0.1, mean=True, std=True)`` in float32 over
+    1,024 raw 256² records (``raw_shape``), one epoch drained at
+    ``preprocess_threads`` 1, 4 and 8: img/s against the rate 6c's step
+    consumes; where OpenCV is installed, the same over the images as JPEG
+    records (quality 95) at the most threads."""
+    imgs, labels = raw_images(DATA_AUG_RECORDS, DATA_AUG_RAW, SEED + 22)
+    prefix = os.path.join(tmp, "imagenet_256")
+    write_records(mx, prefix, imgs, labels)
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    runs = [("raw", threads, prefix) for threads in DATA_THREADS]
+    if cv2 is not None:
+        write_jpeg_records(mx, cv2, prefix + "_jpeg", imgs, labels)
+        runs.append(("jpeg", DATA_THREADS[-1], prefix + "_jpeg"))
+    del imgs
+    rates = {}
+    for kind, threads, path in runs:
+        seeded()
+        it = mx.io.ImageRecordIter(
+            path_imgrec=path + ".rec", path_imgidx=path + ".idx",
+            data_shape=IMAGENET_SHAPE, raw_shape=DATA_AUG_RAW,
+            decode="raw" if kind == "raw" else "auto",
+            batch_size=DATA_AUG_BATCH, shuffle=True, rand_crop=True,
+            rand_mirror=True, brightness=0.4, contrast=0.4, saturation=0.4,
+            pca_noise=0.1, mean=True, std=True, preprocess_threads=threads,
+            prefetch_buffer=4, ctx=mx.cpu(0))
+        first = it.next()
+        x = first.data[0].asnumpy()
+        check(x.dtype == np.float32 and x.shape == (DATA_AUG_BATCH,) +
+              IMAGENET_SHAPE and np.isfinite(x).all() and
+              abs(float(x.mean())) < 2.0, "12c: batch %s %s mean %r"
+              % (x.dtype, x.shape, float(x.mean())))
+        it.reset()
+        count, secs = drain(it)
+        check(count == DATA_AUG_RECORDS, "12c: %d images" % count)
+        close_record_iter(it)
+        rates["%s_%d" % (kind, threads)] = count / secs
+        print("data 12c: the augmenting pipeline over %s 256² records (crop "
+              "to 224², flip, color jitter, lighting, normalize; float32) at "
+              "preprocess_threads %d: %d images in %.3f s, %.1f img/s (6c's "
+              "step in this run consumes %.1f; PERF.md's 6c %.1f) | %s"
+              % (kind, threads, count, secs, count / secs, step_img_s,
+                 RESNET_TRAIN_BATCH / PHASE_6C_MS * 1e3, card), flush=True)
+    return dict(img_per_s=rates, step_img_per_s=step_img_s)
+
+
+def gluon_data_card_contracts(mx, card, n=DATA_GLUON_IMAGES,
+                              size=DATA_GLUON_SIZE, crop=DATA_GLUON_CROP):
+    """12d's card contracts: ToTensor, Normalize and Resize on card tensors
+    against the CPU (the first two bit-equal, Resize within
+    DATA_RESIZE_TOL); the transform pipeline through a DataLoader with
+    ``num_workers=0`` from the same seeds over the images on the card and
+    on the CPU (the same crops and flips, values at most one uint8 step
+    apart, where the resize truncates to the other side); a DataLoader
+    with two
+    workers feeding a small net's steps inside ``mx.engine.bulk`` (recorded
+    segments replayed as CUDA graphs while the workers copy batches to the
+    card), losses and weights bit-equal to the eager steps."""
+    import torch
+    T = mx.gluon.data.vision.transforms
+    imgs, labels = raw_images(n, (3, size, size), SEED + 23)
+    gpu, cpu = mx.gpu(0), mx.cpu(0)
+    img = imgs[0]
+    on = {c.device_type: mx.nd.array(img, ctx=c, dtype="uint8")
+          for c in (gpu, cpu)}
+    exact = {}
+    for what, t, x in (("ToTensor", T.ToTensor(), on),
+                       ("Normalize", T.Normalize(*IMAGENET_MEAN_STD), {
+                           k: T.ToTensor()(v) for k, v in on.items()})):
+        g, c = t(x["gpu"]), t(x["cpu"])
+        exact[what] = torch.equal(g._data.cpu(), c._data)
+        check(exact[what], "12d: %s on the card differs from the CPU" % what)
+    resize = {}
+    for dtype in ("float32", "uint8"):
+        src = {k: v.astype(dtype) for k, v in on.items()}
+        g = T.Resize(crop)(src["gpu"]).asnumpy().astype(np.float64)
+        c = T.Resize(crop)(src["cpu"]).asnumpy().astype(np.float64)
+        resize[dtype] = (float(np.abs(g - c).max()),
+                         float((g != c).mean()))
+    check(resize["float32"][0] <= DATA_RESIZE_TOL and
+          resize["uint8"][0] <= 1, "12d: Resize on the card against the "
+          "CPU %s" % resize)
+
+    def pipeline(ctx):
+        ds = mx.gluon.data.ArrayDataset(
+            mx.nd.array(imgs, ctx=ctx, dtype="uint8"), labels)
+        return ds.transform_first(T.Compose([
+            T.RandomResizedCrop(crop), T.RandomFlipLeftRight(), T.ToTensor(),
+            T.Normalize(*IMAGENET_MEAN_STD)]))
+
+    batches = {}
+    for ctx in (gpu, cpu):
+        seeded()
+        loader = mx.gluon.data.DataLoader(pipeline(ctx), batch_size=max(
+            n // 8, 1), shuffle=True, num_workers=0)
+        batches[ctx.device_type] = [(x.asnumpy(), y.asnumpy())
+                                    for x, y in loader]
+    step = 1.0 / 255 / min(IMAGENET_MEAN_STD[1]) + 1e-6
+    worst, apart = 0.0, 0
+    for (gx, gy), (cx, cy) in zip(batches["gpu"], batches["cpu"]):
+        check(np.array_equal(gy, cy) and gx.shape == cx.shape,
+              "12d: the loaders' labels or shapes differ")
+        d = np.abs(gx - cx)
+        worst, apart = max(worst, float(d.max())), apart + int((d > 0).sum())
+    total = sum(x.size for x, _ in batches["cpu"])
+    check(worst <= step, "12d: the pipeline on the card and on the CPU: "
+          "max diff %r, %d of %d apart" % (worst, apart, total))
+    bulk = bulk_loader_contract(mx, torch)
+    print("data 12d: on the card against the CPU: ToTensor and Normalize "
+          "bit-equal, Resize %d² -> %d² f32 max diff %.3e (%.2e of values "
+          "apart), uint8 max diff %.0f (%.2e apart); the transform pipeline "
+          "(RandomResizedCrop, flip, ToTensor, Normalize) through "
+          "DataLoader(num_workers=0) over %d images from the same seeds on "
+          "the card and on the CPU: the same crops and flips, %d of %d "
+          "values apart, max diff %.3e (one uint8 step %.3e); a "
+          "DataLoader(num_workers=2) feeding %d steps inside "
+          "mx.engine.bulk: losses and weights bit-equal to eager, %s | %s"
+          % (size, crop, resize["float32"][0], resize["float32"][1],
+             resize["uint8"][0], resize["uint8"][1], n, apart, total, worst,
+             step, bulk["steps"], bulk["graphs"], card), flush=True)
+    return dict(exact=exact, resize=resize, loader_max_diff=worst,
+                loader_apart=apart, loader_values=total, bulk=bulk)
+
+
+def bulk_loader_contract(mx, torch, steps_per_epoch=4, epochs=2):
+    """A DataLoader with two worker threads (numpy samples: each batch
+    made on the card by its worker) feeding an MLP's training steps inside
+    ``mx.engine.bulk(BULK_WHOLE)`` on the card, against the same steps
+    eagerly: losses and weights bit-equal."""
+    rs = np.random.RandomState(SEED + 24)
+    x = rs.standard_normal((steps_per_epoch * 32, 64)).astype(np.float32)
+    y = rs.randint(0, 10, steps_per_epoch * 32).astype(np.float32)
+
+    def run(bulk, workers):
+        mx.random.seed(SEED)
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Dense(128, activation="relu", in_units=64),
+                mx.gluon.nn.Dense(10, in_units=128))
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.1, "momentum": 0.9})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        loader = mx.gluon.data.DataLoader(mx.gluon.data.ArrayDataset(x, y),
+                                          batch_size=32,
+                                          num_workers=workers)
+        losses = []
+        for _ in range(epochs):
+            for xb, yb in loader:
+                with (mx.engine.bulk(BULK_WHOLE) if bulk else
+                      contextlib.nullcontext()):
+                    with mx.autograd.record():
+                        loss = loss_fn(net(xb), yb)
+                    loss.backward()
+                    trainer.step(32)
+                losses.append(loss._data.detach().clone())
+        loader.close()
+        return losses, [p.data()._data.detach().clone()
+                        for p in net.collect_params().values()]
+
+    with mx.gpu(0):             # the workers make each batch on the card
+        eager = run(False, 0)
+        mx.engine.reset_flush_stats()
+        bulked = run(True, 2)
+    graphs = mx.engine.flush_stats()["graphs"]
+    check(all(torch.equal(a, b) for a, b in zip(bulked[0], eager[0])) and
+          all(torch.equal(a, b) for a, b in zip(bulked[1], eager[1])),
+          "12d: the bulked steps fed by DataLoader(num_workers=2) differ "
+          "from the eager ones")
+    return dict(steps=len(eager[0]), graphs=graphs)
+
+
+def gluon_data_pipeline(mx, card):
+    """Phase 12d: ``gluon.data`` at ImageNet's widths: an ArrayDataset of
+    512 HWC uint8 256² images on the host through
+    ``transform_first(Compose([RandomResizedCrop(224),
+    RandomFlipLeftRight(), ToTensor(), Normalize(...)]))`` and
+    ``DataLoader(batch_size=64, shuffle=True, num_workers=4)``: img/s over
+    one epoch; then the card's contracts at the same widths."""
+    T = mx.gluon.data.vision.transforms
+    imgs, labels = raw_images(DATA_GLUON_IMAGES, (3, DATA_GLUON_SIZE,
+                                                  DATA_GLUON_SIZE), SEED + 23)
+    ds = mx.gluon.data.ArrayDataset(
+        mx.nd.array(imgs, ctx=mx.cpu(0), dtype="uint8"), labels)
+    ds = ds.transform_first(T.Compose([
+        T.RandomResizedCrop(DATA_GLUON_CROP), T.RandomFlipLeftRight(),
+        T.ToTensor(), T.Normalize(*IMAGENET_MEAN_STD)]))
+    seeded()
+    loader = mx.gluon.data.DataLoader(ds, batch_size=DATA_GLUON_BATCH,
+                                      shuffle=True,
+                                      num_workers=DATA_GLUON_WORKERS)
+    with mx.cpu(0):
+        count, secs = drain(loader)
+    loader.close()
+    check(count == DATA_GLUON_IMAGES, "12d: %d images" % count)
+    print("data 12d: gluon.data pipeline over %d HWC uint8 %d² images "
+          "(RandomResizedCrop(%d), RandomFlipLeftRight, ToTensor, Normalize; "
+          "DataLoader batch %d, shuffle, num_workers %d): %.3f s, %.1f img/s "
+          "| %s" % (count, DATA_GLUON_SIZE, DATA_GLUON_CROP, DATA_GLUON_BATCH,
+                    DATA_GLUON_WORKERS, secs, count / secs, card), flush=True)
+    return dict(img_per_s=count / secs, seconds=secs,
+                contracts=gluon_data_card_contracts(mx, card))
+
+
+def lm_from_loader(mx, card):
+    """Phase 12e: the full-width LM (bf16, 8 x 1024, the weights of two
+    copies equal) trained LM_LOADER_STEPS steps through ``gluon.Trainer``
+    (sgd with momentum, multi_precision), one copy fed by
+    ``DataLoader(ArrayDataset(tokens, labels), batch_size=8,
+    num_workers=2)``, the other the same arrays directly, with torch's
+    deterministic algorithms: the losses equal step by step; B1's forward
+    and backward kernel counters (zeroed just before the loader-fed steps,
+    read just after) at one launch a layer a step each, none through the
+    torch-ops backward."""
+    import torch
+    from incubator_mxnet_tpu_torch.models import TransformerLM
+    from incubator_mxnet_tpu_torch.ops.attention import flash_attention
+    cfg, batch, steps = LM_CONFIG, TRAIN_BATCH, LM_LOADER_STEPS
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    mx.random.seed(SEED)
+    rs = np.random.RandomState(SEED + 25)
+    tokens = rs.randint(0, cfg["vocab"], (batch * steps, cfg["seq_len"]))
+    labels = rs.randint(0, cfg["vocab"], (batch * steps, cfg["seq_len"])
+                        ).astype(np.float32)
+    nets = []
+    for _ in range(2):
+        net = TransformerLM(**cfg)
+        net.initialize(mx.init.Xavier(rnd_type="gaussian"), ctx=ctx)
+        nets.append(net)
+    probe = mx.nd.array(tokens[:batch], ctx=ctx, dtype="int32")
+    with mx.autograd.predict_mode():
+        for net in nets:
+            net(probe)                      # resolves the deferred shapes
+    a, b = nets
+    pa, pb = list(a.collect_params().values()), \
+        list(b.collect_params().values())
+    with torch.no_grad():
+        for p, q in zip(pb, pa):
+            p.data()._data.copy_(q.data()._data)
+    for net in nets:
+        net.cast("bfloat16")
+    trainers = [mx.gluon.Trainer(net.collect_params(), "sgd",
+                                 dict(LM_STORE_OPT)) for net in nets]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(net, trainer, x, y):
+        with mx.autograd.record():
+            loss = loss_fn(net(x).astype("float32"), y)
+        loss.backward()
+        trainer.step(batch)
+        return float(loss.mean().asscalar())
+
+    loader = mx.gluon.data.DataLoader(
+        mx.gluon.data.ArrayDataset(tokens, labels), batch_size=batch,
+        num_workers=2)
+    built_s = time.perf_counter() - t0
+    counters = ("launches", "backward_kernel_launches",
+                "backward_torch_calls", "backward_calls")
+    got, want, ms, dtypes = [], [], [], None
+    with deterministic_kernels(torch):
+        torch.cuda.synchronize()
+        for c in counters:
+            setattr(flash_attention, c, 0)
+        for i, (x, y) in enumerate(loader):
+            dtypes = (str(x.dtype), str(y.dtype), x.context)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got.append(step(a, trainers[0], x, y))
+            ms.append((time.perf_counter() - t1) * 1e3)
+        launches = {c: getattr(flash_attention, c) for c in counters}
+        for i in range(steps):
+            sl = slice(i * batch, (i + 1) * batch)
+            want.append(step(b, trainers[1],
+                             mx.nd.array(tokens[sl], ctx=ctx, dtype="int32"),
+                             mx.nd.array(labels[sl], ctx=ctx)))
+    loader.close()
+    expected = cfg["n_layers"] * steps
+    print("data 12e: TransformerLM %s in bf16 (gluon.Trainer sgd %s) fed by "
+          "DataLoader(ArrayDataset(tokens, labels), batch_size %d, "
+          "num_workers 2; batches %s), built in %.1f s: %d steps %s ms, "
+          "losses %s; the same steps fed the arrays directly: losses %s; "
+          "flash counters in the loader-fed steps %s (%d layers) | %s"
+          % (cfg, LM_STORE_OPT, batch, dtypes, built_s, len(got),
+             ["%.3f" % v for v in ms], ["%.6f" % v for v in got],
+             ["%.6f" % v for v in want], launches, cfg["n_layers"], card),
+          flush=True)
+    check(len(got) == steps and got == want and
+          all(math.isfinite(v) for v in got), "12e: the loader-fed losses "
+          "%s differ from the direct ones %s" % (got, want))
+    check(launches["launches"] == expected and
+          launches["backward_kernel_launches"] == expected and
+          launches["backward_calls"] == expected and
+          launches["backward_torch_calls"] == 0,
+          "12e: flash counters %s, expected %d forward and backward kernel "
+          "launches and no torch-ops backward" % (launches, expected))
+    del a, b, nets, trainers, pa, pb, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=got, direct_losses=want, step_ms=ms,
+                launches=launches, built_s=built_s)
+
+
+def data_phase(mx, card, c6, c10):
+    """Phase 12: 12a-12e over records written into a directory under the
+    checkout's ``build/`` (removed after); ``c6`` and ``c10`` are 6c's and
+    10c's ResNet-50 results of this run."""
+    import tempfile
+    import torch
+    from incubator_mxnet_tpu_torch import cuda_build
+    t12 = time.perf_counter()
+    cuda_build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="data-", dir=str(cuda_build.BUILD_DIR.parent))
+    try:
+        out = dict(contracts=data_card_contracts(mx, card, tmp))
+        out["records"] = record_pipeline(mx, card, tmp, c10)
+        out["augment"] = augment_pipeline(
+            mx, card, tmp, RESNET_TRAIN_BATCH / c6["step_ms_mean"] * 1e3)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["gluon"] = gluon_data_pipeline(mx, card)
+    out["lm"] = lm_from_loader(mx, card)
+    print("data: not driven on the card (the CPU tests hold them against "
+          "the JAX build): %s" % (DATA_NOT_DRIVEN if out["contracts"]["opencv"]
+                                  else "OpenCV is not installed: "
+                                  + DATA_NO_CV2), flush=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t12
+    print("data: phase 12 in %.1f s | %s" % (out["seconds"], card),
+          flush=True)
+    return out
+
+
 def main():
     import torch
+    t_run = time.perf_counter()
     # phase 1: device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke runs only on a "
@@ -7551,6 +8322,12 @@ def main():
     bulk["lm_serving"] = bulk_lm
     bulk_rows = bulk["training"]["lm"]["trace"]["rows"]
 
+    # phase 12: the data plane feeding the card (RecordIO, ImageRecordIter
+    # into ResNet-50, gluon.data, a DataLoader into the LM: kernel B1)
+    data = data_phase(mx, card, resnet["train"],
+                      store["config2"]["resnet50 Gluon"])
+    data_launches = data["lm"]["launches"]
+
     def entry(name, source, design, launches_, err, t,
               replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -7574,13 +8351,17 @@ def main():
     print("sym: summary " + json.dumps(symbolic, default=str), flush=True)
     print("kv: summary " + json.dumps(store, default=str), flush=True)
     print("bulk: summary " + json.dumps(bulk, default=str), flush=True)
+    print("data: summary " + json.dumps(data, default=str), flush=True)
+    print("smoke: the whole run took %.1f s | %s"
+          % (time.perf_counter() - t_run, card), flush=True)
     print(json.dumps({"kernels": [
         entry("flash_attention_fwd", BF16_SOURCE, FLASH_DESIGN,
               launches["flash_attention_fwd"] + sym_launches["launches"] +
-              store_launches["launches"],
+              store_launches["launches"] + data_launches["launches"],
               errs[serving], bf16,
               symbolic_executor_launches=sym_launches["launches"],
               store_trainer_launches=store_launches["launches"],
+              data_loader_trainer_launches=data_launches["launches"],
               max_abs_err_cases=errs, half_violations_cases=violations,
               tflops=bf16["tflops"],
               training_launches=train["launches"]["flash_attention_fwd"],
@@ -7636,7 +8417,8 @@ def main():
         entry("flash_attention_bwd", BWD_SOURCE, BWD_DESIGN,
               train["launches"]["flash_attention_bwd"] +
               sym_launches["backward_kernel_launches"] +
-              store_launches["backward_kernel_launches"],
+              store_launches["backward_kernel_launches"] +
+              data_launches["backward_kernel_launches"],
               max(backward_errs[case_key(*BACKWARD_CASES[0][:2], "bfloat16")
                                 + "_" + n] for n in ("dq", "dk", "dv")),
               backward, replaces="incubator_mxnet_tpu/ops/attention.py:168",
@@ -7644,6 +8426,8 @@ def main():
               symbolic_executor_launches=sym_launches[
                   "backward_kernel_launches"],
               store_trainer_launches=store_launches[
+                  "backward_kernel_launches"],
+              data_loader_trainer_launches=data_launches[
                   "backward_kernel_launches"],
               bulk_replay_trace_launches=dict(
                   lm_train_step=bulk_rows["flash_bwd"]),

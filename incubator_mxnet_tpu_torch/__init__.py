@@ -52,6 +52,8 @@ from .attribute import AttrScope  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import io  # noqa: F401
+from . import recordio  # noqa: F401
+from . import image  # noqa: F401
 from . import metric  # noqa: F401
 from . import callback  # noqa: F401
 from . import monitor  # noqa: F401

@@ -17,6 +17,13 @@ and no PyTorch header), built the same way at first use by the host C
 compiler (``$CC``, else ``cc``) against this interpreter's ``Python.h`` and
 imported by :func:`load_extension`: ``_rtc_launch``, the host side of a
 runtime kernel's launch (``csrc/rtc_launch.c``).
+
+``HOST_LIBS`` are host-only C++ libraries with a plain C interface, built
+at first use by the host C++ compiler (``$CXX``, else ``c++`` or ``g++``)
+and loaded by :func:`load_host_lib` with ``ctypes``: ``recordio``, the
+RecordIO reader, writer and prefetching reader of ``src/io/recordio.cc``
+(the repository's own source, compiled alone; its Makefile also builds
+libraries against libpython, which the port does not use).
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ from pathlib import Path
 from .base import MXNetError
 
 __all__ = ["KERNELS", "SOURCES", "EXTENSIONS", "BUILD_DIR", "build_all",
-           "load", "load_extension", "build_log", "lib_path", "extension_path"]
+           "load", "load_extension", "build_log", "lib_path", "extension_path",
+           "HOST_LIBS", "load_host_lib", "host_lib_path"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -92,6 +100,10 @@ SOURCES = {
 # module name -> its host-only C source under csrc/
 EXTENSIONS = {"_rtc_launch": "rtc_launch.c"}
 CC_FLAGS = ("-O2", "-shared", "-fPIC", "-Wall")
+
+# library name -> its host-only C++ source (src/Makefile's flags)
+HOST_LIBS = {"recordio": _PKG.parent / "src" / "io" / "recordio.cc"}
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-shared", "-pthread")
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}     # kernel or extension name -> CDLL or module
@@ -211,22 +223,29 @@ def extension_path(name: str) -> Path:
     return BUILD_DIR / ("%s-%s.so" % (name, digest.hexdigest()[:16]))
 
 
+def _compile(command, source: Path, target: Path, what: str):
+    """Run ``command + [-o tmp, source]`` and move the result to ``target``
+    (its output kept beside it as ``.log``); ``MXNetError`` with the
+    compiler's output if it fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name("%s.tmp-%d" % (target.name, os.getpid()))
+    out = subprocess.run([*command, "-o", str(tmp), str(source)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    if out.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise MXNetError("building %s failed:\n%s" % (what, out.stdout))
+    target.with_suffix(".log").write_text(out.stdout)
+    os.replace(tmp, target)
+
+
 def _build_extension(name: str, target: Path):
     include = sysconfig.get_paths()["include"]
     if not os.path.exists(os.path.join(include, "Python.h")):
         raise MXNetError("Python.h not found under %s: building %s needs "
                          "the interpreter's C headers" % (include, name))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name("%s.tmp-%d" % (target.name, os.getpid()))
-    out = subprocess.run([_cc(), *CC_FLAGS, "-I", include, "-o", str(tmp),
-                          str(CSRC / EXTENSIONS[name])],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True)
-    if out.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise MXNetError("building %s failed:\n%s" % (name, out.stdout))
-    target.with_suffix(".log").write_text(out.stdout)
-    os.replace(tmp, target)
+    _compile([_cc(), *CC_FLAGS, "-I", include], CSRC / EXTENSIONS[name],
+             target, name)
 
 
 def load_extension(name: str):
@@ -243,3 +262,36 @@ def load_extension(name: str):
             spec.loader.exec_module(module)
             _LIBS[name] = module
         return module
+
+
+def _cxx():
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise MXNetError("no C++ compiler ($CXX, c++ or g++) on PATH; the native "
+                     "RecordIO library is built by one")
+
+
+def host_lib_path(name: str) -> Path:
+    """Where host library ``name`` is (or will be) built: named by a hash
+    of its source and the flags."""
+    digest = hashlib.sha256(HOST_LIBS[name].read_bytes())
+    digest.update(" ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / ("lib%s-%s.so" % (name, digest.hexdigest()[:16]))
+
+
+def load_host_lib(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name`` of ``HOST_LIBS``, built first if
+    needed; a failed build raises ``MXNetError`` with the compiler's
+    output.  The caller sets ``restype``/``argtypes``."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            target = host_lib_path(name)
+            if not target.exists():
+                _compile([_cxx(), *CXX_FLAGS], HOST_LIBS[name], target,
+                         "%s from %s" % (name, HOST_LIBS[name]))
+            lib = ctypes.CDLL(str(target))
+            _LIBS[name] = lib
+        return lib

@@ -1,7 +1,7 @@
 """Gluon: the imperative layer API (ref: python/mxnet/gluon/__init__.py).
 
 Block/HybridBlock, Parameter/Constant/ParameterDict, the layers, the model
-zoo, the losses, the Trainer, ``utils`` and ``contrib.nn``.
+zoo, the losses, the Trainer, ``utils``, ``contrib.nn`` and ``data``.
 """
 from .parameter import (Parameter, Constant, ParameterDict,  # noqa: F401
                         DeferredInitializationError)
@@ -12,3 +12,4 @@ from . import model_zoo  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from . import utils  # noqa: F401
 from . import contrib  # noqa: F401
+from . import data  # noqa: F401

@@ -7,8 +7,9 @@ scripts port unchanged.  The in-memory iterators (``NDArrayIter``, and
 ``CSVIter`` and ``MNISTIter`` over it) make their arrays on the current
 context, the card unless the caller says ``mx.cpu()``; the prefetcher is a
 thread (the reference's dmlc ThreadedIter, iter_prefetcher.h).
-``LibSVMIter`` (sparse batches, ROADMAP item 10) and ``ImageRecordIter``
-(the image pipeline, item 6) are not ported yet and raise.
+``ImageRecordIter`` is ``image.ImageIter`` (decode and augmentation on a
+thread pool, on the host) under a ``PrefetchingIter``.  ``LibSVMIter``
+(sparse batches, ROADMAP item 10) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -560,9 +561,49 @@ class MNISTIter(DataIter):
         return self._inner.next()
 
 
-def ImageRecordIter(*args, **kwargs):
-    """ImageRecordIter (ref: src/io/iter_image_recordio_2.cc:727): the
-    RecordIO image pipeline, not ported yet (ROADMAP item 6)."""
-    raise MXNetError("ImageRecordIter needs the image pipeline (RecordIO "
-                     "decode and augmentation), which the PyTorch port does "
-                     "not have yet (ROADMAP item 6)")
+def ImageRecordIter(path_imgrec=None, data_shape=None, batch_size=1,
+                    label_width=1, shuffle=False, part_index=0, num_parts=1,
+                    preprocess_threads=4, prefetch_buffer=4, **kwargs):
+    """ImageRecordIter factory (ref: src/io/iter_image_recordio_2.cc:727
+    registration): an ``image.ImageIter`` whose decode and augmentation run
+    on a ``preprocess_threads``-wide pool, under a ``PrefetchingIter``
+    ``prefetch_buffer`` batches deep (reader, parser pool, prefetcher, as
+    iter_image_recordio_2.cc:663-762 layers them).  MXNet's argument names
+    are translated: ``mean_r/g/b``, ``std_r/g/b``, ``rand_mirror_prob``."""
+    from .image import image as img_mod
+    known = {}
+    aug_keys = ("resize", "rand_crop", "rand_resize", "rand_mirror", "mean",
+                "std", "brightness", "contrast", "saturation", "hue",
+                "pca_noise", "rand_gray", "inter_method")
+    if kwargs.pop("rand_mirror_prob", None):
+        known["rand_mirror"] = True
+    mean = None
+    if any(k in kwargs for k in ("mean_r", "mean_g", "mean_b")):
+        mean = np.array([kwargs.pop("mean_r", 0), kwargs.pop("mean_g", 0),
+                         kwargs.pop("mean_b", 0)])
+    std = None
+    if any(k in kwargs for k in ("std_r", "std_g", "std_b")):
+        std = np.array([kwargs.pop("std_r", 1), kwargs.pop("std_g", 1),
+                        kwargs.pop("std_b", 1)])
+    for k in aug_keys:
+        if k in kwargs:
+            known[k] = kwargs.pop(k)
+    if mean is not None:
+        known["mean"] = mean
+    if std is not None:
+        known["std"] = std
+    it = img_mod.ImageIter(batch_size=batch_size, data_shape=data_shape,
+                           label_width=label_width, path_imgrec=path_imgrec,
+                           shuffle=shuffle, part_index=part_index,
+                           num_parts=num_parts,
+                           path_imgidx=kwargs.pop("path_imgidx", None),
+                           preprocess_threads=preprocess_threads,
+                           decode=kwargs.pop("decode", "auto"),
+                           raw_shape=kwargs.pop("raw_shape", None),
+                           dtype=kwargs.pop("dtype", "float32"),
+                           aug_list=kwargs.pop("aug_list", None),
+                           ctx=kwargs.pop("ctx", None),
+                           **known)
+    if prefetch_buffer and int(prefetch_buffer) > 0:
+        return PrefetchingIter(it, prefetch_buffer=prefetch_buffer)
+    return it

@@ -83,6 +83,12 @@ def test_port_imports_with_jax_blocked():
             "from incubator_mxnet_tpu_torch.analysis import engine_check\n"
             "from incubator_mxnet_tpu_torch.module import (\n"
             "    sequential_module, python_module)\n"
+            "from incubator_mxnet_tpu_torch import recordio, image, _native\n"
+            "from incubator_mxnet_tpu_torch.image import detection\n"
+            "from incubator_mxnet_tpu_torch.gluon.data import (dataset,\n"
+            "    sampler, dataloader, vision as data_vision)\n"
+            "from incubator_mxnet_tpu_torch.gluon.data.vision import (\n"
+            "    transforms, datasets)\n"
             "assert mx.kv is kvstore and mx.opt is optimizer\n"
             "assert mx.num_devices('cpu') == 1\n"
             "assert mx.gluon.Constant and cnn.HybridConcurrent\n"
@@ -133,6 +139,19 @@ def test_port_imports_with_jax_blocked():
             "    assert mx.gluon.SymbolBlock(s, mx.sym.var('data'))\n"
             "    mx.model.save_checkpoint(os.path.join(d, 'c'), 1, s,\n"
             "                             *m.get_params())\n"
+            "    w = recordio.MXIndexedRecordIO(os.path.join(d, 'r.idx'),\n"
+            "                                   os.path.join(d, 'r.rec'), 'w')\n"
+            "    w.write_idx(0, recordio.pack(recordio.IRHeader(0, 1.0, 0, 0),\n"
+            "                                 bytes(range(12))))\n"
+            "    w.close()\n"
+            "    b = mx.io.ImageRecordIter(path_imgrec=os.path.join(d, 'r.rec'),\n"
+            "                              data_shape=(3, 2, 2), aug_list=[]).next()\n"
+            "    assert b.data[0].shape == (1, 3, 2, 2) and w._native_handle\n"
+            "    t = transforms.Compose([transforms.ToTensor()])\n"
+            "    ds = mx.gluon.data.ArrayDataset(mx.nd.ones((4, 2, 2, 3)))\n"
+            "    for xb in mx.gluon.data.DataLoader(ds.transform(t), 2,\n"
+            "                                       num_workers=2):\n"
+            "        assert xb.shape == (2, 3, 2, 2)\n"
             "print(mx.current_context(), float(x.asnumpy().sum()))\n"
             "assert not [m for m in sys.modules if m.startswith('jax')\n"
             "            and sys.modules[m] is not None]\n")
