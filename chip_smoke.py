@@ -11,7 +11,9 @@ layer as a Symbol through the Executor, then train BASELINE configs 1 and
 2 and the LM through the single-card KVStore, and profile the LM and
 ResNet-50 with mx.profiler, then run those paths through mx.engine.bulk,
 then feed ResNet-50 from train_imagenet.py's RecordIO path and the LM from
-a gluon.data DataLoader.
+a gluon.data DataLoader, then hold the fused RNN op's cuDNN route against
+its plain loop and train and serve bench_lstm.py's LSTM LM, word_lm.py's
+loop, CTC, an LSTM encoder under B1 and mx.rnn through BucketingModule.
 
 Run from the root of a checkout, with one CUDA card and the CUDA toolkit:
 
@@ -312,8 +314,37 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              DataLoader(num_workers=2), its losses equal to the same steps
              fed directly, B1's forward and backward kernels once a layer a
              step; what is left out without OpenCV is printed;
-13. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
-   launches of B1 in 9c, 10d, 11 and 12e; phases 6-8 launch none), the
+13. rnn   — the RNN family (no hand kernel of its own: cuDNN through
+             ``torch._cudnn_rnn``, as MXNet's GPU path): 13a the fused RNN
+             op in every mode, uni- and bidirectional, 2 layers, f32 (TF32
+             off) and bf16 at (T, N, I, H) (7, 3, 5, 4) and bench_lstm.py's
+             (128, 256, 512, 512), f16 at the first, out, hy, cy and every
+             gradient against the plain loop in f64 (1e-4 f32, 2e-2 bf16,
+             5e-3 f16 relative, or twice the plain loop's own error in the
+             dtype where the recurrence amplifies rounding past that), each
+             case's route counted; cuDNN and the plain loop timed forward and
+             forward+backward beside the bound, and the per-call copy of
+             the weights into cuDNN's buffer; TF32 off inside an f32 call
+             whatever the caller's switch, record(train_mode=False) then
+             backward, an LSTM inside mx.engine.bulk bit-equal to eager;
+             13b the small WordLM (f32) trained 3 steps on the card against
+             the CPU (1e-4), then bench_lstm.py's WordLM at full width
+             (vocab 10000, embed and hidden 512, 2 layers, NTC, 256 x 128
+             tokens, bf16 through DataParallelTrainer, sgd lr 0.5): 3
+             warm-up and 10 timed steps, ms, tokens/s, MFU, peak memory,
+             the loss falling, every LSTM call on cuDNN; 13c the same net
+             in bf16 serving 32 x 128 tokens: ms, tokens/s, device busy
+             time; 13d word_lm.py's loop at its defaults (adam, the state
+             carried across BPTT windows, 6 epochs) below the unigram
+             perplexity; 13e CTCLoss at (200, 32, 29) with labels of 20-50
+             tokens and 4 empty, card against CPU (1e-4), timed; 13f a
+             bidirectional LSTM encoder under MultiHeadAttention (head dim
+             128) trained 3 bf16 steps: B1's forward and backward kernels
+             once a step, none through the torch ops; 13g a FusedRNNCell
+             LM through BucketingModule.fit over BucketSentenceIter, and
+             unfuse() against the fused node (1e-4); the phase's seconds;
+14. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
+   launches of B1 in 9c, 10d, 11, 12e and 13f; phases 6-8 launch none), the
    whole run's seconds, then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -350,6 +381,7 @@ ATTENTION_CASES = [
     ((1, 2, 256, 128, 64), True),    # Sq > Sk: 128 rows see no key at all
     ((1, 3, 40, 40, 24), False),     # ragged: no dimension a multiple of 64
     ((1, 3, 40, 40, 24), True),
+    ((8, 8, 256, 256, 128), False),  # 13f's encoder (MultiHeadAttention)
     ((2, 4, 32, 32, 16), True),      # the small LM of phase 4a
     ((8, 32, 1024, 1024, 128), True),
 ]
@@ -417,6 +449,8 @@ SMALL_LMS = [
 BACKWARD_CASES = [
     ((8, 32, 1024, 1024, 128), True, "bfloat16"),
     ((8, 32, 1024, 1024, 128), True, "float16"),
+    ((8, 8, 256, 256, 128), False, "bfloat16"),  # 13f's encoder
+    ((8, 8, 256, 256, 128), False, "float16"),
     ((1, 2, 128, 256, 64), True, "bfloat16"),    # Sq < Sk
     ((1, 2, 128, 256, 64), True, "float16"),
     ((1, 2, 256, 128, 64), True, "bfloat16"),    # Sq > Sk: rows see no key
@@ -7894,6 +7928,898 @@ def data_phase(mx, card, c6, c10):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the RNN family: the fused RNN op over cuDNN against its plain
+# loop, bench_lstm.py's WordLM trained and served at full width, word_lm.py's
+# loop, CTCLoss at a speech-like size, an LSTM encoder under B1, and mx.rnn
+# through BucketingModule (no hand kernel of its own: cuDNN, as MXNet's GPU
+# path; B1's forward and backward run in 13f)
+# ---------------------------------------------------------------------------
+RNN_MODES = ("lstm", "gru", "rnn_tanh", "rnn_relu")
+RNN_SMALL = (7, 3, 5, 4)                    # T, N, I, H
+RNN_BENCH = (128, 256, 512, 512)            # bench_lstm.py's shape
+# 13a's cases: every mode at the small shape, the gated ones at the bench
+# shape.  A relu or tanh recurrence over 128 steps amplifies rounding past
+# these bounds in every implementation (the plain loop too), and relu's
+# steps flip by the thousands there; rnn_route_readings prints those cases
+RNN_CASES = ((RNN_SMALL, RNN_MODES, ("float32", "bfloat16", "float16")),
+             (RNN_BENCH, ("lstm", "gru"), ("float32", "bfloat16")))
+# bound on max|route - oracle| / max(1, max|oracle|) for each array, the
+# oracle the plain loop in f64 on the same values.  rnn_relu in 16 bits: its
+# derivative is a step at 0, and the 16-bit rounding of the same values can
+# put a pre-activation on the other side of 0 from the f64 run, which moves
+# that gradient by O(1) in any 16-bit implementation; so its gradients are
+# held to the plain loop in its own dtype (the same rounded values), its
+# forward arrays still to the f64 loop
+RNN_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
+RNN_TIMING_REPS = 10
+# bench_lstm.py:29-35 and :56-60 (its defaults) and word_lm.py's defaults
+WORD_LM = dict(vocab=10000, embed=512, hidden=512, layers=2, seq=128,
+               batch=256, lr=0.5)
+WORD_LM_SMALL = dict(vocab=200, embed=32, hidden=32, layers=2, seq=16,
+                     batch=8, lr=0.5)
+WORD_LM_WARMUP, WORD_LM_STEPS, WORD_LM_SMALL_STEPS = 3, 10, 3
+WORD_LM_SERVE_BATCH = 32
+WORD_LM_LOOP = dict(embed=64, hidden=128, layers=2, bptt=32, batch=32,
+                    epochs=6, lr=0.003, corpus=20000)
+CTC_SHAPE = (200, 32, 29)                   # T, N, C (28 letters + blank)
+CTC_LABEL_LENGTHS = (20, 50)
+CTC_EMPTY = 4                               # samples with an empty label
+CTC_TOL = 1e-4
+RNN_ENCODER = dict(vocab=10000, embed=512, hidden=512, heads=8, seq=256,
+                   batch=8, steps=3, lr=0.05)
+BUCKET_LM = dict(vocab=1000, embed=256, hidden=512, layers=2, batch=32,
+                 buckets=(16, 32, 48), sentences=384, lr=0.01, epochs=4)
+# the CPU's fit beside the card's from the same weights and batches: the
+# perplexity after each batch within 1e-3 relative (the two devices' f32
+# sums differ in order; adam amplifies that to ~3e-5 in an epoch)
+BUCKET_WITNESS_EPOCHS, BUCKET_WITNESS_TOL = 1, 1e-3
+
+
+def rnn_bound_ms(shape, layers, dirs, gates, itemsize, peak, passes=1):
+    """The least time of a fused recurrent stack over (T, N, I, H): its
+    products (2·T·N·gates·H·(I + H) flop a layer and direction; ``passes``
+    3 for a forward and backward) at ``peak``, against reading the data,
+    states and weights and writing the outputs and states once at 3.35
+    TB/s.  (ms, "operations" or "bytes", flop, bytes)."""
+    t, n, i, h = shape
+    flop, weights = 0.0, 0
+    for layer in range(layers):
+        in_dim = i if layer == 0 else dirs * h
+        flop += dirs * 2.0 * t * n * gates * h * (in_dim + h)
+        weights += dirs * gates * h * (in_dim + h + 2)
+    elems = t * n * i + weights + 4 * layers * dirs * n * h + \
+        t * n * dirs * h
+    nbytes = passes * elems * itemsize
+    ops_ms = passes * flop / peak * 1e3
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms
+            else "bytes", passes * flop, nbytes)
+
+
+def _rnn_case_inputs(rnn_ops, mode, bidirectional, dtype, shape, dev, seed):
+    import torch
+    t, n, i, h = shape
+    params = dict(state_size=h, num_layers=2, bidirectional=bidirectional,
+                  mode=mode)
+    shapes = rnn_ops._rnn_param_shapes((t, n, i), params)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    inputs = []
+    for name in rnn_ops._rnn_argnames(params):
+        scale = 1.0 if name in ("data", "state", "state_cell") else \
+            1.0 / math.sqrt(h)
+        s = (t, n, i) if name == "data" else shapes[name]
+        inputs.append((torch.randn(s, generator=gen, device=dev) * scale).to(
+            getattr(torch, dtype)))
+    return inputs, params, gen
+
+
+def _rel_err(got, want):
+    want = want.detach().double()
+    return float((got.detach().double() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def rnn_route_case(mx, mode, bidirectional, dtype, shape, seed=SEED):
+    """13a: one case of the fused op on CUDA tensors: the op's route (cuDNN
+    for a dtype it takes), the plain loop in the same dtype and the plain
+    loop in f64 on the same values: out, hy, cy and the gradients of data,
+    states and every weight for the same random head gradients.  Each
+    array is held to RNN_TOL against its oracle (the f64 loop; the
+    same-dtype loop for rnn_relu's gradients in 16 bits); the errors
+    against both loops are returned, with the cuDNN calls the op made."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops import rnn as rnn_ops
+    dev = mx.gpu(0).torch_device()
+    inputs, params, gen = _rnn_case_inputs(rnn_ops, mode, bidirectional,
+                                           dtype, shape, dev, seed)
+    heads = None
+
+    def run(fn, xs):
+        nonlocal heads
+        leaves = [x.detach().requires_grad_() for x in xs]
+        outs = fn(*leaves, **params)
+        if heads is None:
+            heads = [torch.randn(o.shape, generator=gen, device=dev)
+                     for o in outs]
+        pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, heads)
+                 if o.requires_grad]
+        torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
+        return [o.detach() for o in outs] + [x.grad for x in leaves]
+
+    before = (rnn_ops.rnn_op.cudnn_calls, rnn_ops.rnn_op.plain_calls)
+    got = run(rnn_ops.rnn_op, inputs)
+    calls = (rnn_ops.rnn_op.cudnn_calls - before[0],
+             rnn_ops.rnn_op.plain_calls - before[1])
+    plain = run(rnn_ops._rnn_reference, inputs)
+    f64 = run(rnn_ops._rnn_reference, [x.double() for x in inputs])
+    names = ["out", "hy", "cy"] + ["d_" + k for k in
+                                   rnn_ops._rnn_argnames(params)]
+    same_dtype = mode == "rnn_relu" and dtype != "float32"
+    errs, oracle = {}, {}
+    for k, g, p_, o in zip(names, got, plain, f64):
+        if k == "cy" and mode != "lstm":
+            continue
+        errs[k] = dict(f64=_rel_err(g, o), plain=_rel_err(g, p_),
+                       plain_f64=_rel_err(p_, o))
+        oracle[k] = "plain" if same_dtype and k.startswith("d_") else "f64"
+    held = {k: errs[k][oracle[k]] for k in errs}
+    worst = max(held, key=held.get)
+    return dict(mode=mode, bidirectional=bidirectional, dtype=dtype,
+                shape=shape, route=rnn_ops._route(inputs[0]),
+                calls=dict(cudnn=calls[0], plain=calls[1]),
+                max_abs_err=max(held.values()), worst=worst,
+                worst_oracle=oracle[worst], bound=RNN_TOL[dtype],
+                ok=max(held.values()) <= RNN_TOL[dtype], errs=errs,
+                readings={w: max(v[w] for v in errs.values())
+                          for w in ("f64", "plain_f64", "plain")})
+
+
+def rnn_route_readings(mx, card):
+    """13a's readings where it holds no bound (run alone: python3 -c
+    "import chip_smoke as cs, incubator_mxnet_tpu_torch as mx;
+    cs.rnn_route_readings(mx, cs.card_line())"): rnn_tanh and rnn_relu at
+    bench_lstm.py's shape in f32 and bf16, each array's distance from the
+    f64 loop on the route and on the same-dtype plain loop, and the
+    route's from that loop."""
+    for dtype in ("float32", "bfloat16"):
+        for mode in ("rnn_tanh", "rnn_relu"):
+            for bidirectional in (False, True):
+                row = rnn_route_case(mx, mode, bidirectional, dtype,
+                                     RNN_BENCH)
+                fwd = [k for k in row["errs"] if not k.startswith("d_")]
+                top = {which: (max(row["errs"][k][which] for k in fwd),
+                               max(v[which] for v in row["errs"].values()))
+                       for which in ("f64", "plain_f64", "plain")}
+                print("rnn 13a reading: %s %s %s 2 layers at (T, N, I, H) "
+                      "%s, route %s %s: largest error (forward arrays; all "
+                      "arrays) of the route against the f64 loop %.3e; "
+                      "%.3e, of the plain %s loop against it %.3e; %.3e, "
+                      "of the route against the plain %s loop %.3e; %.3e "
+                      "| %s" % (mode, "bidirectional" if bidirectional else
+                                "unidirectional", dtype, RNN_BENCH,
+                                row["route"], row["calls"], *top["f64"],
+                                dtype, *top["plain_f64"], dtype,
+                                *top["plain"], card), flush=True)
+
+
+def rnn_timing(mx, dtype, card, shape=RNN_BENCH):
+    """13a's timing at bench_lstm.py's shape: the 2-layer LSTM's cuDNN route
+    and plain loop, forward and forward+backward, by CUDA events, beside
+    the bound of the work; and what cuDNN's copy of the separate weights
+    into its flat buffer costs a call (the same forward with a buffer
+    flattened once)."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops import rnn as rnn_ops
+    dev = mx.gpu(0).torch_device()
+    inputs, params, gen = _rnn_case_inputs(rnn_ops, "lstm", False, dtype,
+                                           shape, dev, SEED + 1)
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    head = torch.randn(shape[:2] + (shape[3],), generator=gen,
+                       device=dev).to(inputs[0].dtype)
+
+    def fwd(fn):
+        with torch.no_grad():
+            fn(*inputs, **params)
+
+    def fwd_bwd(fn):
+        out = fn(*leaves, **params)[0]
+        out.backward(head)
+
+    reps = RNN_TIMING_REPS
+    t = dict(cudnn_fwd_ms=cuda_ms(lambda: fwd(rnn_ops.rnn_op), reps, torch),
+             plain_fwd_ms=cuda_ms(lambda: fwd(rnn_ops._rnn_reference), 3,
+                                  torch),
+             cudnn_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(rnn_ops.rnn_op), reps,
+                                      torch),
+             plain_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(
+                 rnn_ops._rnn_reference), 3, torch))
+    # one layer through cuDNN as the op calls it (weights copied into a
+    # flat buffer each call) and with a buffer flattened once
+    t_, n_, i_, h_ = shape
+    w = [x.detach().clone() for x in inputs[3:3 + 2]] + \
+        [x.detach().clone() for x in inputs[3 + 4:3 + 6]]
+    x0, h0, c0 = inputs[0], inputs[1][:1].contiguous(), \
+        inputs[2][:1].contiguous()
+    buf = torch._cudnn_rnn_flatten_weight(w, 4, i_, 2, h_, 0, 1, False,
+                                          False)
+
+    def layer(weight_buf):
+        with torch.no_grad():
+            torch._cudnn_rnn(x0, w, 4, weight_buf, h0, c0, 2, h_, 0, 1,
+                             False, 0.0, False, False, [], None)
+
+    t["layer_copy_ms"] = cuda_ms(lambda: layer(None), reps, torch)
+    t["layer_flat_ms"] = cuda_ms(lambda: layer(buf), reps, torch)
+    t["weight_copy_ms"] = t["layer_copy_ms"] - t["layer_flat_ms"]
+    itemsize = inputs[0].element_size()
+    peak = H100_BF16_FLOPS if dtype == "bfloat16" else \
+        H100_F32_CUDA_CORE_FLOPS
+    for passes, key in ((1, "fwd"), (3, "fwd_bwd")):
+        ms, by, flop, nbytes = rnn_bound_ms(shape, 2, 1, 4, itemsize, peak,
+                                            passes)
+        t["bound_%s_ms" % key], t["bound_%s_by" % key] = ms, by
+        t["flop_%s" % key], t["bytes_%s" % key] = flop, nbytes
+    print("rnn 13a: timing LSTM 2 layers at (T, N, I, H) %s %s: cuDNN "
+          "forward %.4f ms, forward+backward %.4f ms; plain loop forward "
+          "%.4f ms, forward+backward %.4f ms; bound forward %.4f ms (%s: "
+          "%.3e flop at %.0f TFLOP/s, %.3e bytes at 3.35 TB/s), "
+          "forward+backward %.4f ms (%s); one layer's forward %.4f ms with "
+          "the weights copied into cuDNN's buffer (the op), %.4f ms from a "
+          "buffer flattened once: the copy %.4f ms a call | %s"
+          % (shape, dtype, t["cudnn_fwd_ms"], t["cudnn_fwd_bwd_ms"],
+             t["plain_fwd_ms"], t["plain_fwd_bwd_ms"], t["bound_fwd_ms"],
+             t["bound_fwd_by"], t["flop_fwd"], peak / 1e12, t["bytes_fwd"],
+             t["bound_fwd_bwd_ms"], t["bound_fwd_bwd_by"],
+             t["layer_copy_ms"], t["layer_flat_ms"], t["weight_copy_ms"],
+             card), flush=True)
+    return t
+
+
+def rnn_card_contracts(mx, card):
+    """13a's contracts: TF32 stays off inside an f32 call (and the caller's
+    switch comes back), ``record(train_mode=False)`` then ``backward()``
+    through cuDNN, and a gluon.rnn.LSTM inside ``mx.engine.bulk`` (its
+    neighbours deferred into a captured graph, the RNN op not deferrable)
+    bit-equal to eager."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops import rnn as rnn_ops
+    dev = mx.gpu(0).torch_device()
+    out = {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True          # torch's default
+    try:
+        row = rnn_route_case(mx, "lstm", True, "float32", RNN_BENCH)
+        out["tf32_on_caller"] = dict(max_abs_err=row["max_abs_err"],
+                                     worst=row["worst"], ok=row["ok"])
+        check(torch.backends.cudnn.allow_tf32,
+              "13a: the caller's TF32 switch did not come back")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    check(out["tf32_on_caller"]["max_abs_err"] <= RNN_TOL["float32"],
+          "13a: f32 with the caller's TF32 on: %s" % out["tf32_on_caller"])
+
+    inputs, params, _ = _rnn_case_inputs(rnn_ops, "lstm", True, "float32",
+                                         RNN_SMALL, dev, SEED + 2)
+    nds = [mx.nd.array(x.cpu().numpy(), ctx=mx.gpu(0)) for x in inputs]
+    cpu = [mx.nd.array(x.cpu().numpy(), ctx=mx.cpu()) for x in inputs]
+    for a in nds + cpu:
+        a.attach_grad()
+    before = rnn_ops.rnn_op.cudnn_calls
+    with mx.autograd.record(train_mode=False):
+        y = mx.nd.RNN(*nds, **params)
+    y.backward()
+    with mx.autograd.record(train_mode=False):
+        y_cpu = mx.nd.RNN(*cpu, **params)
+    y_cpu.backward()
+    err = max(_rel_err(a.grad._data, b.grad._data.to(dev))
+              for a, b in zip(nds, cpu))
+    out["inference_record_backward"] = dict(
+        cudnn_calls=rnn_ops.rnn_op.cudnn_calls - before, max_abs_err=err)
+    check(out["inference_record_backward"]["cudnn_calls"] == 2 and
+          err <= RNN_TOL["float32"], "13a: record(train_mode=False) and "
+          "backward on the card: %s" % out["inference_record_backward"])
+    layer = mx.gluon.rnn.LSTM(64, num_layers=2, layout="NTC", input_size=32)
+    layer.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    x = mx.nd.array(np.random.RandomState(SEED).standard_normal(
+        (16, 24, 32)).astype(np.float32), ctx=mx.gpu(0))
+    want = (layer(x * 2.0) + 1.0).asnumpy()
+    mx.engine.reset_flush_stats()
+    with mx.engine.bulk(64):
+        got = layer(x * 2.0) + 1.0
+    got = got.asnumpy()
+    stats = mx.engine.flush_stats()
+    out["bulk"] = dict(bit_equal=bool(np.array_equal(got, want)),
+                       flushes=stats["causes"], graphs=stats["graphs"])
+    check(out["bulk"]["bit_equal"], "13a: the LSTM inside mx.engine.bulk "
+          "differs from eager: %s" % out["bulk"])
+    print("rnn 13a: contracts %s | %s" % (json.dumps(out), card), flush=True)
+    return out
+
+
+def word_lm_net(mx, vocab, embed, hidden, layers):
+    """bench_lstm.py:40-52's WordLM (and word_lm.py:55-65's) in the port."""
+    gluon, nn, rnn = mx.gluon, mx.gluon.nn, mx.gluon.rnn
+
+    class WordLM(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.embed = nn.Embedding(vocab, embed)
+                self.lstm = rnn.LSTM(hidden, num_layers=layers,
+                                     layout="NTC", input_size=embed)
+                self.proj = nn.Dense(vocab, flatten=False, in_units=hidden)
+
+        def hybrid_forward(self, F, x):
+            return self.proj(self.lstm(self.embed(x)))
+
+    return WordLM()
+
+
+def word_lm_flops(cfg, tokens):
+    """3 × (2·T·N·4H·(I + H) a layer + 2·T·N·H·V): the LSTM's and the
+    projection's products, forward and backward (the embedding's gather
+    and the elementwise gates not counted)."""
+    h, layers = cfg["hidden"], cfg["layers"]
+    per = sum(2.0 * tokens * 4 * h * ((cfg["embed"] if i == 0 else h) + h)
+              for i in range(layers))
+    return 3 * (per + 2.0 * tokens * h * cfg["vocab"])
+
+
+def word_lm_small(mx, card):
+    """13b's small net (WORD_LM_SMALL, f32) trained WORD_LM_SMALL_STEPS
+    steps through DataParallelTrainer on the card and on the CPU from the
+    same weights: losses and weights within 1e-4."""
+    import torch
+    from incubator_mxnet_tpu_torch.convert import numpy_params
+    cfg = WORD_LM_SMALL
+    rs = np.random.RandomState(SEED + 3)
+    shape = (WORD_LM_SMALL_STEPS, cfg["batch"], cfg["seq"])
+    xs = rs.randint(0, cfg["vocab"], shape)
+    ys = rs.randint(0, cfg["vocab"], shape).astype(np.float32)
+    runs = []
+    weights = None
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = word_lm_net(mx, cfg["vocab"], cfg["embed"], cfg["hidden"],
+                          cfg["layers"])
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        if weights is None:
+            weights = list(numpy_params(net).values())
+        else:      # another prefix, the same parameters in the same order
+            for p, w in zip(net.collect_params().values(), weights):
+                p.set_data(mx.nd.array(w, ctx=ctx))
+        tr = mx.parallel.DataParallelTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": cfg["lr"]})
+        losses = [float(tr.step(mx.nd.array(x, ctx=ctx, dtype="int32"),
+                                mx.nd.array(y, ctx=ctx)).asnumpy())
+                  for x, y in zip(xs, ys)]
+        tr.sync_params()
+        runs.append((losses, list(numpy_params(net).values())))
+    (gl, gw), (cl, cw) = runs
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    weight_err = max(float(np.abs(g - c).max()) / max(
+        1.0, float(np.abs(c).max())) for g, c in zip(gw, cw))
+    print("rnn 13b: WordLM %s f32, %d DataParallelTrainer steps on the card "
+          "against the CPU from the same weights: losses %s vs %s, worst "
+          "loss error %.3e relative, worst weight error %.3e (bound 1e-4) "
+          "| %s" % (cfg, WORD_LM_SMALL_STEPS, ["%.6f" % v for v in gl],
+                    ["%.6f" % v for v in cl], loss_err, weight_err, card),
+          flush=True)
+    check(loss_err <= 1e-4 and weight_err <= 1e-4, "13b: the small WordLM "
+          "on the card differs from the CPU")
+    torch.cuda.synchronize()
+    return dict(losses=gl, cpu_losses=cl, loss_err=loss_err,
+                weight_err=weight_err)
+
+
+def word_lm_train(mx, card):
+    """13b at full width: bench_lstm.py's step (DataParallelTrainer, sgd at
+    lr 0.5, bf16 compute with f32 master weights) on its shape, then one
+    step under the profiler (device time by kernel group); returns the
+    trained net for 13c."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops import rnn as rnn_ops
+    cfg = WORD_LM
+    t0 = time.perf_counter()
+    mx.random.seed(SEED)
+    net = word_lm_net(mx, cfg["vocab"], cfg["embed"], cfg["hidden"],
+                      cfg["layers"])
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    rs = np.random.RandomState(0)
+    x = mx.nd.array(rs.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"])),
+                    ctx=mx.gpu(0), dtype="int32")
+    y = mx.nd.array(rs.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]))
+                    .astype(np.float32), ctx=mx.gpu(0))
+    trainer = mx.parallel.DataParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": cfg["lr"]}, dtype="bfloat16")
+    losses, step_ms = [], []
+    for i in range(WORD_LM_WARMUP + WORD_LM_STEPS):
+        if i == WORD_LM_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rnn_ops.rnn_op.cudnn_calls = rnn_ops.rnn_op.plain_calls = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(trainer.step(x, y).asnumpy()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    calls = dict(cudnn=rnn_ops.rnn_op.cudnn_calls,
+                 plain=rnn_ops.rnn_op.plain_calls)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = cfg["batch"] * cfg["seq"]
+    timed = step_ms[WORD_LM_WARMUP:]
+    mean_s = sum(timed) / len(timed) / 1e3
+    flops = word_lm_flops(cfg, tokens)
+    n_params = sum(int(np.prod(p.shape)) for p in
+                   net.collect_params().values())
+    result = dict(n_params=n_params, step_ms=timed,
+                  step_ms_mean=mean_s * 1e3, tokens_per_s=tokens / mean_s,
+                  mfu=flops / mean_s / H100_BF16_FLOPS,
+                  model_flops_per_step=flops, peak_memory_bytes=peak,
+                  losses=losses, calls=calls,
+                  built_s=time.perf_counter() - t0 - sum(step_ms) / 1e3)
+    for i, (ms, loss) in enumerate(zip(step_ms, losses)):
+        print("rnn 13b: step %d%s: %.3f ms, loss %.6f | %s"
+              % (i, " (warm-up)" if i < WORD_LM_WARMUP else "", ms, loss,
+                 card))
+    print("rnn 13b: WordLM %s (%d parameters), DataParallelTrainer sgd, "
+          "bf16 compute: %d timed steps, mean %.3f ms, %.1f tokens/s, MFU "
+          "%.4f (%.4e flop a step: 3 x (2·T·N·4H·(I+H) a layer + "
+          "2·T·N·H·V), over 989 TFLOP/s), peak memory allocated %d bytes; "
+          "RNN op routes in the timed steps %s | %s"
+          % (cfg, n_params, WORD_LM_STEPS, result["step_ms_mean"],
+             result["tokens_per_s"], result["mfu"], flops, peak, calls,
+             card), flush=True)
+    check(all(math.isfinite(v) for v in losses), "13b: loss not finite: %s"
+          % losses)
+    check(losses[-1] < losses[0], "13b: loss did not fall: %s" % losses)
+    check(calls["cudnn"] == cfg["layers"] * WORD_LM_STEPS and
+          calls["plain"] == 0, "13b: RNN routes %s, expected %d cuDNN calls"
+          % (calls, cfg["layers"] * WORD_LM_STEPS))
+    profile_device(lambda: trainer.step(x, y).asnumpy(), "one WordLM step",
+                   {"cudnn_rnn": "rnn", "cudnn_lstm": "lstm"}, flops, card)
+    trainer.sync_params()
+    del trainer, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return net, result
+
+
+def word_lm_serve(mx, net, card):
+    """13c: the trained full-width net in bf16 answering requests of
+    WORD_LM_SERVE_BATCH x seq tokens with nothing recorded: request ms,
+    tokens/s, and one request under the profiler (device busy time)."""
+    import torch
+    cfg = WORD_LM
+    net.cast("bfloat16")
+    net.collect_params().setattr("grad_req", "null")
+    rs = np.random.RandomState(SEED + 4)
+    x = mx.nd.array(rs.randint(0, cfg["vocab"], (WORD_LM_SERVE_BATCH,
+                                                 cfg["seq"])),
+                    ctx=mx.gpu(0), dtype="int32")
+
+    def request():
+        with mx.autograd.predict_mode():
+            logits = net(x)
+        logits.wait_to_read()
+        return logits
+
+    request()
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = request()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    tokens = WORD_LM_SERVE_BATCH * cfg["seq"]
+    check(out.shape == (WORD_LM_SERVE_BATCH, cfg["seq"], cfg["vocab"]) and
+          bool(torch.isfinite(out._data).all()), "13c: logits %s not finite"
+          " or of the wrong shape" % (out.shape,))
+    prof, wall_us = profiled(request)
+    busy_us = sum(us for us, _ in trace_kernels(prof).values())
+    mean = sum(ms) / len(ms)
+    result = dict(request_ms=ms, request_ms_mean=mean,
+                  tokens_per_s=tokens / mean * 1e3,
+                  device_busy_ms=busy_us / 1e3 if busy_us else None,
+                  profiled_wall_ms=wall_us / 1e3)
+    print("rnn 13c: WordLM bf16 forward, %d x %d tokens, nothing recorded: "
+          "requests %s ms (mean %.3f), %.1f tokens/s; under the profiler "
+          "device busy %s ms of %.3f ms wall | %s"
+          % (WORD_LM_SERVE_BATCH, cfg["seq"], ["%.3f" % v for v in ms], mean,
+             result["tokens_per_s"], "%.3f" % result["device_busy_ms"]
+             if busy_us else "not measured", wall_us / 1e3, card),
+          flush=True)
+    return result
+
+
+def synth_corpus(n, seed=0):
+    """word_lm.py:33-44's Markov-chain characters over 26 symbols."""
+    rs = np.random.RandomState(seed)
+    trans = rs.dirichlet(np.ones(26) * 0.2, size=26)
+    out = np.zeros(n, np.int64)
+    s = 0
+    for i in range(n):
+        s = rs.choice(26, p=trans[s])
+        out[i] = s
+    return out, 26
+
+
+def word_lm_loop(mx, card):
+    """13d: word_lm.py:64-136 at its defaults on the card: gluon.Trainer
+    adam, the LSTM's state carried across BPTT windows and detached each
+    step, WORD_LM_LOOP epochs; the final perplexity below the unigram one
+    (tests/test_examples.py:93-101)."""
+    cfg = WORD_LM_LOOP
+    t0 = time.perf_counter()
+    mx.random.seed(1)
+    corpus, vocab = synth_corpus(cfg["corpus"])
+    per_row = len(corpus) // cfg["batch"]
+    trimmed = corpus[:per_row * cfg["batch"]].reshape(cfg["batch"], per_row)
+    nwin = (per_row - 1) // cfg["bptt"]
+    bptt = cfg["bptt"]
+    xs = [trimmed[:, i * bptt:(i + 1) * bptt] for i in range(nwin)]
+    ys = [trimmed[:, i * bptt + 1:(i + 1) * bptt + 1] for i in range(nwin)]
+    net = word_lm_net(mx, vocab, cfg["embed"], cfg["hidden"], cfg["layers"])
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                          {"learning_rate": cfg["lr"]})
+    ppl = []
+    for _ in range(cfg["epochs"]):
+        state, total = None, 0.0
+        for x, y in zip(xs, ys):
+            xb = mx.nd.array(x.astype(np.float32), ctx=mx.gpu(0))
+            yb = mx.nd.array(y.astype(np.float32), ctx=mx.gpu(0))
+            if state is None:
+                state = net.lstm.begin_state(x.shape[0], ctx=mx.gpu(0))
+            with mx.autograd.record():
+                out, new_state = net.lstm(net.embed(xb), state)
+                loss = loss_fn(net.proj(out), yb)
+            loss.backward()
+            tr.step(x.shape[0])
+            state = [s.detach() for s in new_state]
+            total += float(loss.asnumpy().mean())
+        ppl.append(math.exp(min(total / nwin, 20)))
+    counts = np.bincount(corpus, minlength=vocab).astype(np.float64)
+    p = counts / counts.sum()
+    unigram = math.exp(-(p[p > 0] * np.log(p[p > 0])).sum())
+    seconds = time.perf_counter() - t0
+    print("rnn 13d: word_lm.py's loop %s, %d windows an epoch: perplexity "
+          "by epoch %s, unigram %.4f, %.1f s | %s"
+          % (cfg, nwin, ["%.4f" % v for v in ppl], unigram, seconds, card),
+          flush=True)
+    check(ppl[-1] < unigram, "13d: final perplexity %.4f not below the "
+          "unigram %.4f" % (ppl[-1], unigram))
+    return dict(perplexity=ppl, unigram=unigram, seconds=seconds,
+                windows=nwin)
+
+
+def ctc_on_card(mx, card):
+    """13e: CTCLoss at CTC_SHAPE with labels of CTC_LABEL_LENGTHS tokens and
+    CTC_EMPTY empty ones: the card's loss and data gradient against the
+    CPU's in f32, each within CTC_TOL relative, and the card's loss against
+    the CPU in f64 within CTC_TOL.  The data gradient's distance from the
+    CPU in f64 is a reading, printed beside the CPU's own in f32 (a long
+    label's log-space sums lose ~4e-4 in f32 on either device); and the
+    card's forward+backward time."""
+    import torch
+    t, n, c = CTC_SHAPE
+    rs = np.random.RandomState(SEED + 5)
+    data = rs.standard_normal((t, n, c)).astype(np.float32)
+    lengths = rs.randint(CTC_LABEL_LENGTHS[0], CTC_LABEL_LENGTHS[1] + 1, n)
+    lengths[:CTC_EMPTY] = 0
+    label = np.zeros((n, CTC_LABEL_LENGTHS[1]), np.float32)
+    for i, k in enumerate(lengths):
+        label[i, :k] = rs.randint(1, c, k)
+    res = {}
+    for name, ctx, dtype in (("card", mx.gpu(0), "float32"),
+                             ("cpu", mx.cpu(), "float32"),
+                             ("cpu_f64", mx.cpu(), "float64")):
+        d = mx.nd.array(data, ctx=ctx, dtype=dtype)
+        lab = mx.nd.array(label, ctx=ctx)
+        d.attach_grad()
+        with mx.autograd.record():
+            loss = mx.nd.CTCLoss(d, lab)
+        loss.backward()
+        res[name] = (loss.asnumpy().astype(np.float64),
+                     d.grad.asnumpy().astype(np.float64))
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+    loss_err = rel(res["card"][0], res["cpu_f64"][0])
+    grad_err = rel(res["card"][1], res["cpu_f64"][1])
+    cpu_grad_err = rel(res["cpu"][1], res["cpu_f64"][1])
+    card_cpu = (rel(res["card"][0], res["cpu"][0]),
+                rel(res["card"][1], res["cpu"][1]))
+    d = mx.nd.array(data, ctx=mx.gpu(0))
+    lab = mx.nd.array(label, ctx=mx.gpu(0))
+    d.attach_grad()
+
+    def step():
+        with mx.autograd.record():
+            loss = mx.nd.CTCLoss(d, lab)
+        loss.backward()
+
+    ms = cuda_ms(step, 10, torch)
+    out = dict(loss_err=loss_err, grad_err=grad_err,
+               cpu_f32_grad_err=cpu_grad_err, card_vs_cpu_f32=card_cpu,
+               fwd_bwd_ms=ms, empty_losses=res["card"][0][:CTC_EMPTY].tolist())
+    print("rnn 13e: CTCLoss (T, N, C) %s, labels of %s tokens and %d empty: "
+          "the card against the CPU in f32: loss %.3e, data gradient %.3e "
+          "(bound %.0e each); the card's loss against the CPU in f64 %.3e "
+          "(bound %.0e); reading, no bound: the data gradient against the "
+          "CPU in f64 %.3e on the card, %.3e on the CPU in f32; "
+          "forward+backward %.4f ms on the card | %s"
+          % (CTC_SHAPE, CTC_LABEL_LENGTHS, CTC_EMPTY, card_cpu[0],
+             card_cpu[1], CTC_TOL, loss_err, CTC_TOL, grad_err, cpu_grad_err,
+             ms, card), flush=True)
+    check(np.isfinite(res["card"][0]).all() and card_cpu[0] <= CTC_TOL and
+          card_cpu[1] <= CTC_TOL and loss_err <= CTC_TOL,
+          "13e: CTC card vs CPU %s" % out)
+    return out
+
+
+def rnn_encoder_attention(mx, card):
+    """13f: a bidirectional gluon.rnn.LSTM encoder under
+    gluon.nn.MultiHeadAttention (head dim 128) trained RNN_ENCODER["steps"]
+    steps in bf16 through DataParallelTrainer: kernel B1's forward and
+    backward launches, counted from 0 just before and read just after
+    (phase 3 holds both kernels to the plain version at this shape,
+    ATTENTION_CASES and BACKWARD_CASES)."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops.attention import flash_attention
+    from incubator_mxnet_tpu_torch.ops import rnn as rnn_ops
+    cfg = RNN_ENCODER
+    units = 2 * cfg["hidden"]
+    gluon = mx.gluon
+
+    class Encoder(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.embed = gluon.nn.Embedding(cfg["vocab"], cfg["embed"])
+                self.lstm = gluon.rnn.LSTM(cfg["hidden"], layout="NTC",
+                                           bidirectional=True,
+                                           input_size=cfg["embed"])
+                self.attn = gluon.nn.MultiHeadAttention(units, cfg["heads"])
+                self.proj = gluon.nn.Dense(cfg["vocab"], flatten=False,
+                                           in_units=units)
+
+        def hybrid_forward(self, F, x):
+            return self.proj(self.attn(self.lstm(self.embed(x))))
+
+    mx.random.seed(SEED)
+    net = Encoder()
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    rs = np.random.RandomState(SEED + 6)
+    shape = (cfg["batch"], cfg["seq"])
+    x = mx.nd.array(rs.randint(0, cfg["vocab"], shape), ctx=mx.gpu(0),
+                    dtype="int32")
+    y = mx.nd.array(rs.randint(0, cfg["vocab"], shape).astype(np.float32),
+                    ctx=mx.gpu(0))
+    trainer = mx.parallel.DataParallelTrainer(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": cfg["lr"]}, dtype="bfloat16")
+    counters = ("launches", "backward_kernel_launches",
+                "backward_torch_calls", "backward_calls")
+    # the first step also runs a forward that resolves the deferred shapes
+    losses = [float(trainer.step(x, y).asnumpy())]
+    torch.cuda.synchronize()
+    for k in counters:
+        setattr(flash_attention, k, 0)
+    rnn_ops.rnn_op.cudnn_calls = 0
+    losses += [float(trainer.step(x, y).asnumpy())
+               for _ in range(cfg["steps"])]
+    launches = {k: getattr(flash_attention, k) for k in counters}
+    launches["rnn_cudnn_calls"] = rnn_ops.rnn_op.cudnn_calls
+    print("rnn 13f: Encoder (Embedding, bidirectional LSTM %d, "
+          "MultiHeadAttention %d units x %d heads: head dim %d, Dense) %s in "
+          "bf16, a first step then %d counted DataParallelTrainer steps: "
+          "losses %s; counters in the counted steps %s | %s"
+          % (cfg["hidden"], units, cfg["heads"], units // cfg["heads"], cfg,
+             cfg["steps"], ["%.6f" % v for v in losses], launches, card),
+          flush=True)
+    check(all(math.isfinite(v) for v in losses), "13f: loss not finite")
+    check(launches["launches"] == cfg["steps"] and
+          launches["backward_kernel_launches"] == cfg["steps"] and
+          launches["backward_torch_calls"] == 0 and
+          launches["rnn_cudnn_calls"] == cfg["steps"],
+          "13f: counters %s, expected %d flash forward and backward kernel "
+          "launches, no torch-ops backward, one cuDNN call a step"
+          % (launches, cfg["steps"]))
+    del trainer, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, launches=launches)
+
+
+def bucket_lm_module(mx, ctx):
+    """13g's FusedRNNCell LM (BUCKET_LM) as a BucketingModule on ``ctx``,
+    with its BucketSentenceIter (each next token the one after it, mod
+    vocab - 1: learnable), the shuffles seeded from SEED."""
+    cfg = BUCKET_LM
+    rs = np.random.RandomState(SEED + 7)
+    sentences = [[1 + (s + i) % (cfg["vocab"] - 1) for i in range(k)]
+                 for s, k in zip(rs.randint(0, cfg["vocab"] - 1,
+                                            cfg["sentences"]),
+                                 rs.choice(cfg["buckets"],
+                                           cfg["sentences"]))]
+    random.seed(SEED)
+    np.random.seed(SEED)
+    with ctx:
+        it = mx.rnn.BucketSentenceIter(sentences, cfg["batch"],
+                                       buckets=list(cfg["buckets"]),
+                                       invalid_label=0)
+    cell = mx.rnn.FusedRNNCell(cfg["hidden"], num_layers=cfg["layers"],
+                               mode="lstm", prefix="lm_")
+    h = cfg["hidden"]
+
+    def sym_gen(seq_len):
+        data = mx.sym.var("data")
+        label = mx.sym.var("softmax_label")
+        emb = mx.sym.Embedding(data, input_dim=cfg["vocab"],
+                               output_dim=cfg["embed"], name="embed")
+        out, _ = cell.unroll(seq_len, emb, merge_outputs=True)
+        pred = mx.sym.FullyConnected(mx.sym.Reshape(out, shape=(-1, h)),
+                                     num_hidden=cfg["vocab"], name="pred")
+        pred = mx.sym.SoftmaxOutput(pred, mx.sym.Reshape(label, shape=(-1,)),
+                                    name="softmax")
+        return pred, ("data",), ("softmax_label",)
+
+    return it, mx.mod.BucketingModule(sym_gen, default_bucket_key=max(
+        cfg["buckets"]), context=ctx)
+
+
+def bucket_lm_fit(mx, ctx, weights, epochs):
+    """BucketingModule.fit of 13g's LM on ``ctx`` from ``weights`` (name ->
+    numpy) for ``epochs`` epochs, adam at BUCKET_LM["lr"]: the module and
+    (epoch, the epoch's perplexity so far) after each batch."""
+    it, mod = bucket_lm_module(mx, ctx)
+    seen = []
+    with ctx:
+        mod.fit(it, num_epoch=epochs, eval_metric=mx.metric.Perplexity(
+            ignore_label=0), optimizer="adam",
+            optimizer_params={"learning_rate": BUCKET_LM["lr"]},
+            arg_params={k: mx.nd.array(v, ctx=ctx)
+                        for k, v in weights.items()},
+            batch_end_callback=lambda p: seen.append(
+                (p.epoch, p.eval_metric.get()[1])))
+    return mod, seen
+
+
+def bucket_lm(mx, card):
+    """13g: mx.rnn on the card: a FusedRNNCell LM (BUCKET_LM) unrolled per
+    bucket of BucketSentenceIter and trained BUCKET_LM["epochs"] epochs by
+    BucketingModule.fit from weights drawn on the host (Xavier after
+    mx.random.seed(SEED)), the last epoch's perplexity below half the
+    first's (as tests/test_torch_rnn_symbolic.py asks on the CPU); its
+    witness, the same fit on the CPU from the same weights and batches for
+    BUCKET_WITNESS_EPOCHS epoch, within BUCKET_WITNESS_TOL of the card's
+    perplexity after each batch; then unfuse() against the fused node on
+    the card, same weights, within 1e-4."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops import rnn as rnn_ops
+    cfg = BUCKET_LM
+    t0 = time.perf_counter()
+    it, host = bucket_lm_module(mx, mx.cpu())
+    with mx.cpu():
+        host.bind(it.provide_data, it.provide_label)
+        mx.random.seed(SEED)
+        host.init_params(mx.init.Xavier())
+    weights = {k: v.asnumpy() for k, v in host.get_params()[0].items()}
+    rnn_ops.rnn_op.cudnn_calls = rnn_ops.rnn_op.plain_calls = 0
+    mod, seen = bucket_lm_fit(mx, mx.gpu(0), weights, cfg["epochs"])
+    calls = dict(cudnn=rnn_ops.rnn_op.cudnn_calls,
+                 plain=rnn_ops.rnn_op.plain_calls)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    _, cpu_seen = bucket_lm_fit(mx, mx.cpu(), weights, BUCKET_WITNESS_EPOCHS)
+    witness_err = max(abs(g - c) / c for (_, g), (_, c) in
+                      zip(seen, cpu_seen))
+    rs = np.random.RandomState(SEED + 8)
+    # unfuse() against the fused node, bidirectional, on the card
+    fcell = mx.rnn.FusedRNNCell(64, num_layers=2, mode="lstm",
+                                bidirectional=True, prefix="u_")
+    fout, _ = fcell.unroll(12, mx.sym.var("data"), merge_outputs=True)
+    uout, _ = fcell.unfuse().unroll(12, mx.sym.var("data"),
+                                    merge_outputs=True)
+    arg_shapes, _, _ = fout.infer_shape(data=(8, 12, 32))
+    vals = {n: mx.nd.array((rs.standard_normal(s) * 0.3).astype(np.float32),
+                           ctx=mx.gpu(0))
+            for n, s in zip(fout.list_arguments(), arg_shapes)}
+    fused = fout.eval_dict(vals)
+    fused = (fused[0] if isinstance(fused, list) else fused).asnumpy()
+    unfused = uout.eval_dict(vals).asnumpy()
+    unfuse_err = float(np.abs(fused - unfused).max() /
+                       max(1.0, np.abs(fused).max()))
+    by_epoch = [v for e, v in sorted(dict(seen).items())]
+    out = dict(batches=len(seen), perplexity_first_batch=seen[0][1],
+               perplexity_by_epoch=by_epoch, buckets=sorted(mod._buckets),
+               calls=calls, fit_s=fit_s, witness_err=witness_err,
+               witness_batches=len(cpu_seen), unfuse_err=unfuse_err)
+    print("rnn 13g: BucketingModule.fit of a FusedRNNCell LM %s over "
+          "BucketSentenceIter from host-drawn weights: %d batches, buckets "
+          "bound %s, perplexity %.4f after the first batch, by epoch %s (the "
+          "last below half the first), RNN routes %s, %.1f s; the CPU's fit "
+          "from the same weights, %d batches: %s after its last, the card's "
+          "perplexities within %.3e of it relative (bound %.0e); unfuse() "
+          "against the fused node on the card: %.3e relative (bound 1e-4) "
+          "| %s" % (cfg, len(seen), out["buckets"], seen[0][1],
+                    ["%.4f" % v for v in by_epoch], calls, fit_s,
+                    len(cpu_seen), "%.4f" % cpu_seen[-1][1], witness_err,
+                    BUCKET_WITNESS_TOL, unfuse_err, card), flush=True)
+    check(witness_err <= BUCKET_WITNESS_TOL, "13g: the card's fit differs "
+          "from the CPU's from the same weights: %s" % out)
+    check(np.isfinite(by_epoch).all() and len(out["buckets"]) ==
+          len(cfg["buckets"]) and calls["cudnn"] > 0 and
+          calls["plain"] == 0, "13g: %s" % out)
+    check(by_epoch[-1] < by_epoch[0] / 2, "13g: the perplexity did not fall "
+          "to half: %s" % by_epoch)
+    check(unfuse_err <= 1e-4, "13g: unfuse() differs from the fused cell")
+    return out
+
+
+def rnn_phase(mx, card):
+    """Phase 13: 13a-13g; the phase's seconds."""
+    import torch
+    t13 = time.perf_counter()
+    rows = []
+    for shape, modes, dtypes in RNN_CASES:
+        for dtype in dtypes:
+            for mode in modes:
+                for bidirectional in (False, True):
+                    row = rnn_route_case(mx, mode, bidirectional, dtype,
+                                         shape)
+                    rows.append(row)
+                    print("rnn 13a: %s %s %s 2 layers at (T, N, I, H) %s: "
+                          "route %s (%s), max_abs_err %.3e relative (%s "
+                          "against the %s loop; bound RNN_TOL %.0e); all "
+                          "arrays: the route %.3e from the f64 loop, the "
+                          "plain %s loop %.3e from it, the route %.3e from "
+                          "the plain %s loop | %s"
+                          % (mode, "bidirectional" if bidirectional else
+                             "unidirectional", dtype, shape, row["route"],
+                             row["calls"], row["max_abs_err"], row["worst"],
+                             "f64" if row["worst_oracle"] == "f64" else
+                             "same-dtype", row["bound"],
+                             row["readings"]["f64"], dtype,
+                             row["readings"]["plain_f64"],
+                             row["readings"]["plain"], dtype, card),
+                          flush=True)
+                    check(row["route"] == "cudnn" and
+                          row["calls"]["cudnn"] == 2,
+                          "13a: %s %s took route %s %s" % (
+                              mode, dtype, row["route"], row["calls"]))
+                    check(row["ok"], "13a: %s" % row)
+    torch.cuda.empty_cache()
+    out = dict(cases=[{k: r[k] for k in ("mode", "bidirectional", "dtype",
+                                         "shape", "route", "max_abs_err",
+                                         "worst", "worst_oracle", "bound")}
+                      for r in rows])
+    out["timing"] = {dt: rnn_timing(mx, dt, card)
+                     for dt in ("float32", "bfloat16")}
+    out["contracts"] = rnn_card_contracts(mx, card)
+    out["small"] = word_lm_small(mx, card)
+    net, out["train"] = word_lm_train(mx, card)
+    out["serve"] = word_lm_serve(mx, net, card)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["word_lm"] = word_lm_loop(mx, card)
+    out["ctc"] = ctc_on_card(mx, card)
+    out["encoder"] = rnn_encoder_attention(mx, card)
+    out["bucketing"] = bucket_lm(mx, card)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t13
+    print("rnn: phase 13 in %.1f s | %s" % (out["seconds"], card),
+          flush=True)
+    return out
+
+
 def main():
     import torch
     t_run = time.perf_counter()
@@ -8328,6 +9254,11 @@ def main():
                       store["config2"]["resnet50 Gluon"])
     data_launches = data["lm"]["launches"]
 
+    # phase 13: the RNN family (the fused RNN op over cuDNN, CTCLoss,
+    # gluon.rnn, mx.rnn); 13f runs kernel B1 under an LSTM encoder
+    rnn = rnn_phase(mx, card)
+    rnn_launches = rnn["encoder"]["launches"]
+
     def entry(name, source, design, launches_, err, t,
               replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -8352,16 +9283,19 @@ def main():
     print("kv: summary " + json.dumps(store, default=str), flush=True)
     print("bulk: summary " + json.dumps(bulk, default=str), flush=True)
     print("data: summary " + json.dumps(data, default=str), flush=True)
+    print("rnn: summary " + json.dumps(rnn, default=str), flush=True)
     print("smoke: the whole run took %.1f s | %s"
           % (time.perf_counter() - t_run, card), flush=True)
     print(json.dumps({"kernels": [
         entry("flash_attention_fwd", BF16_SOURCE, FLASH_DESIGN,
               launches["flash_attention_fwd"] + sym_launches["launches"] +
-              store_launches["launches"] + data_launches["launches"],
+              store_launches["launches"] + data_launches["launches"] +
+              rnn_launches["launches"],
               errs[serving], bf16,
               symbolic_executor_launches=sym_launches["launches"],
               store_trainer_launches=store_launches["launches"],
               data_loader_trainer_launches=data_launches["launches"],
+              rnn_encoder_trainer_launches=rnn_launches["launches"],
               max_abs_err_cases=errs, half_violations_cases=violations,
               tflops=bf16["tflops"],
               training_launches=train["launches"]["flash_attention_fwd"],
@@ -8418,7 +9352,8 @@ def main():
               train["launches"]["flash_attention_bwd"] +
               sym_launches["backward_kernel_launches"] +
               store_launches["backward_kernel_launches"] +
-              data_launches["backward_kernel_launches"],
+              data_launches["backward_kernel_launches"] +
+              rnn_launches["backward_kernel_launches"],
               max(backward_errs[case_key(*BACKWARD_CASES[0][:2], "bfloat16")
                                 + "_" + n] for n in ("dq", "dk", "dv")),
               backward, replaces="incubator_mxnet_tpu/ops/attention.py:168",
@@ -8428,6 +9363,8 @@ def main():
               store_trainer_launches=store_launches[
                   "backward_kernel_launches"],
               data_loader_trainer_launches=data_launches[
+                  "backward_kernel_launches"],
+              rnn_encoder_trainer_launches=rnn_launches[
                   "backward_kernel_launches"],
               bulk_replay_trace_launches=dict(
                   lm_train_step=bulk_rows["flash_bwd"]),

@@ -62,6 +62,7 @@ from . import model  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import executor_manager  # noqa: F401
+from . import rnn  # noqa: F401
 from . import visualization  # noqa: F401
 from . import visualization as viz  # noqa: F401  alias, as in mxnet
 from . import profiler  # noqa: F401

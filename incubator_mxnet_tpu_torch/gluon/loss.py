@@ -1,7 +1,6 @@
 """Gluon losses (counterpart of ``incubator_mxnet_tpu/gluon/loss.py``).
 
-Every loss of the JAX build but ``CTCLoss`` (whose op waits for the RNN
-ops, ROADMAP item 8), composed from registry ops as in the JAX build:
+Every loss of the JAX build, composed from registry ops as in the JAX build:
 ``sample_weight`` broadcasting, a ``batch_axis``-aware mean, the
 ``sparse_label``/``from_logits``/``from_sigmoid`` switches.
 """
@@ -11,8 +10,8 @@ from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
-           "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
-           "LogisticLoss", "TripletLoss"]
+           "KLDivLoss", "CTCLoss", "HuberLoss", "HingeLoss",
+           "SquaredHingeLoss", "LogisticLoss", "TripletLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -150,6 +149,40 @@ class KLDivLoss(Loss):
         loss = label * (F.log(label + 1e-12) - pred)
         loss = _apply_weighting(F, loss, self._weight, sample_weight)
         return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification (ref: loss.py class CTCLoss,
+    over the ``CTCLoss`` op).  ``pred`` holds ``layout`` (``NTC`` or
+    ``TNC``) activations, ``label`` is ``label_layout`` (``NT`` or ``TN``)
+    class ids padded with 0 (blank 0); ``pred_lengths`` and
+    ``label_lengths``, where given, are each sample's lengths."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        assert layout in ["NTC", "TNC"], \
+            "Only 'NTC' and 'TNC' layouts for pred are supported. Got: %s" \
+            % layout
+        assert label_layout in ["NT", "TN"], \
+            "Only 'NT' and 'TN' layouts for label are supported. Got: %s" \
+            % label_layout
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        kw = {}
+        if pred_lengths is not None:
+            kw.update(data_lengths=pred_lengths, use_data_lengths=True)
+        if label_lengths is not None:
+            kw.update(label_lengths=label_lengths, use_label_lengths=True)
+        loss = F.CTCLoss(pred, label, **kw)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

@@ -158,8 +158,8 @@ def test_contrib_nn_matches_jax():
         assert t.shape == (2, 12)
         np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(outs[0][:, 7:], x)
-    with pytest.raises(MXNetError, match="item 8"):
-        tmx.gluon.contrib.rnn
+    assert tmx.gluon.contrib.rnn.LSTMPCell and \
+        tmx.gluon.contrib.rnn.VariationalDropoutCell
 
 
 def test_model_store_and_pretrained(tmp_path):

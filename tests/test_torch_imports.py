@@ -89,6 +89,13 @@ def test_port_imports_with_jax_blocked():
             "    sampler, dataloader, vision as data_vision)\n"
             "from incubator_mxnet_tpu_torch.gluon.data.vision import (\n"
             "    transforms, datasets)\n"
+            "from incubator_mxnet_tpu_torch.ops import rnn as rnn_ops\n"
+            "from incubator_mxnet_tpu_torch.gluon.rnn import (rnn_cell,\n"
+            "    rnn_layer)\n"
+            "from incubator_mxnet_tpu_torch.gluon.contrib.rnn import (\n"
+            "    rnn_cell as contrib_cells)\n"
+            "from incubator_mxnet_tpu_torch.rnn import (rnn_cell as sym_cells,\n"
+            "    io as rnn_io, rnn as rnn_ckpt)\n"
             "assert mx.kv is kvstore and mx.opt is optimizer\n"
             "assert mx.num_devices('cpu') == 1\n"
             "assert mx.gluon.Constant and cnn.HybridConcurrent\n"
@@ -152,6 +159,13 @@ def test_port_imports_with_jax_blocked():
             "    for xb in mx.gluon.data.DataLoader(ds.transform(t), 2,\n"
             "                                       num_workers=2):\n"
             "        assert xb.shape == (2, 3, 2, 2)\n"
+            "    lstm = mx.gluon.rnn.LSTM(4, num_layers=2, layout='NTC')\n"
+            "    lstm.initialize()\n"
+            "    assert lstm(mx.nd.ones((2, 3, 5))).shape == (2, 3, 4)\n"
+            "    assert mx.gluon.contrib.rnn.LSTMPCell(4, 2)\n"
+            "    assert mx.nd.CTCLoss(mx.nd.ones((4, 2, 3)),\n"
+            "                         mx.nd.ones((2, 2))).shape == (2,)\n"
+            "    assert mx.gluon.loss.CTCLoss() and mx.rnn.FusedRNNCell(4)\n"
             "print(mx.current_context(), float(x.asnumpy().sum()))\n"
             "assert not [m for m in sys.modules if m.startswith('jax')\n"
             "            and sys.modules[m] is not None]\n")

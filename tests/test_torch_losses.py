@@ -1,5 +1,6 @@
 """The Gluon losses of the port against the JAX build, on the CPU: every
-loss of ``gluon/loss.py`` but ``CTCLoss`` (ROADMAP item 8), forward and
+loss of ``gluon/loss.py`` but ``CTCLoss`` (held in
+``tests/test_torch_gluon_rnn.py`` with the RNN ops), forward and
 the gradient of the summed loss with respect to the prediction, in f32,
 with ``weight`` and ``sample_weight`` where the loss takes them, and both
 ``from_sigmoid``/``from_logits`` and both label formats.
@@ -126,7 +127,7 @@ def test_loss_surface():
     with pytest.raises(TypeError, match="weight must be a number"):
         tmx.gluon.loss.L1Loss(weight=tmx.nd.ones((1,)))(
             tmx.nd.ones((2, 2)), tmx.nd.ones((2, 2)))
-    assert not hasattr(tmx.gluon.loss, "CTCLoss")
+    assert issubclass(tmx.gluon.loss.CTCLoss, tmx.gluon.loss.Loss)
 
 
 def test_batch_axis_one():

@@ -278,15 +278,17 @@ LATER_OPS = {"_sparse_sgd_update": 10, "_sparse_sgd_mom_update": 10}
 SLICE_MODULES = ("incubator_mxnet_tpu.ops.nn",
                  "incubator_mxnet_tpu.ops.random_ops",
                  "incubator_mxnet_tpu.ops.linalg",
-                 "incubator_mxnet_tpu.ops.optimizer_ops")
+                 "incubator_mxnet_tpu.ops.optimizer_ops",
+                 "incubator_mxnet_tpu.ops.rnn")
 
 
 def test_every_op_of_this_slice_is_registered():
     """The set difference against the JAX registry: every name the JAX
-    build registers from ops/nn.py, ops/random_ops.py, ops/linalg.py and
-    ops/optimizer_ops.py is in the port but the sparse updates (item 10;
-    CTCLoss stays in ops/rnn.py, item 8), each alias on the same Operator
-    as in the JAX build, with the same differentiability and randomness."""
+    build registers from ops/nn.py, ops/random_ops.py, ops/linalg.py,
+    ops/optimizer_ops.py and ops/rnn.py (RNN, CTCLoss and its three
+    aliases) is in the port but the sparse updates (item 10), each alias on
+    the same Operator as in the JAX build, with the same differentiability
+    and randomness."""
     from incubator_mxnet_tpu.ops import registry as jreg
     from incubator_mxnet_tpu_torch.ops import registry as treg
     names = {n for n, o in jreg._REGISTRY.items()
@@ -303,10 +305,9 @@ def test_every_op_of_this_slice_is_registered():
 # public names of the JAX build's namespaces that wait for a later item
 LATER_NAMES = {
     "gluon.nn": {"SymbolBlock": 5},
-    "gluon.loss": {"CTCLoss": 8},
     "optimizer": {"fused_bucket_kind": 12, "fused_bucket_update": 12,
                   "fused_lr_wd": 12, "fused_state_arity": 12},
-    "nd.contrib": {"CTCLoss": 8, "ctc_loss": 8, "RingAttention": 7,
+    "nd.contrib": {"RingAttention": 7,
                    "DeformableConvolution": 9, "DeformablePSROIPooling": 9,
                    "MultiBoxDetection": 9, "MultiBoxPrior": 9,
                    "MultiBoxTarget": 9, "MultiProposal": 9,
@@ -319,7 +320,8 @@ LATER_NAMES = {
 }
 NAMESPACES = ("gluon.nn", "gluon.loss", "initializer", "optimizer", "random",
               "nd.random", "nd.linalg", "nd.contrib",
-              "gluon.model_zoo.vision")
+              "gluon.model_zoo.vision", "gluon.rnn", "gluon.contrib.rnn",
+              "rnn")
 
 
 def _public(ns):

@@ -620,12 +620,13 @@ LATER = {"_cast_storage_dense": 10, "cast_storage": 10,
 
 def test_every_array_op_of_the_jax_build_is_registered():
     """The set difference against the JAX registry: every name of the JAX
-    build's math, tensor and init ops is in the port but those of LATER,
-    and each alias resolves to the same Operator as in the JAX build."""
+    build's math, tensor, init and rnn ops (RNN, CTCLoss and its aliases)
+    is in the port but those of LATER, and each alias resolves to the same
+    Operator as in the JAX build."""
     from incubator_mxnet_tpu.ops import registry as jreg
     from incubator_mxnet_tpu_torch.ops import registry as treg
     mods = ("incubator_mxnet_tpu.ops.math", "incubator_mxnet_tpu.ops.tensor",
-            "incubator_mxnet_tpu.ops.init_ops")
+            "incubator_mxnet_tpu.ops.init_ops", "incubator_mxnet_tpu.ops.rnn")
     names = {n for n, o in jreg._REGISTRY.items()
              if o.fcompute.__module__ in mods}
     assert names - set(treg._REGISTRY) == set(LATER)
