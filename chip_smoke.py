@@ -8820,6 +8820,1019 @@ def rnn_phase(mx, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: Gluon hybridize() as CUDA graphs and the SSD ops
+# ---------------------------------------------------------------------------
+
+# 14a: benchmark_score.py's _build (:57-71): Xavier(magnitude=2), bf16, then
+# hybridize(), batch 32 of uniform(-1, 1)
+HYBRID_SCORE_NETS = (("resnet50_v1", 224), ("inception_v3", 299),
+                     ("alexnet", 224), ("vgg16", 224))
+HYBRID_SCORE_BATCH, HYBRID_SCORE_REPS = 32, 4
+# 14b: train_imagenet.py --gluon-trainer at 10c's shape, 3 + 5 steps
+HYBRID_IMAGENET_STEPS = (3, 5)
+# 14c: word_lm.py's loop (Adam, states carried) at bench_lstm.py's width
+HYBRID_WORD_LM = dict(WORD_LM, lr=0.003, steps=(2, 5))
+# 14d: 3 hybridized gluon.Trainer steps of the full-width LM
+HYBRID_LM_STEPS = 3
+# 14e: example/ssd/train.py at its defaults
+SSD = dict(batch=32, epochs=12, batches=4, lr=0.1, momentum=0.9, seed=3,
+           size=32, eval_iou=0.3, classes=2, sizes=(0.3, 0.55),
+           ratios=(1.0, 2.0, 0.5))
+SSD_BOX_REL = 1e-5
+
+
+def hybrid_counts(mx):
+    return mx.gluon.block.cached_op_stats()
+
+
+def hybrid_release(mx):
+    """Drop every graph of the engine's pool and its memory (after a
+    hybridized net is gone)."""
+    import torch
+    gc.collect()
+    mx.engine.clear_graphs()
+    torch.cuda.empty_cache()
+
+
+def hybrid_card_contracts(mx, card, failing=True):
+    """The card's contracts of ``hybridize()`` at a small size: a replay
+    bit-equal to eager under deterministic algorithms (a conv, BatchNorm,
+    dropout net trained 3 steps: outputs, weights and moving statistics),
+    a fresh dropout mask per replay, an output surviving the next replay,
+    a parameter moved to a new address (a new variant captured, then
+    read), four threads on four streams calling two hybridized nets that
+    share the graph pool, an op that cannot be captured splitting the
+    graph (``_linalg_syevd``: two pieces, the split op counted, equal to
+    eager; ``RNN`` likewise, its backward eager; a custom op that checks
+    its input values and runs once a call; ``CTCLoss`` with lengths the
+    block computes; an RNN with dropout drawing eager's masks), and
+    (``failing``) a capture that fails raising MXNetError that names the
+    block and the op."""
+    import threading
+    import torch
+    from incubator_mxnet_tpu_torch.base import MXNetError
+    nn, nd, gpu = mx.gluon.nn, mx.nd, mx.gpu(0)
+    res, fails = {}, []
+
+    def need(cond, what):
+        if not cond:
+            fails.append(what)
+
+    def convnet():
+        net = nn.HybridSequential(prefix="hc_")
+        with net.name_scope():
+            net.add(nn.Conv2D(8, 3, padding=1, in_channels=3),
+                    nn.BatchNorm(in_channels=8), nn.Activation("relu"),
+                    nn.Dropout(0.5), nn.Dense(4, in_units=8 * 64))
+        net.initialize(mx.init.Xavier(), ctx=gpu)
+        rs = np.random.RandomState(SEED)
+        for p in net.collect_params().values():
+            v = rs.standard_normal(p.shape).astype(np.float32) * 0.1
+            if p.name.endswith("running_var"):
+                v = np.abs(v) + 1.0
+            p.set_data(v)
+        return net
+
+    x = nd.array(np.random.RandomState(1).randn(4, 3, 8, 8), ctx=gpu)
+
+    def train(net):
+        mx.random.seed(5)
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.1, "momentum": 0.9})
+        outs = []
+        for _ in range(3):
+            with mx.autograd.record():
+                y = net(x)
+                loss = (y * y).sum()
+            loss.backward()
+            tr.step(1)
+            outs.append(y._data.clone())
+        return outs, [p.data()._data.clone()
+                      for p in net.collect_params().values()]
+
+    with deterministic_kernels(torch):
+        want = train(convnet())
+        mx.gluon.block.reset_cached_op_stats()
+        net = convnet()
+        net.hybridize()
+        got = train(net)
+    res["train_counts"] = hybrid_counts(mx)
+    need(all(same_bits(torch, a, b) for a, b in zip(got[0] + got[1],
+                                                    want[0] + want[1])),
+         "3 training steps not bit-equal to eager")
+    need(res["train_counts"]["captures"] == 1 and
+         res["train_counts"]["replays"] == 2 and
+         res["train_counts"]["backward_captures"] == 1 and
+         res["train_counts"]["backward_replays"] == 2,
+         "captures and replays %s" % res["train_counts"])
+    with mx.autograd.record():
+        a = net(x)._data.clone()
+        b = net(x)._data.clone()
+    need(not torch.equal(a, b), "two training replays drew one mask")
+    with mx.autograd.predict_mode():
+        y1 = net(x)
+        keep = y1._data.clone()
+        net(x * 2)
+    need(torch.equal(y1._data, keep), "an output changed by the next replay")
+    # a parameter moved to a new address: a new variant, its values read
+    w = net[0].weight.data()
+    before = mx.gluon.block.cached_op_stats()["captures"]
+    old = w._data
+    w._data = old.detach().clone().mul_(0.5).requires_grad_(
+        old.requires_grad)
+    with mx.autograd.predict_mode():
+        moved = net(x)._data.clone()
+        net.hybridize(False)
+        eager_moved = net(x)._data.clone()
+        net.hybridize()
+    need(same_bits(torch, moved, eager_moved), "the moved weight not read")
+    need(mx.gluon.block.cached_op_stats()["captures"] == before + 1,
+         "the moved weight not recaptured")
+    # four threads on four streams: two call net, two call another
+    # hybridized net, whose graphs share net's memory pool
+    xs = [nd.array(np.random.RandomState(10 + i).randn(4, 3, 8, 8), ctx=gpu)
+          for i in range(2)]
+    other = nn.HybridSequential(prefix="hc2_")
+    with other.name_scope():
+        other.add(nn.Dense(512, in_units=3 * 64, activation="relu"),
+                  nn.Dense(512, in_units=512, activation="tanh"),
+                  nn.Dense(4, in_units=512))
+    other.initialize(mx.init.Xavier(), ctx=gpu)
+    nets = [net, net, other, other]
+    xs = xs + xs
+    with mx.autograd.predict_mode():
+        want2 = [nets[i](xs[i])._data.clone() for i in range(4)]
+        other.hybridize()
+        other(xs[2])
+    equal = []
+
+    def work(i):
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s), mx.autograd.predict_mode():
+            for _ in range(20):
+                equal.append(bool(torch.equal(nets[i](xs[i])._data,
+                                              want2[i])))
+        s.synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    need(len(equal) == 80 and all(equal), "threads: %d of %d calls equal"
+         % (sum(equal), len(equal)))
+
+    class Eig(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.d = nn.Dense(6, in_units=6)
+
+        def hybrid_forward(self, F, v):
+            a_ = self.d(v)
+            u, lam = F._linalg_syevd(F.dot(a_, a_, transpose_b=True))
+            return F.relu(lam) * 2 + 1, u
+
+    eig = Eig(prefix="eig_")
+    eig.initialize(mx.init.Xavier(), ctx=gpu)
+    v = nd.array(np.random.RandomState(3).randn(6, 6), ctx=gpu)
+    want3 = [o._data.clone() for o in eig(v)]
+    eig.hybridize()
+    mx.gluon.block.reset_cached_op_stats()
+    for _ in range(3):
+        got3 = eig(v)
+    res["split_counts"] = hybrid_counts(mx)
+    graph = list(eig._cached_op._graphs.values())[0]
+    res["split"] = dict(pieces=graph.pieces, split_ops=graph.split_ops)
+    need(all(same_bits(torch, g._data, w_) for g, w_ in zip(got3, want3)),
+         "the split program differs from eager")
+    need(graph.pieces == 2 and graph.split_ops == 1 and
+         res["split_counts"]["split_ops"] == 3,
+         "split: %s %s" % (res["split"], res["split_counts"]))
+    v.attach_grad()
+    with mx.autograd.record():
+        lam, _ = eig(v)
+    lam.backward()
+    need(hybrid_counts(mx)["eager_backwards"] == 1,
+         "the split program's backward did not run eagerly")
+    # RNN splits the graph (cuDNN's capture is not safe): two pieces, the
+    # op eager between them and in the backward, results as eager's
+    lstm = mx.gluon.rnn.LSTM(16, num_layers=2, input_size=8, prefix="hl_")
+    lstm.initialize(mx.init.Xavier(), ctx=gpu)
+    seq = nd.array(np.random.RandomState(4).randn(6, 3, 8), ctx=gpu)
+    seq.attach_grad()
+    runs = []
+    for hyb in (False, True, True):
+        lstm.hybridize(hyb)
+        mx.gluon.block.reset_cached_op_stats()
+        with mx.autograd.record():
+            out = lstm(seq)
+            loss = (out * out).sum()
+        loss.backward()
+        runs.append((out._data.clone(), seq.grad._data.clone()))
+    res["rnn_counts"] = hybrid_counts(mx)
+    graph = list(lstm._cached_op._graphs.values())[0]
+    res["rnn"] = dict(pieces=graph.pieces, split_ops=graph.split_ops,
+                      err=[max(max_diff(a, b) for a, b in zip(r, runs[0]))
+                           for r in runs[1:]])
+    need(graph.pieces == 2 and graph.split_ops == 1 and
+         res["rnn_counts"]["eager_backwards"] == 1 and
+         max(res["rnn"]["err"]) <= 1e-5, "RNN split: %s %s"
+         % (res["rnn"], res["rnn_counts"]))
+    # a hybridized custom op: it runs once a call, never in the capture,
+    # and reads the values the piece before it wrote
+    runs, bad = [], []
+
+    class Check(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            v = in_data[0].asnumpy()
+            runs.append(1)
+            if not (np.isfinite(v).all() and
+                    np.abs(v.sum(axis=1) - 1).max() < 1e-5):
+                bad.append(v.tolist())
+            self.assign(out_data[0], req[0], in_data[0] * 2)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], out_grad[0] * 2)
+
+    class CheckProp(mx.operator.CustomOpProp):
+        def list_arguments(self):
+            return ["data"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return Check()
+
+    mx.operator.register("hc_check")(CheckProp)
+
+    class Softmaxed(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.d = nn.Dense(5, in_units=6)
+
+        def hybrid_forward(self, F, v):
+            p_ = F.Custom(F.softmax(self.d(v)), op_type="hc_check")
+            return F.relu(p_ - 0.3) + 1
+
+    cus = Softmaxed(prefix="cus_")
+    cus.initialize(mx.init.Xavier(), ctx=gpu)
+    vs = [nd.array(np.random.RandomState(20 + i).randn(3, 6), ctx=gpu)
+          for i in range(3)]
+    want4 = [cus(v_)._data.clone() for v_ in vs]
+    cus.hybridize()
+    mx.gluon.block.reset_cached_op_stats()
+    got4 = [cus(v_)._data.clone() for v_ in vs]
+    graph = list(cus._cached_op._graphs.values())[0]
+    res["custom"] = dict(runs=len(runs), bad=len(bad), pieces=graph.pieces,
+                         split_ops=graph.split_ops,
+                         counts=hybrid_counts(mx))
+    need(len(runs) == 6 and not bad and graph.pieces == 2 and
+         graph.split_ops == 1 and
+         all(same_bits(torch, a, b) for a, b in zip(got4, want4)),
+         "custom op: %s" % res["custom"])
+    # CTCLoss whose lengths the block computes: the op between the pieces
+    # reads each call's lengths
+    class Ctc(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.d = nn.Dense(6, in_units=8, flatten=False)
+
+        def hybrid_forward(self, F, feats, label):
+            dat_len = F.sum(F.sum(F.abs(feats), axis=2) > 0, axis=0)
+            lab_len = F.sum(label > 0, axis=1)
+            return F.CTCLoss(self.d(feats), label, dat_len, lab_len,
+                             use_data_lengths=True, use_label_lengths=True)
+
+    ctc = Ctc(prefix="ctc_")
+    ctc.initialize(mx.init.Xavier(), ctx=gpu)
+    batches = []
+    for i in range(3):
+        rs = np.random.RandomState(30 + i)
+        feats = rs.randn(20, 4, 8).astype(np.float32)
+        label = np.zeros((4, 5), np.float32)
+        for j in range(4):
+            feats[12 + rs.randint(0, 8):, j] = 0
+            k = rs.randint(1, 6)
+            label[j, :k] = rs.randint(1, 6, k)
+        batches.append((nd.array(feats, ctx=gpu), nd.array(label, ctx=gpu)))
+
+    def ctc_runs():
+        out = []
+        for f_, l_ in batches:
+            f_.attach_grad()
+            with mx.autograd.record():
+                loss = ctc(f_, l_)
+            loss.backward()
+            out.append((loss._data.clone(), f_.grad._data.clone(),
+                        ctc.d.weight.grad()._data.clone()))
+        return out
+
+    want5 = ctc_runs()
+    ctc.hybridize()
+    mx.gluon.block.reset_cached_op_stats()
+    got5 = ctc_runs()
+    graph = list(ctc._cached_op._graphs.values())[0]
+    err5 = max(max_diff(a, b) / max(1.0, float(b.abs().max()))
+               for g, w_ in zip(got5, want5) for a, b in zip(g, w_))
+    res["ctc"] = dict(err=err5, pieces=graph.pieces,
+                      split_ops=graph.split_ops, counts=hybrid_counts(mx))
+    need(err5 <= 1e-5 and graph.pieces == 2 and graph.split_ops == 1 and
+         res["ctc"]["counts"]["replays"] == 2,
+         "CTCLoss: %s" % res["ctc"])
+    # an RNN with dropout between layers: the hybridized calls draw the
+    # masks the eager calls draw from the same seed, call after call
+    drop = mx.gluon.rnn.LSTM(16, num_layers=2, input_size=8, dropout=0.5,
+                             prefix="hd_")
+    drop.initialize(mx.init.Xavier(), ctx=gpu)
+    drop_runs = []
+    for hyb in (False, True):
+        drop.hybridize(hyb)
+        mx.random.seed(11)
+        outs = []
+        for _ in range(3):
+            with mx.autograd.record():
+                outs.append(drop(seq)._data.clone())
+        drop_runs.append(outs)
+    res["rnn_dropout_err"] = [max_diff(a, b)
+                              for a, b in zip(*drop_runs)]
+    need(max(res["rnn_dropout_err"]) <= 1e-5 and
+         not torch.equal(drop_runs[0][0], drop_runs[0][1]),
+         "RNN dropout: %s" % res["rnn_dropout_err"])
+    if failing:
+        class Host(mx.gluon.HybridBlock):
+            def hybrid_forward(self, F, v):
+                return v * float((v * 2).asnumpy().sum())
+
+        host = Host(prefix="host_")
+        host.hybridize()
+        try:
+            host(nd.ones((2, 2), ctx=gpu))
+            need(False, "a capture that reads the host did not raise")
+        except MXNetError as exc:
+            res["capture_error"] = str(exc)[:300]
+            need("CachedOp(host)" in str(exc) and " at op " in str(exc),
+                 "the capture error names no block or op: %s" % exc)
+        # the process goes on capturing afterwards
+        with mx.autograd.predict_mode():
+            need(torch.equal(net(xs[0])._data, want2[0]),
+                 "a replay after the failed capture differs")
+        after = mx.gluon.nn.Dense(3, in_units=4, prefix="after_")
+        after.initialize(ctx=gpu)
+        after.hybridize()
+        after(nd.ones((2, 4), ctx=gpu))
+        need(after._cached_op is not None, "no capture after the failure")
+    res["failures"] = fails
+    res["ok"] = not fails
+    print("hybrid 14 contracts: %s | %s" % (json.dumps(res, default=str),
+                                            card), flush=True)
+    del net, other, eig, lstm, cus, ctc, drop
+    hybrid_release(mx)
+    return res
+
+
+def _timed_calls(run, reps, torch):
+    run()
+    return _timed_ms(run, reps, torch)
+
+
+def hybrid_score(mx, card):
+    """14a: benchmark_score.py's path at batch 32 in bf16 for ResNet-50 v1,
+    Inception-v3, AlexNet and VGG-16: ms a batch eager and hybridized
+    (mean of 4 after a warm-up), the capture's seconds, one call of each
+    traced for its device-busy ms; the hybridized outputs bit-equal to
+    eager (capture and replay)."""
+    import torch
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    out = {}
+    for name, size in HYBRID_SCORE_NETS:
+        mx.random.seed(0)
+        net = getattr(vision, name)(classes=1000)
+        net.initialize(mx.init.Xavier(magnitude=2.0), ctx=mx.gpu(0))
+        net.collect_params().setattr("grad_req", "null")
+        net.cast("bfloat16")
+        rs = np.random.RandomState(0)
+        x = mx.nd.array(rs.uniform(-1, 1, (HYBRID_SCORE_BATCH, 3, size, size))
+                        .astype(np.float32), ctx=mx.gpu(0)).astype(
+                            "bfloat16")
+
+        def batch():
+            with mx.autograd.predict_mode():
+                return net(x)._data
+        want = batch().clone()             # resolves the deferred shapes
+        eager_ms = _timed_calls(batch, HYBRID_SCORE_REPS, torch)
+        _, eager_busy, eager_wall = _replay_trace(mx, batch, ())
+        net.hybridize()
+        mx.gluon.block.reset_cached_op_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = batch().clone()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        replay = batch().clone()
+        hyb_ms = _timed_ms(batch, HYBRID_SCORE_REPS, torch)
+        _, busy, wall = _replay_trace(mx, batch, ())
+        counts = hybrid_counts(mx)
+        equal = same_bits(torch, first, want) and same_bits(torch, replay,
+                                                            want)
+        res = dict(eager_ms=eager_ms, eager_ms_mean=sum(eager_ms) / 4,
+                   eager_busy_ms=eager_busy / 1e3,
+                   eager_wall_ms=eager_wall / 1e3,
+                   ms=hyb_ms, ms_mean=sum(hyb_ms) / 4, busy_ms=busy / 1e3,
+                   wall_ms=wall / 1e3, capture_s=capture_s,
+                   bit_equal=equal, counts=counts,
+                   img_per_s=HYBRID_SCORE_BATCH / (sum(hyb_ms) / 4) * 1e3)
+        print("hybrid 14a: %s bf16 batch %d: eager %s ms (mean %.3f, busy "
+              "%.3f of %.3f traced), hybridized %s ms (mean %.3f, %.1f "
+              "img/s, busy %.3f of %.3f traced), capture (eager run + "
+              "capture) %.3f s; outputs bit-equal to eager %s; counts %s "
+              "| %s" % (name, HYBRID_SCORE_BATCH,
+                        ["%.3f" % v for v in eager_ms], res["eager_ms_mean"],
+                        res["eager_busy_ms"], res["eager_wall_ms"],
+                        ["%.3f" % v for v in hyb_ms], res["ms_mean"],
+                        res["img_per_s"], res["busy_ms"], res["wall_ms"],
+                        capture_s, equal, json.dumps(counts), card),
+              flush=True)
+        check(equal, "14a %s: hybridized outputs differ from eager (max "
+              "%.3e)" % (name, max_diff(first, want)))
+        check(counts["captures"] == 1 and counts["replays"] >= 6 and
+              counts["split_ops"] == 0, "14a %s: counts %s" % (name, counts))
+        out[name] = res
+        del net, x, want, first, replay
+        hybrid_release(mx)
+    return out
+
+
+def _imagenet_run(mx, hybrid, steps, data):
+    """``fit_gluon``'s step (common.py:66-72) on ResNet-50 v1 for ``steps``
+    batches of ``data``: (losses, step ms, moving statistics, peak
+    memory)."""
+    import torch
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    args = IMAGENET_ARGS
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=args["num_classes"])
+    if hybrid:
+        net.hybridize()
+    net.initialize(mx.init.Xavier(magnitude=2.0), ctx=mx.gpu(0))
+    trainer = mx.gluon.Trainer(net.collect_params(), args["optimizer"],
+                               {"learning_rate": args["lr"],
+                                "momentum": args["momentum"],
+                                "wd": args["wd"]})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(steps):
+        x, y = data[i % len(data)]
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        losses.append(float(loss.mean().asscalar()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    stats = [p.data()._data.clone() for n, p in
+             net.collect_params().items() if n.endswith(("running_mean",
+                                                         "running_var"))]
+    peak = torch.cuda.max_memory_allocated()
+    del net, trainer
+    hybrid_release(mx)
+    return losses, ms, stats, peak
+
+
+def hybrid_imagenet(mx, card):
+    """14b: train_imagenet.py --gluon-trainer (common.fit_gluon's step) on
+    ResNet-50 v1 at 10c's shape (f32, batch 256), 3 + 5 steps, eager and
+    hybridized: under deterministic algorithms the losses and moving
+    statistics of the two within f32 rounding; step ms and peak memory of
+    a free-running pair."""
+    import torch
+    warm, timed = HYBRID_IMAGENET_STEPS
+    steps = warm + timed
+    bs = IMAGENET_ARGS["batch_size"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    data = [(mx.nd.NDArray(torch.rand((bs,) + IMAGENET_SHAPE, device="cuda",
+                                      generator=gen)),
+             mx.nd.NDArray(torch.randint(0, IMAGENET_ARGS["num_classes"],
+                                         (bs,), device="cuda",
+                                         generator=gen).float()))
+            for _ in range(2)]
+    runs = {}
+    for hybrid in (False, True):
+        with deterministic_kernels(torch):
+            runs[("exact", hybrid)] = _imagenet_run(mx, hybrid, steps, data)
+    for hybrid in (False, True):
+        runs[("free", hybrid)] = _imagenet_run(mx, hybrid, steps, data)
+    (le, _, se, _), (lh, _, sh, _) = runs[("exact", False)], \
+        runs[("exact", True)]
+    loss_err = max(abs(a - b) / max(abs(a), 1e-30) for a, b in zip(le, lh))
+    stat_err = max(max_diff(h, e) / max(float(e.abs().max()), 1e-30)
+                   for h, e in zip(sh, se))
+    bit_equal = le == lh and all(torch.equal(h, e) for h, e in zip(sh, se))
+
+    def mean(ms):
+        return sum(ms[warm:]) / timed
+
+    res = dict(losses_eager=le, losses_hybrid=lh, loss_rel_err=loss_err,
+               moving_stats_rel_err=stat_err, bit_equal=bit_equal,
+               eager_step_ms=runs[("free", False)][1],
+               step_ms=runs[("free", True)][1],
+               eager_step_ms_mean=mean(runs[("free", False)][1]),
+               step_ms_mean=mean(runs[("free", True)][1]),
+               eager_peak_memory_bytes=runs[("free", False)][3],
+               peak_memory_bytes=runs[("free", True)][3],
+               exact_eager_step_ms_mean=mean(runs[("exact", False)][1]),
+               exact_step_ms_mean=mean(runs[("exact", True)][1]))
+    res["img_per_s"] = bs / res["step_ms_mean"] * 1e3
+    print("hybrid 14b: resnet50_v1 f32 batch %d through gluon.Trainer (%s), "
+          "%d + %d steps: eager %.3f ms a step (peak %d bytes), hybridized "
+          "%.3f ms (%.1f img/s, peak %d bytes); deterministic algorithms: "
+          "eager %.3f, hybridized %.3f ms, losses %s vs %s (worst relative "
+          "%.3e), moving statistics worst relative %.3e, bit-equal %s | %s"
+          % (bs, IMAGENET_ARGS["optimizer"], warm, timed,
+             res["eager_step_ms_mean"], res["eager_peak_memory_bytes"],
+             res["step_ms_mean"], res["img_per_s"], res["peak_memory_bytes"],
+             res["exact_eager_step_ms_mean"], res["exact_step_ms_mean"],
+             ["%.6f" % v for v in le], ["%.6f" % v for v in lh], loss_err,
+             stat_err, bit_equal, card), flush=True)
+    check(loss_err <= 1e-5 and stat_err <= 1e-5, "14b: hybridized losses or "
+          "moving statistics differ from eager (%.3e, %.3e)"
+          % (loss_err, stat_err))
+    del data
+    hybrid_release(mx)
+    return res
+
+
+def hybrid_word_lm(mx, card):
+    """14c: BASELINE config 3, word_lm.py's hybridized loop (:106-126:
+    hybridize(), Adam, the LSTM's states carried and detached) at
+    bench_lstm.py's width (vocab 10000, embed and hidden 512, 2 layers,
+    256 x 128 tokens, f32), eager and hybridized from the same weights on
+    the same batches: step ms, tokens/s, the losses against eager, and
+    whether RNN was captured or split (the counters)."""
+    import torch
+    from incubator_mxnet_tpu_torch.convert import numpy_params
+    cfg = HYBRID_WORD_LM
+    warm, timed = cfg["steps"]
+    rs = np.random.RandomState(SEED + 14)
+    shape = (warm + timed, cfg["batch"], cfg["seq"])
+    xs = rs.randint(0, cfg["vocab"], shape).astype(np.float32)
+    ys = rs.randint(0, cfg["vocab"], shape).astype(np.float32)
+    gpu = mx.gpu(0)
+    batches = [(mx.nd.array(x, ctx=gpu), mx.nd.array(y, ctx=gpu))
+               for x, y in zip(xs, ys)]
+    weights, runs = None, {}
+    for hybrid in (False, True):
+        mx.random.seed(1)
+        net = word_lm_net(mx, cfg["vocab"], cfg["embed"], cfg["hidden"],
+                          cfg["layers"])
+        net.initialize(mx.init.Xavier(), ctx=gpu)
+        if weights is None:
+            weights = list(numpy_params(net).values())
+        else:
+            for p, w in zip(net.collect_params().values(), weights):
+                p.set_data(mx.nd.array(w, ctx=gpu))
+        if hybrid:
+            net.hybridize()
+        tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                              {"learning_rate": cfg["lr"]})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        mx.gluon.block.reset_cached_op_stats()
+        state, losses, ms = None, [], []
+        for xb, yb in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if state is None:
+                state = net.lstm.begin_state(xb.shape[0], ctx=gpu)
+            with mx.autograd.record():
+                h = net.embed(xb)
+                out, new_state = net.lstm(h, state)
+                loss = loss_fn(net.proj(out), yb)
+            loss.backward()
+            tr.step(xb.shape[0])
+            state = [s.detach() for s in new_state]
+            losses.append(float(loss.asnumpy().mean()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = hybrid_counts(mx)
+        graphs = list(net.lstm._cached_op._graphs.values()) if hybrid \
+            else []
+        runs[hybrid] = (losses, ms, counts, graphs[0] if graphs else None)
+        del net, tr
+        hybrid_release(mx)
+    (le, me, _, _), (lh, mh, counts, graph) = runs[False], runs[True]
+    tokens = cfg["batch"] * cfg["seq"]
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(le, lh))
+    pieces, split = (graph.pieces, graph.split_ops) if graph else (0, 0)
+    res = dict(losses_eager=le, losses_hybrid=lh, loss_rel_err=loss_err,
+               eager_step_ms=me, step_ms=mh,
+               eager_step_ms_mean=sum(me[warm:]) / timed,
+               step_ms_mean=sum(mh[warm:]) / timed, counts=counts,
+               rnn="split" if split else "captured", lstm_pieces=pieces,
+               lstm_split_ops=split)
+    res["tokens_per_s"] = tokens / res["step_ms_mean"] * 1e3
+    res["eager_tokens_per_s"] = tokens / res["eager_step_ms_mean"] * 1e3
+    print("hybrid 14c: word_lm.py's loop %s f32, %d + %d steps of %d x %d "
+          "tokens: eager %.3f ms a step (%.1f tokens/s), hybridized %.3f ms "
+          "(%.1f tokens/s); 13b's eager bench_lstm step (bf16, "
+          "DataParallelTrainer) in PERF.md: 25.353-33.633 ms; losses %s vs "
+          "eager %s (worst relative %.3e); RNN %s: the LSTM's program is %d "
+          "graph pieces with %d op run eagerly between them; counts %s | %s"
+          % ({k: v for k, v in cfg.items() if k != "steps"}, warm, timed,
+             cfg["batch"], cfg["seq"], res["eager_step_ms_mean"],
+             res["eager_tokens_per_s"], res["step_ms_mean"],
+             res["tokens_per_s"], ["%.5f" % v for v in lh],
+             ["%.5f" % v for v in le], loss_err, res["rnn"], pieces, split,
+             json.dumps(counts), card), flush=True)
+    check(loss_err <= 1e-4, "14c: hybridized losses differ from eager by "
+          "%.3e" % loss_err)
+    check(counts["captures"] == 3 and split == 1 and
+          counts["split_ops"] == warm + timed, "14c: counts %s, the "
+          "LSTM's program %d pieces, %d split ops" % (counts, pieces, split))
+    return res
+
+
+def hybrid_lm_serving(mx, card, net, tokens, want, request_ms_4b):
+    """14d, serving: 4b's full-width LM (bf16) hybridized: its request
+    captured once and replayed, bit-equal to 4b's eager logits; ms a
+    request beside 4b's; the flash forward kernel's rows in the trace of
+    one replay (one a layer) while its launch counter stays flat."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops.attention import flash_attention
+    net.hybridize()
+    mx.gluon.block.reset_cached_op_stats()
+
+    def request():
+        with mx.autograd.predict_mode():
+            return net(tokens)._data
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = request().clone()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    flash_attention.launches = 0
+    ms = _timed_ms(request, 4, torch)
+    replay_launches = flash_attention.launches
+    last = request()
+    rows, busy, wall = _replay_trace(mx, request, ("flash_fwd_sm90",))
+    equal = same_bits(torch, first, want._data) and same_bits(
+        torch, last, want._data)
+    counts = hybrid_counts(mx)
+    res = dict(request_ms=ms, request_ms_mean=sum(ms) / len(ms),
+               eager_request_ms=request_ms_4b, capture_s=capture_s,
+               bit_equal=equal, busy_ms=busy / 1e3, wall_ms=wall / 1e3,
+               flash_fwd_rows=rows["flash_fwd_sm90"],
+               replay_counter_launches=replay_launches, counts=counts)
+    print("hybrid 14d: the LM request (bf16, 8 x 1024) hybridized: %s ms "
+          "(mean %.3f) against 4b's eager %s; capture %.3f s; one replay "
+          "traced: wall %.3f ms, busy %.3f ms, %d flash_fwd_sm90_kernel rows; "
+          "the launch counter rose %d over 4 replays; logits bit-equal to "
+          "4b's %s; counts %s | %s"
+          % (["%.3f" % v for v in ms], res["request_ms_mean"],
+             ["%.3f" % v for v in request_ms_4b], capture_s, wall / 1e3,
+             busy / 1e3, rows["flash_fwd_sm90"], replay_launches, equal,
+             json.dumps(counts), card), flush=True)
+    check(equal, "14d: hybridized logits differ from 4b's eager ones")
+    check(rows["flash_fwd_sm90"] == LM_CONFIG["n_layers"] and
+          replay_launches == 0, "14d: %d flash rows in a replay's trace, "
+          "%d counted launches in replays" % (rows["flash_fwd_sm90"],
+                                             replay_launches))
+    net.hybridize(False)
+    del first, last
+    hybrid_release(mx)
+    return res
+
+
+def hybrid_lm_train(mx, card):
+    """14d, training: the full-width LM in bf16 (multi_precision sgd with
+    momentum) through gluon.Trainer, HYBRID_LM_STEPS steps eager and then,
+    from the same weights, hybridized, under deterministic algorithms:
+    the losses against eager; the flash counters zeroed before and read
+    after the hybridized steps (the captures' calls); one hybridized step
+    traced: flash forward rows (forward graph and the backward graph's
+    recompute) and backward kernel rows."""
+    import torch
+    from incubator_mxnet_tpu_torch.models import TransformerLM
+    from incubator_mxnet_tpu_torch.ops.attention import flash_attention
+    cfg, batch = LM_CONFIG, TRAIN_BATCH
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    mx.random.seed(SEED)
+    net = TransformerLM(**cfg)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian"), ctx=ctx)
+    rs = np.random.RandomState(SEED + 20)
+    x = mx.nd.array(rs.randint(0, cfg["vocab"], (batch, cfg["seq_len"])),
+                    ctx=ctx, dtype="int32")
+    y = mx.nd.array(rs.randint(0, cfg["vocab"], (batch, cfg["seq_len"]))
+                    .astype(np.float32), ctx=ctx)
+    with mx.autograd.predict_mode():
+        net(x)
+    net.cast("bfloat16")
+    params = list(net.collect_params().values())
+    start = [p.data()._data.detach().clone() for p in params]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    built_s = time.perf_counter() - t0
+    counters = ("launches", "backward_kernel_launches",
+                "backward_torch_calls", "backward_calls")
+
+    def run(hybrid):
+        with torch.no_grad():
+            for p, v in zip(params, start):
+                p.data()._data.copy_(v)
+        net.hybridize(hybrid)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(LM_STORE_OPT))
+
+        def step():
+            with mx.autograd.record():
+                loss = loss_fn(net(x).astype("float32"), y)
+            loss.backward()
+            trainer.step(batch)
+            return float(loss.mean().asscalar())
+        for c in counters:
+            setattr(flash_attention, c, 0)
+        losses, ms = [], []
+        with deterministic_kernels(torch):
+            for _ in range(HYBRID_LM_STEPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                losses.append(step())
+                ms.append((time.perf_counter() - t1) * 1e3)
+        launches = {c: getattr(flash_attention, c) for c in counters}
+        return losses, ms, launches, step
+
+    le, me, _, _ = run(False)
+    mx.gluon.block.reset_cached_op_stats()
+    lh, mh, launches, step = run(True)
+    counts = hybrid_counts(mx)
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic_kernels(torch):     # the same key: replays
+        rows, busy, wall = _replay_trace(mx, step, ("flash_fwd_sm90",
+                                                    "flash_bwd"))
+    peak = torch.cuda.max_memory_allocated()
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(le, lh))
+    res = dict(losses_eager=le, losses=lh, loss_rel_err=loss_err,
+               eager_step_ms=me, step_ms=mh, launches=launches,
+               counts=counts, trace_rows=rows, busy_ms=busy / 1e3,
+               wall_ms=wall / 1e3, peak_memory_bytes=peak, built_s=built_s)
+    print("hybrid 14d: the LM (%s, bf16) through gluon.Trainer(sgd %s), "
+          "batch %d x %d, built in %.1f s, deterministic algorithms: eager "
+          "steps %s ms, losses %s; hybridized steps %s ms, losses %s (worst "
+          "relative %.3e); flash counters over the hybridized steps %s "
+          "(the captures' Python runs: forward, recompute, backward); one "
+          "hybridized step traced: wall %.3f ms, busy %.3f ms, rows %s; "
+          "counts %s; peak memory allocated %d bytes | %s"
+          % (cfg, LM_STORE_OPT, batch, cfg["seq_len"], built_s,
+             ["%.3f" % v for v in me], ["%.4f" % v for v in le],
+             ["%.3f" % v for v in mh], ["%.4f" % v for v in lh], loss_err,
+             launches, wall / 1e3, busy / 1e3, rows, json.dumps(counts),
+             peak, card), flush=True)
+    layers = cfg["n_layers"]
+    check(loss_err <= 1e-5, "14d: hybridized losses %s, eager %s"
+          % (lh, le))
+    check(rows["flash_fwd_sm90"] == 2 * layers and
+          rows["flash_bwd"] == 2 * layers, "14d: trace rows %s, want %d "
+          "forward (forward graph and recompute) and %d backward"
+          % (rows, 2 * layers, 2 * layers))
+    check(launches["backward_torch_calls"] == 0 and
+          launches["backward_kernel_launches"] >= layers,
+          "14d: flash counters %s" % launches)
+    check(counts["captures"] == 1 and counts["backward_captures"] == 1,
+          "14d: counts %s" % counts)
+    del net, params, start, x, y
+    hybrid_release(mx)
+    return res
+
+
+def tiny_ssd(mx):
+    """example/ssd/train.py's TinySSD in the port."""
+    nn = mx.gluon.nn
+    n_anchors = len(SSD["sizes"]) + len(SSD["ratios"]) - 1
+    classes = SSD["classes"]
+
+    class TinySSD(mx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.backbone = nn.HybridSequential()
+                for filters in (16, 32, 64):
+                    self.backbone.add(nn.Conv2D(filters, 3, padding=1,
+                                                strides=2),
+                                      nn.BatchNorm(), nn.Activation("relu"))
+                self.cls_head = nn.Conv2D(n_anchors * classes, 3, padding=1)
+                self.loc_head = nn.Conv2D(n_anchors * 4, 3, padding=1)
+
+        def hybrid_forward(self, F, x):
+            feat = self.backbone(x)
+            cls = self.cls_head(feat)
+            loc = self.loc_head(feat)
+            b = x.shape[0]
+            cls = F.reshape(F.transpose(cls, axes=(0, 2, 3, 1)),
+                            shape=(b, -1, classes))
+            loc = F.reshape(F.transpose(loc, axes=(0, 2, 3, 1)),
+                            shape=(b, -1))
+            return feat, cls, loc
+
+    return TinySSD()
+
+
+def ssd_scene(rs, size):
+    """train.py:36-49 make_scene: one bright square on a textured
+    background, its label [cls, x1, y1, x2, y2] normalized."""
+    img = rs.rand(3, size, size).astype(np.float32) * 0.3
+    s = rs.randint(size // 4, size // 2)
+    x0 = rs.randint(0, size - s)
+    y0 = rs.randint(0, size - s)
+    img[:, y0:y0 + s, x0:x0 + s] = rs.rand(3, 1, 1) * 0.5 + 0.5
+    return img, np.array([[0, x0 / size, y0 / size, (x0 + s) / size,
+                           (y0 + s) / size]], np.float32)
+
+
+def ssd_train(mx, hybrid, X, Y, ctx):
+    """train.py:101-143 on ``ctx``: (losses by epoch, step ms, the net,
+    the anchors, the last batch's (anchors, labels, class scores))."""
+    import torch
+    nd, autograd = mx.nd, mx.autograd
+    mx.random.seed(SSD["seed"])
+    net = tiny_ssd(mx)
+    net.initialize(mx.init.Xavier(magnitude=2.0), ctx=ctx)
+    if hybrid:
+        net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": SSD["lr"],
+                                "momentum": SSD["momentum"]})
+    n, bs = len(X), SSD["batch"]
+    zero, one = nd.zeros((1,), ctx=ctx), nd.ones((1,), ctx=ctx)
+    anchors, epochs, ms, last = None, [], [], None
+    for _ in range(SSD["epochs"]):
+        tot = 0.0
+        for i in range(0, n, bs):
+            if ctx.device_type == "gpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xb = nd.array(X[i:i + bs], ctx=ctx)
+            yb = nd.array(Y[i:i + bs], ctx=ctx)
+            with autograd.record():
+                feat, cls, loc = net(xb)
+                if anchors is None:
+                    anchors = nd.MultiBoxPrior(feat, sizes=SSD["sizes"],
+                                               ratios=SSD["ratios"])
+                cls_t_in = nd.transpose(cls, axes=(0, 2, 1))
+                loc_t, loc_m, cls_t = nd.MultiBoxTarget(
+                    anchors, yb, cls_t_in, negative_mining_ratio=3.0)
+                valid = cls_t >= 0
+                oh = nd.one_hot(nd.broadcast_maximum(cls_t, zero),
+                                depth=SSD["classes"])
+                ce = -nd.sum(oh * nd.log_softmax(cls, axis=-1), axis=-1)
+                nvalid = nd.broadcast_maximum(nd.sum(valid, axis=1), one)
+                l_cls = nd.sum(ce * valid, axis=1) / nvalid
+                ax = nd.abs((loc - loc_t) * loc_m)
+                l_loc = nd.mean(nd.where(ax < 1.0, 0.5 * ax * ax, ax - 0.5),
+                                axis=1)
+                loss = l_cls + l_loc
+            loss.backward()
+            trainer.step(xb.shape[0])
+            tot += float(nd.mean(loss).asscalar())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            last = (anchors, yb, cls_t_in.detach(), loc.detach())
+        epochs.append(tot / SSD["batches"])
+    return epochs, ms, net, anchors, last
+
+
+def ssd_hits(mx, net, anchors, X, Y, ctx):
+    """train.py:145-167: batch-1 decode + NMS, the top detection's IoU
+    against the ground truth at --eval-iou."""
+    nd = mx.nd
+    hits = 0
+    for i in range(len(X)):
+        feat, cls, loc = net(nd.array(X[i:i + 1], ctx=ctx))
+        probs = nd.softmax(cls, axis=-1)
+        dets = nd.MultiBoxDetection(nd.transpose(probs, axes=(0, 2, 1)), loc,
+                                    anchors, nms_threshold=0.45)
+        d = dets.asnumpy()[0]
+        d = d[d[:, 0] >= 0]
+        if not len(d):
+            continue
+        best = d[np.argmax(d[:, 1])]
+        gt, bx = Y[i, 0, 1:], best[2:6]
+        ix1, iy1 = max(bx[0], gt[0]), max(bx[1], gt[1])
+        ix2, iy2 = min(bx[2], gt[2]), min(bx[3], gt[3])
+        inter = max(ix2 - ix1, 0) * max(iy2 - iy1, 0)
+        union = ((bx[2] - bx[0]) * (bx[3] - bx[1])
+                 + (gt[2] - gt[0]) * (gt[3] - gt[1]) - inter)
+        if union > 0 and inter / union >= SSD["eval_iou"]:
+            hits += 1
+    return hits / len(X)
+
+
+def hybrid_ssd(mx, card):
+    """14e: BASELINE config 4, example/ssd/train.py at its defaults (batch
+    32, 12 epochs of 4 batches, sgd lr 0.1 momentum 0.9, seed 3, 32x32
+    scenes) with TinySSD hybridized on the card, and eagerly beside it:
+    step ms; the loss falls; the hit rate at --eval-iou 0.3 (batch-1
+    evaluation, a second cache key); the four SSD ops on the card against
+    the CPU on the last batch's inputs: indices and masks exact, boxes and
+    offsets within SSD_BOX_REL of their magnitude."""
+    import torch
+    rs = np.random.RandomState(SSD["seed"])
+    n = SSD["batch"] * SSD["batches"]
+    imgs, labels = zip(*(ssd_scene(rs, SSD["size"]) for _ in range(n)))
+    X, Y = np.stack(imgs), np.stack(labels)
+    gpu = mx.gpu(0)
+    eager = ssd_train(mx, False, X, Y, gpu)
+    mx.gluon.block.reset_cached_op_stats()
+    epochs, ms, net, anchors, last = ssd_train(mx, True, X, Y, gpu)
+    train_counts = hybrid_counts(mx)
+    hits = ssd_hits(mx, net, anchors, X, Y, gpu)
+    keys = len(net._cached_op._entries)
+    # the ops on the card against the CPU
+    a, yb, cls_in, loc = last
+    cpu = mx.cpu()
+    errs = {}
+
+    def both(op, arrays, **kw):
+        g = getattr(mx.nd, op)(*arrays, **kw)
+        c = getattr(mx.nd, op)(*[v.as_in_context(cpu) for v in arrays], **kw)
+        g = g if isinstance(g, (list, tuple)) else [g]
+        c = c if isinstance(c, (list, tuple)) else [c]
+        return [v.asnumpy() for v in g], [v.asnumpy() for v in c]
+
+    def rel(g, c):
+        return float(np.abs(g.astype(np.float64) - c).max() /
+                     max(1.0, np.abs(c).max())) if g.size else 0.0
+
+    g, c = both("MultiBoxPrior", [mx.nd.zeros((1, 64, 4, 4), ctx=gpu)],
+                sizes=SSD["sizes"], ratios=SSD["ratios"])
+    errs["MultiBoxPrior"] = rel(g[0], c[0])
+    g, c = both("MultiBoxTarget", [a, yb, cls_in], negative_mining_ratio=3.0)
+    errs["MultiBoxTarget"] = rel(g[0], c[0])
+    exact = [np.array_equal(g[1], c[1]), np.array_equal(g[2], c[2])]
+    probs = mx.nd.softmax(cls_in, axis=1)
+    g, c = both("MultiBoxDetection", [probs, loc, a], nms_threshold=0.45)
+    errs["MultiBoxDetection"] = rel(g[0], c[0])
+    exact.append(np.array_equal(g[0][..., 0], c[0][..., 0]))
+    g, c = both("box_nms", [mx.nd.array(g[0], ctx=gpu)], overlap_thresh=0.3,
+                topk=20)
+    errs["box_nms"] = rel(g[0], c[0])
+    exact.append(np.array_equal(g[0][..., :2], c[0][..., :2]))
+    ssd_ops = {k: v for k, v in errs.items()}
+    res = dict(losses=epochs, eager_losses=eager[0], step_ms=ms,
+               step_ms_mean=sum(ms[1:]) / (len(ms) - 1),
+               eager_step_ms_mean=sum(eager[1][1:]) / (len(eager[1]) - 1),
+               hit_rate=hits, cache_keys=keys, train_counts=train_counts,
+               ops_rel_err=ssd_ops, ops_exact=exact)
+    print("hybrid 14e: example/ssd/train.py %s: loss by epoch %s (eager "
+          "%s); step ms hybridized %.3f, eager %.3f (mean after the first); "
+          "hit rate at IoU %.1f: %.4f over %d images (batch-1 "
+          "evaluation: %d cache keys); counts in training %s; the four ops "
+          "card vs CPU: relative errors %s, indices and masks exact %s | %s"
+          % ({k: v for k, v in SSD.items() if k not in ("sizes", "ratios")},
+             ["%.4f" % v for v in epochs], ["%.4f" % v for v in eager[0]],
+             res["step_ms_mean"], res["eager_step_ms_mean"],
+             SSD["eval_iou"], hits, n, keys, json.dumps(train_counts),
+             json.dumps(ssd_ops), exact, card), flush=True)
+    check(epochs[-1] < 0.7 * epochs[0] and all(math.isfinite(v)
+                                               for v in epochs),
+          "14e: the loss did not fall: %s" % epochs)
+    check(all(exact) and max(errs.values()) <= SSD_BOX_REL,
+          "14e: the SSD ops on the card differ from the CPU: %s %s"
+          % (errs, exact))
+    check(keys >= 2 and train_counts["captures"] >= 1,
+          "14e: %d cache keys, counts %s" % (keys, train_counts))
+    del net, eager
+    hybrid_release(mx)
+    return res
+
+
+def hybrid_phase(mx, card):
+    """Phase 14: Gluon hybridize() as CUDA graphs (CachedOp) on the card
+    and the SSD ops (14a-14c, 14e; 14d's serving half runs on 4b's net
+    before 11b, its training half here)."""
+    import torch
+    t0 = time.perf_counter()
+    out = dict(contracts=hybrid_card_contracts(mx, card, failing=False))
+    check(out["contracts"]["ok"], "14 contracts: %s"
+          % out["contracts"]["failures"])
+    out["score"] = hybrid_score(mx, card)
+    out["imagenet"] = hybrid_imagenet(mx, card)
+    out["word_lm"] = hybrid_word_lm(mx, card)
+    out["lm_train"] = hybrid_lm_train(mx, card)
+    out["ssd"] = hybrid_ssd(mx, card)
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    print("hybrid: phase 14 in %.1f s | %s" % (out["seconds"], card),
+          flush=True)
+    return out
+
+
 def main():
     import torch
     t_run = time.perf_counter()
@@ -9112,6 +10125,9 @@ def main():
     runtime = serve_runtime(mx, net, card, rs)
     # phase 11b's LM: 4b's request under mx.engine.bulk, on the same net
     bulk_lm = bulk_lm_serving(mx, card, net, requests[0], first_logits)
+    # phase 14d's serving half: the same request hybridized (CachedOp)
+    hybrid_lm = hybrid_lm_serving(mx, card, net, requests[0], first_logits,
+                                  request_ms)
     del net, requests, first_logits
     gc.collect()
 
@@ -9259,6 +10275,14 @@ def main():
     rnn = rnn_phase(mx, card)
     rnn_launches = rnn["encoder"]["launches"]
 
+    # phase 14: Gluon hybridize() as CUDA graphs (benchmark_score.py's
+    # path, train_imagenet.py --gluon-trainer, word_lm.py's loop, the LM:
+    # kernel B1's forward and backward inside the graphs) and the SSD ops
+    hybrid = hybrid_phase(mx, card)
+    hybrid["lm_serving"] = hybrid_lm
+    hybrid_launches = hybrid["lm_train"]["launches"]
+    hybrid_rows = hybrid["lm_train"]["trace_rows"]
+
     def entry(name, source, design, launches_, err, t,
               replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -9284,18 +10308,24 @@ def main():
     print("bulk: summary " + json.dumps(bulk, default=str), flush=True)
     print("data: summary " + json.dumps(data, default=str), flush=True)
     print("rnn: summary " + json.dumps(rnn, default=str), flush=True)
+    print("hybrid: summary " + json.dumps(dict(hybrid, card=card),
+                                          default=str), flush=True)
     print("smoke: the whole run took %.1f s | %s"
           % (time.perf_counter() - t_run, card), flush=True)
     print(json.dumps({"kernels": [
         entry("flash_attention_fwd", BF16_SOURCE, FLASH_DESIGN,
               launches["flash_attention_fwd"] + sym_launches["launches"] +
               store_launches["launches"] + data_launches["launches"] +
-              rnn_launches["launches"],
+              rnn_launches["launches"] + hybrid_launches["launches"],
               errs[serving], bf16,
               symbolic_executor_launches=sym_launches["launches"],
               store_trainer_launches=store_launches["launches"],
               data_loader_trainer_launches=data_launches["launches"],
               rnn_encoder_trainer_launches=rnn_launches["launches"],
+              hybridized_trainer_launches=hybrid_launches["launches"],
+              hybridized_replay_trace_launches=dict(
+                  lm_request=hybrid_lm["flash_fwd_rows"],
+                  lm_train_step=hybrid_rows["flash_fwd_sm90"]),
               max_abs_err_cases=errs, half_violations_cases=violations,
               tflops=bf16["tflops"],
               training_launches=train["launches"]["flash_attention_fwd"],
@@ -9353,7 +10383,8 @@ def main():
               sym_launches["backward_kernel_launches"] +
               store_launches["backward_kernel_launches"] +
               data_launches["backward_kernel_launches"] +
-              rnn_launches["backward_kernel_launches"],
+              rnn_launches["backward_kernel_launches"] +
+              hybrid_launches["backward_kernel_launches"],
               max(backward_errs[case_key(*BACKWARD_CASES[0][:2], "bfloat16")
                                 + "_" + n] for n in ("dq", "dk", "dv")),
               backward, replaces="incubator_mxnet_tpu/ops/attention.py:168",
@@ -9366,8 +10397,12 @@ def main():
                   "backward_kernel_launches"],
               rnn_encoder_trainer_launches=rnn_launches[
                   "backward_kernel_launches"],
+              hybridized_trainer_launches=hybrid_launches[
+                  "backward_kernel_launches"],
               bulk_replay_trace_launches=dict(
                   lm_train_step=bulk_rows["flash_bwd"]),
+              hybridized_replay_trace_launches=dict(
+                  lm_train_step=hybrid_rows["flash_bwd"]),
               get_symbol_executor_launches=bulk["get_symbol"]["launches"][
                   "backward_kernel_launches"], torch_ops_ms=backward[
                   "torch_ops_ms"], f16_ms=backward["f16_ms"],

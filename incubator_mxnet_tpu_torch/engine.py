@@ -36,8 +36,9 @@ program replays the graph on the current stream.  Three traps shape it:
   store into an existing array is copied into that array instead).  The
   engine's graphs share one pool per device (:func:`graph_pool`), which
   an empty anchor graph keeps alive while the bounded cache frees the
-  graphs it evicts; replays are stream-ordered, so a graph's scratch
-  memory may be another's;
+  graphs it evicts.  A graph's scratch memory may be another's, so every
+  capture and replay into a pool, a hybridized block's too, is ordered
+  after the last (:func:`pool_order`), whatever thread or stream runs it;
 - a segment that draws random numbers registers the framework generator
   with the graph, which advances it per replay exactly as the eager calls
   would.
@@ -75,6 +76,7 @@ EH101 and EH102 at record time and EH103 and EH104 at flush
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import os
 import threading
@@ -752,20 +754,156 @@ def _math_flags():
 
 _VARIANTS = 4   # graphs an entry keeps, one per set of input addresses
 
+# the graphs of a pool share their intermediate memory: every eager first
+# run, capture and replay into the engine's pools runs under this lock
+# (pool_order), one at a time in the process
+_pool_lock = threading.RLock()
+_pool_last = {}     # device index -> (stream, event) of the last pool use
+_capturing = threading.local()     # .split: this thread's open _Split;
+#                                    .seen: the eager run's recorded ops
+
+
+@contextlib.contextmanager
+def pool_order(device):
+    """Hold the engine's graph pool of ``device``: under the process's
+    lock, on the current stream, ordered after the last use of the pool on
+    another stream.  Graphs that share a pool must never run concurrently,
+    whichever CachedOp or bulk segment they belong to."""
+    with _pool_lock:
+        cur = torch.cuda.current_stream(device)
+        last = _pool_last.get(device.index)
+        if last is not None and last[0] != cur:
+            cur.wait_event(last[1])
+        try:
+            yield
+        finally:
+            event = last[1] if last is not None else torch.cuda.Event()
+            event.record(cur)
+            _pool_last[device.index] = (cur, event)
+
+
+def capturing():
+    """The open capture of this thread (a :class:`_Split`), or None."""
+    return getattr(_capturing, "split", None)
+
+
+def run_outside_graph(fcompute, args, kw):
+    """Run an op that cannot live in a graph (``deferrable=False``).  In a
+    capture it ends the piece before it (:meth:`_Split.eager`); in the
+    eager run before a capture its results are kept for that capture."""
+    split = capturing()
+    if split is not None:
+        return split.eager(fcompute, args, kw)
+    seen = getattr(_capturing, "seen", None)
+    _capturing.seen = None      # what the op calls itself is not recorded
+    try:
+        res = fcompute(*args, **kw)
+    finally:
+        _capturing.seen = seen
+    if seen is not None:
+        seen.append([r.clone() for r in
+                     (res if isinstance(res, tuple) else (res,))])
+    return res
+
+
+class _EagerStep(object):
+    """An op that cannot live in a graph, between two captured pieces: a
+    replay runs it again on the tensors the piece before left at their
+    addresses and copies its results into those the piece after reads."""
+
+    def __init__(self, fcompute, args, kw, outs):
+        self.fcompute = fcompute
+        self.args = args
+        self.kw = kw
+        self.outs = outs
+
+    def replay(self):
+        with torch.no_grad():
+            res = self.fcompute(*self.args, **self.kw)
+            res = res if isinstance(res, tuple) else (res,)
+            for o, r in zip(self.outs, res):
+                o.copy_(r)
+
+
+class _Split(object):
+    """A capture that ends its graph at an op which cannot be captured and
+    captures what follows as the next graph: ``steps`` alternate graphs
+    and :class:`_EagerStep` s.  The op does not run in the capture: its
+    inputs there are pool memory no kernel has written yet, and running it
+    would repeat its side effects and draws.  Its results are those of the
+    same op in the eager run before the capture (``seen``, in order), at
+    addresses of their own that the replays write.  ``last_op`` names the
+    op the capture reached, for its error."""
+
+    def __init__(self, gens, pool, seen):
+        self.gens = gens
+        self.pool = pool
+        self.seen = list(seen)
+        self.steps = []
+        self.graph = None
+        self.last_op = None
+
+    def begin(self):
+        g = torch.cuda.CUDAGraph()
+        for gen in self.gens:
+            g.register_generator_state(gen)
+        g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        self.graph = g
+
+    def end(self):
+        self.graph.capture_end()
+        self.steps.append(self.graph)
+        self.graph = None
+
+    def abort(self, device):
+        g, self.graph = self.graph, None
+        if g is None:
+            return
+        try:
+            g.capture_end()
+        except Exception:
+            # an invalidated capture raises before the allocator stops
+            # sending this stream's allocations to the pool (and the graph
+            # has no pool() to name then)
+            end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+            if end is not None:
+                try:
+                    end(device.index or 0, self.pool)
+                except Exception:
+                    pass
+
+    def eager(self, fcompute, args, kw):
+        """Place one op outside the graphs, between two pieces."""
+        if not self.seen:
+            raise MXNetError("the capture reached an op that cannot be "
+                             "captured which its eager run did not reach")
+        self.end()
+        outs = self.seen.pop(0)
+        self.steps.append(_EagerStep(fcompute, list(args), dict(kw), outs))
+        self.begin()
+        return tuple(outs)
+
 
 class _Graph(object):
     """The captured graphs of one program ``fn(inputs) -> [tensors]``.
 
-    An input slot is borrowed or owned.  A graph reads a borrowed slot
-    where the caller's tensor lay at its capture; the entry keeps that
-    address, not the tensor, so it pins no input, and a call whose
-    borrowed inputs lie elsewhere gets a graph of its own (at most
-    ``_VARIANTS``, the least recently used dropped).  A slot that comes at
-    a new address on two calls in a row is owned from then on: the entry's
-    own buffer, which the input is copied into before each replay.  Slots
-    ``owned`` are owned from the start (inputs made anew for every call)."""
+    Each input slot is borrowed (the graph reads the caller's tensor where
+    it lies) until shown otherwise.  The entry keeps one variant per set of
+    addresses of its borrowed slots: a graph and its static outputs (at
+    most ``_VARIANTS``, the least recently used dropped).  A slot that comes
+    at a new address on two calls in a row is owned from then on: the
+    entry's own buffer, which the input is copied into before each replay.
+    Slots ``owned`` are owned from the start (inputs made anew for every
+    call).  A variant is captured after one eager run of ``fn``, whose
+    results that call returns.
 
-    def __init__(self, fn, inputs, gens, device, owned=()):
+    A program may hold ops that cannot be captured (``deferrable=False``
+    in the registry): the capture splits there (:class:`_Split`), and a
+    variant is then several graphs with those ops run eagerly between
+    them; ``pieces`` and ``split_ops`` count them at the last capture.
+    ``what`` names the program in a capture's error."""
+
+    def __init__(self, fn, inputs, gens, device, owned=(), what=None):
         self.fn = fn
         n = len(inputs)
         self.owned = [None] * n
@@ -774,67 +912,60 @@ class _Graph(object):
         self.moved = [False] * n    # came at a new address on the last call
         self.gens = [g for g in gens if g is not None]
         self.device = device
-        self.variants = collections.OrderedDict()  # addresses -> (graph,
+        self.what = what
+        self.variants = collections.OrderedDict()  # addresses -> (steps,
         #                                              outputs)
         self.capture_s = None
+        self.pieces = 0
+        self.split_ops = 0
 
     def _addresses(self, inputs):
         return tuple(None if buf is not None else t.data_ptr()
                      for buf, t in zip(self.owned, inputs))
 
-    def capture(self, inputs):
+    def capture(self, inputs, seen=()):
         """Capture ``fn`` over ``inputs`` (owned slots read the entry's
-        buffers) as the graph of their addresses."""
+        buffers) as the graphs of their addresses; ``seen`` holds the
+        results of the ops that cannot be captured in the eager run
+        before."""
         import time
         t0 = time.perf_counter()
         static = [t if buf is None else buf.copy_(t)
                   for buf, t in zip(self.owned, inputs)]
         stream = _side_stream(self.device)
-        g = torch.cuda.CUDAGraph()
-        for gen in self.gens:
-            g.register_generator_state(gen)
         torch.cuda.synchronize(self.device)
-        pool = graph_pool(self.device)
+        split = _Split(self.gens, graph_pool(self.device), seen)
         with torch.cuda.stream(stream):
-            g.capture_begin(pool=pool, capture_error_mode="thread_local")
+            split.begin()
+            _capturing.split = split
             try:
                 outs = self.fn(static)
             except BaseException as exc:
-                try:
-                    g.capture_end()
-                except Exception:
-                    # an invalidated capture raises before the allocator
-                    # stops sending this stream's allocations to the pool
-                    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
-                    if end is not None:
-                        try:
-                            end(self.device.index or 0, g.pool())
-                        except Exception:
-                            pass
-                raise MXNetError("bulk engine: capturing the segment into a "
-                                 "CUDA graph failed (%s: %s); an op that "
-                                 "cannot be captured must be registered "
-                                 "deferrable=False"
-                                 % (type(exc).__name__, exc)) from exc
-            g.capture_end()
+                _capturing.split = None
+                split.abort(self.device)
+                raise MXNetError(
+                    "capturing %s into a CUDA graph failed at op %s "
+                    "(%s: %s); an op that cannot be captured must be "
+                    "registered deferrable=False"
+                    % (self.what or "a bulk engine segment", split.last_op,
+                       type(exc).__name__, exc)) from exc
+            _capturing.split = None
+            split.end()
         torch.cuda.current_stream(self.device).wait_stream(stream)
-        self.variants[self._addresses(inputs)] = (g, list(outs))
+        self.variants[self._addresses(inputs)] = (split.steps, list(outs))
         while len(self.variants) > _VARIANTS:
             self.variants.popitem(last=False)
+        self.pieces = sum(isinstance(s, torch.cuda.CUDAGraph)
+                          for s in split.steps)
+        self.split_ops = len(split.steps) - self.pieces
         self.capture_s = time.perf_counter() - t0
 
     def run(self, inputs):
-        """(outputs of a replay over ``inputs``, whether it captured)."""
+        """(outputs over ``inputs``, whether it captured): a replay's
+        outputs cloned out of the pool, or a capture's eager results."""
         addrs = self._addresses(inputs)
         hit = self.variants.get(addrs)
-        captured = hit is None
-        if hit is not None:
-            self.variants.move_to_end(addrs)
-            self.moved = [False] * len(inputs)
-            for buf, t in zip(self.owned, inputs):
-                if buf is not None:
-                    buf.copy_(t)
-        else:
+        if hit is None:
             last = next(reversed(self.variants), addrs)
             moved = [a is not None and a != b for a, b in zip(addrs, last)]
             again = [i for i, m in enumerate(moved) if m and self.moved[i]]
@@ -844,35 +975,57 @@ class _Graph(object):
             if again:
                 # the graphs read the old addresses of the slots now owned
                 self.variants.clear()
-            self.capture(inputs)
-            hit = self.variants[self._addresses(inputs)]
-        hit[0].replay()
-        return hit[1], captured
+            results, seen = _eager_run(self.fn, inputs, self.device)
+            self.capture(inputs, seen)
+            return results, True
+        self.variants.move_to_end(addrs)
+        self.moved = [False] * len(inputs)
+        for buf, t in zip(self.owned, inputs):
+            if buf is not None:
+                buf.copy_(t)
+        for step in hit[0]:
+            step.replay()
+        return [o.clone() for o in hit[1]], False
 
     def release(self):
         self.variants.clear()
         self.owned = [None] * len(self.owned)
 
 
-def _run_cuda(cache, key, fn, inputs, gens, device, owned=()):
-    """(results, captured now) of ``fn`` over ``inputs`` through the
-    cached graph of ``key``: on a miss one eager run on the side stream
-    gives the results, then the capture."""
-    entry = cache.get(key)
-    if entry is not None:
-        outs, captured = entry.run(inputs)
-        return [o.clone() for o in outs], captured
+def _eager_run(fn, inputs, device):
+    """(results, the results of its ops that cannot be captured) of one
+    run of ``fn`` on the side stream, ordered with the current one."""
     cur = torch.cuda.current_stream(device)
     stream = _side_stream(device)
     stream.wait_stream(cur)
-    with torch.cuda.stream(stream):
-        results = fn(inputs)
+    outer = getattr(_capturing, "seen", None)
+    _capturing.seen = seen = []
+    try:
+        with torch.cuda.stream(stream):
+            results = fn(inputs)
+    finally:
+        _capturing.seen = outer
     cur.wait_stream(stream)
     for r in results:
         r.record_stream(cur)
-    entry = _Graph(fn, inputs, gens, device, owned)
-    entry.capture(inputs)
-    cache[key] = entry
+    return results, seen
+
+
+def _run_cuda(cache, key, fn, inputs, gens, device, owned=(), what=None):
+    """(results, captured now) of ``fn`` over ``inputs`` through the
+    cached graph of ``key``, in the pool's order (:func:`pool_order`): on
+    a miss one eager run on the side stream gives the results, then the
+    capture.  ``gens`` may be a function that names the generators to
+    register once the eager run has drawn."""
+    with pool_order(device):
+        entry = cache.get(key)
+        if entry is not None:
+            return entry.run(inputs)
+        results, seen = _eager_run(fn, inputs, device)
+        entry = _Graph(fn, inputs, gens() if callable(gens) else gens,
+                       device, owned, what)
+        entry.capture(inputs, seen)
+        cache[key] = entry
     return results, True
 
 

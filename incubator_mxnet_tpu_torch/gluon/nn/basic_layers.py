@@ -53,7 +53,8 @@ class Sequential(Block):
 
 
 class HybridSequential(HybridBlock):
-    """Stack of HybridBlocks (ref: basic_layers.py class HybridSequential)."""
+    """Stack of HybridBlocks, hybridizable as one program (ref:
+    basic_layers.py class HybridSequential)."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
@@ -66,6 +67,12 @@ class HybridSequential(HybridBlock):
         for block in self._children:
             x = block(x)
         return x
+
+    def __getitem__(self, key):
+        return self._children[key]
+
+    def __len__(self):
+        return len(self._children)
 
 
 class Dense(HybridBlock):

@@ -644,8 +644,14 @@ def _dispatch(op, inputs, params, out, hidden):
         kw["generator"] = random_state.generator(
             vals[0].device if vals else params["device"]) \
             if op.draws(params, is_train) else None
+    split = _engine.capturing()
+    if split is not None:
+        split.last_op = op.name
     with torch.set_grad_enabled(recording):
-        res = op.fcompute(*vals, **kw)
+        # an op that cannot live in a graph splits a hybridized block's
+        # capture there
+        res = op.fcompute(*vals, **kw) if op.deferrable else \
+            _engine.run_outside_graph(op.fcompute, vals, kw)
         res = res if isinstance(res, tuple) else (res,)
         res = tuple(r.clone(memory_format=torch.contiguous_format)
                     if _aliases(r, vals) else r for r in res)

@@ -22,7 +22,8 @@ fcompute on ``meta`` tensors (:meth:`Operator.infer`, the counterpart of
 An op that cannot live inside a captured CUDA graph (it reads a value on
 the host, its output shape depends on the data, or it synchronizes) is
 registered ``deferrable=False``: ``mx.engine.bulk`` then runs it eagerly,
-after its pending inputs flush (the JAX build's ``no_jit``).
+after its pending inputs flush (the JAX build's ``no_jit``), and a
+hybridized block's CUDA graph splits around it.
 """
 from __future__ import annotations
 
@@ -95,7 +96,8 @@ class Operator:
     deferrable : False for an op that cannot be recorded into a bulk
         segment, which replays as one captured CUDA graph on the card: it
         reads a value on the host, its output shape depends on the data, or
-        it synchronizes with the card.
+        it synchronizes with the card.  A hybridized block's CUDA graph
+        splits around such an op, which runs eagerly between the pieces.
     """
 
     def __init__(self, name: str, fcompute: Callable, *,

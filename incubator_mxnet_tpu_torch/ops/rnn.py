@@ -33,7 +33,10 @@ step as cuDNN's clip would.
 
 Both ops are registered ``deferrable=False``: cuDNN's backward needs the
 reserve buffer of the forward it follows, which a replayed bulk segment
-does not keep, and ``ctc_loss`` reads the lengths on the host.
+does not keep, and ``ctc_loss`` reads the lengths on the host.  So a
+hybridized block's CUDA graph splits around them too, which ``RNN`` needs
+for a reason of its own: cuDNN's RNN failed to capture in some shapes
+(``CUDNN_STATUS_INTERNAL_ERROR``) and left the stream capturing.
 """
 from __future__ import annotations
 

@@ -166,6 +166,14 @@ def test_port_imports_with_jax_blocked():
             "    assert mx.nd.CTCLoss(mx.nd.ones((4, 2, 3)),\n"
             "                         mx.nd.ones((2, 2))).shape == (2,)\n"
             "    assert mx.gluon.loss.CTCLoss() and mx.rnn.FusedRNNCell(4)\n"
+            "    from incubator_mxnet_tpu_torch.ops import vision as vops\n"
+            "    from incubator_mxnet_tpu_torch.gluon.block import CachedOp\n"
+            "    lstm.hybridize()\n"
+            "    assert lstm(mx.nd.ones((2, 3, 5))).shape == (2, 3, 4)\n"
+            "    assert isinstance(lstm._cached_op, CachedOp)\n"
+            "    a = mx.nd.contrib.MultiBoxPrior(mx.nd.ones((1, 2, 2, 2)))\n"
+            "    assert mx.nd.box_nms(mx.nd.ones((1, 3, 6))).shape == (1, 3, 6)\n"
+            "    assert a.shape == (1, 4, 4) and vops._nms_fixed\n"
             "print(mx.current_context(), float(x.asnumpy().sum()))\n"
             "assert not [m for m in sys.modules if m.startswith('jax')\n"
             "            and sys.modules[m] is not None]\n")

@@ -309,10 +309,8 @@ LATER_NAMES = {
                   "fused_lr_wd": 12, "fused_state_arity": 12},
     "nd.contrib": {"RingAttention": 7,
                    "DeformableConvolution": 9, "DeformablePSROIPooling": 9,
-                   "MultiBoxDetection": 9, "MultiBoxPrior": 9,
-                   "MultiBoxTarget": 9, "MultiProposal": 9,
-                   "PSROIPooling": 9, "Proposal": 9, "ROIAlign": 9,
-                   "box_nms": 9, "dequantize": 11, "quantize": 11,
+                   "MultiProposal": 9, "PSROIPooling": 9, "Proposal": 9,
+                   "ROIAlign": 9, "dequantize": 11, "quantize": 11,
                    "quantized_act": 11, "quantized_conv": 11,
                    "quantized_elemwise_add": 11, "quantized_flatten": 11,
                    "quantized_fully_connected": 11,
