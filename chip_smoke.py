@@ -13,7 +13,9 @@ ResNet-50 with mx.profiler, then run those paths through mx.engine.bulk,
 then feed ResNet-50 from train_imagenet.py's RecordIO path and the LM from
 a gluon.data DataLoader, then hold the fused RNN op's cuDNN route against
 its plain loop and train and serve bench_lstm.py's LSTM LM, word_lm.py's
-loop, CTC, an LSTM encoder under B1 and mx.rnn through BucketingModule.
+loop, CTC, an LSTM encoder under B1 and mx.rnn through BucketingModule,
+then run them hybridized, then train BASELINE config 5 (sparse linear
+classification) at 1,000,000 features through sparse arrays and the store.
 
 Run from the root of a checkout, with one CUDA card and the CUDA toolkit:
 
@@ -343,10 +345,31 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              once a step, none through the torch ops; 13g a FusedRNNCell
              LM through BucketingModule.fit over BucketSentenceIter, and
              unfuse() against the fused node (1e-4); the phase's seconds;
-14. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
-   launches of B1 in 9c, 10d, 11, 12e and 13f; phases 6-8 launch none), the
-   whole run's seconds, then the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+14. hybrid — Gluon ``hybridize()`` as CUDA graphs (CachedOp) and the SSD
+             ops (``hybrid_phase``);
+15. sparse — sparse storage, no hand kernel (``sparse_phase``): 15a the
+             casts between dense, row-sparse and CSR of a (8192, 1,000,000)
+             CSR batch and a (1,000,000, 1) weight, retain, CSR·dense,
+             CSRᵀ·dense and their backward, add_n, the lazy updates with and
+             without momentum, wd and clipping, each against the port's CPU
+             path (structure and elementwise results bit-equal, a product
+             element within 2(n-1)·2^-24·Σ|terms| of its n terms), each
+             timed beside dense torch and torch's sparse layouts; 15b
+             BASELINE config 5 (example/sparse's loop: LibSVMIter,
+             row_sparse_pull, sparse.dot, the row-sparse push to the
+             store's sgd) at 1,000,000 features and batch 8192 over 65,536
+             Zipf rows written from the seed, 3 epochs: the loss falls, the
+             weights match a dense plain rerun within its carried bound,
+             untouched rows bit-equal, ms a step by part, one step's busy
+             time; 15c sparse .params records bit-equal through the card,
+             rand_ndarray's densities; 15d the lazy update inside
+             mx.engine.bulk bit-equal to eager; 15e ROADMAP C11 (a failed
+             capture leaves mx.random usable, for a CachedOp and a bulk
+             segment);
+16. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
+   launches of B1 in 9c, 10d, 11, 12e, 13f and 14d; phases 6-8 and 15
+   launch none), the whole run's seconds, then the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -5574,8 +5597,6 @@ def kv_on_card(mx, card, shape=None):
     check(round_trip, "10a: the optimizer's states did not round-trip")
     raised = {}
     for what, call, item in (
-            ("row_sparse_pull", lambda: kv.row_sparse_pull(
-                "w", out=out, row_ids=out), "item 10"),
             ("dist_sync", lambda: mx.kv.create("dist_sync"), "item 7"),
             ("set_gradient_compression", lambda: kv.set_gradient_compression(
                 {"type": "2bit"}), "item 11")):
@@ -9833,6 +9854,815 @@ def hybrid_phase(mx, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sparse storage (RowSparse and CSR NDArrays, cast_storage,
+# retain, sparse dot, the lazy row-sparse SGD, row_sparse_pull, LibSVMIter,
+# sparse records) and BASELINE config 5; no hand kernel runs in it
+# ---------------------------------------------------------------------------
+
+# BASELINE config 5 at the width of MXNet 1.2's example/sparse/
+# linear_classification/train.py (Avazu: 1,000,000 hashed features, batch
+# 8192).  The data is written from the seed: 65,536 rows (8 batches) of 15
+# distinct features, ids drawn with p(rank k) ~ k^-1.1, value 1 (hashed
+# click features), label sign(w_true . x); 3 epochs of the example's loop
+SPARSE = dict(dim=1000000, batch=8192, rows=65536, nnz=15, zipf=1.1,
+              epochs=3, lr=2.0, w_scale=0.01, seed=SEED)
+SPARSE_REPS = 5
+# 15a's lazy updates: with and without momentum, weight decay and clipping
+SPARSE_UPDATES = (dict(momentum=0.0, wd=0.0, clip_gradient=-1.0),
+                  dict(momentum=0.0, wd=1e-4, clip_gradient=0.01),
+                  dict(momentum=0.9, wd=0.0, clip_gradient=-1.0),
+                  dict(momentum=0.9, wd=1e-4, clip_gradient=0.01))
+U32 = 2.0 ** -24      # f32's unit roundoff
+HOST_SYNC_OP = "_smoke_host_sync"
+
+
+def zipf_ids(rs, rows, nnz, dim, exponent):
+    """(rows, nnz) feature ids, distinct and sorted within a row: ranks
+    drawn with p(k) ~ k^-exponent over ``dim`` ids, mapped to ids by a
+    seeded permutation (the head of a hashed feature space lies anywhere
+    in it); a repeat within a row is drawn again."""
+    cdf = np.cumsum(np.arange(1, dim + 1, dtype=np.float64) ** -exponent)
+    cdf /= cdf[-1]
+    perm = rs.permutation(dim)
+
+    def draw(n):
+        k = np.searchsorted(cdf, rs.random_sample(n), side="right")
+        return perm[np.minimum(k, dim - 1)]
+    ids = np.sort(draw(rows * nnz).reshape(rows, nnz), axis=1)
+    while True:
+        dup = np.zeros(ids.shape, bool)
+        dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+        n = int(dup.sum())
+        if not n:
+            return ids
+        ids[dup] = draw(n)
+        ids.sort(axis=1)
+
+
+def sparse_data(cfg, path):
+    """Write 15b's LibSVM file from the seed; (ids, labels, the initial
+    weight (dim, 1))."""
+    rs = np.random.RandomState(cfg["seed"])
+    ids = zipf_ids(rs, cfg["rows"], cfg["nnz"], cfg["dim"], cfg["zipf"])
+    w_true = rs.standard_normal(cfg["dim"])
+    labels = (w_true[ids].sum(1) > 0).astype(np.int64)
+    w0 = (rs.standard_normal((cfg["dim"], 1)) * cfg["w_scale"]).astype(
+        np.float32)
+    with open(path, "w") as f:
+        for lab, row in zip(labels, ids):
+            f.write("%d %s\n" % (lab, " ".join("%d:1" % i for i in row)))
+    return ids, labels, w0
+
+
+class SparseLinear(object):
+    """The model and the store of example/sparse/linear_classification.py
+    (:60-75) against ``mx`` (either package): a store holding the weight
+    (dim, 1), first ``w0``, and the bias, its sgd updating them; a
+    row-sparse weight the batches pull into."""
+
+    def __init__(self, mx, dim, lr, w0, ctx):
+        self.mx, self.ctx, self.dim = mx, ctx, dim
+        nd = mx.nd
+        self.kv = mx.kv.create("local")
+        self.w = nd.zeros((dim, 1), ctx=ctx).tostype("row_sparse")
+        self.b = nd.zeros((1,), ctx=ctx)
+        self.kv.init("w", nd.array(w0, ctx=ctx))
+        self.kv.init("b", self.b)
+        self.kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=lr))
+
+    def step(self, bt, lap=lambda name: None):
+        """The loop's body (:93-130) on one batch: row_sparse_pull of its
+        rows, nd.sparse.dot(x, w) + b, the mean logistic loss, backward,
+        the weight's gradient pushed row-sparse.  ``lap(part)`` closes
+        each part.  Returns (loss, correct predictions, rows pulled)."""
+        nd, kv = self.mx.nd, self.kv
+        x, y = bt.data[0], bt.label[0]
+        row_ids = nd.array(np.unique(x.indices.asnumpy().astype(np.int64)),
+                           ctx=self.ctx)
+        kv.row_sparse_pull("w", out=self.w, row_ids=row_ids)
+        kv.pull("b", out=self.b)
+        dense_w = self.w.tostype("default")
+        lap("pull")
+        dense_w.attach_grad()
+        self.b.attach_grad()
+        with self.mx.autograd.record():
+            z = (nd.sparse.dot(x, dense_w) + self.b).reshape((-1,))
+            loss = nd.mean(nd.log(1 + nd.exp(-(2 * y - 1) * z)))
+        loss.backward()
+        lap("forward_backward")
+        grad = dense_w.grad.tostype("row_sparse")
+        lap("cast")
+        kv.push("w", grad)
+        kv.push("b", self.b.grad)
+        lap("push_update")
+        correct = int(((z.asnumpy() > 0) == (y.asnumpy() > 0.5)).sum())
+        return float(loss.asscalar()), correct, int(row_ids.shape[0])
+
+    def weights(self):
+        nd = self.mx.nd
+        w, b = nd.zeros((self.dim, 1), ctx=self.ctx), nd.zeros(
+            (1,), ctx=self.ctx)
+        self.kv.pull("w", out=w)
+        self.kv.pull("b", out=b)
+        return w.asnumpy(), b.asnumpy()
+
+
+def sparse_linear_fit(mx, path, dim, batch, epochs, lr, w0, ctx,
+                      sync=lambda: None, times=None):
+    """example/sparse/linear_classification.py's training (:77-132): its
+    LibSVMIter over ``path`` and :class:`SparseLinear`'s step, ``epochs``
+    times.  ``times`` gathers the seconds of each part (iterator, pull,
+    forward_backward, cast, push_update) step by step, ``sync`` waiting
+    for the device at each boundary.  Returns the loss and accuracy of each epoch, the
+    rows each batch pulled, and the store's weight and bias."""
+    it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(dim,),
+                          batch_size=batch)
+    model = SparseLinear(mx, dim, lr, w0, ctx)
+    out = dict(loss=[], acc=[], rows=[])
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        sync()
+        t = time.perf_counter()
+        if times is not None:
+            times.setdefault(name, []).append(t - clock[0])
+        clock[0] = t
+    for _ in range(epochs):
+        it.reset()
+        losses, correct, total = [], 0, 0
+        clock[0] = time.perf_counter()
+        for bt in it:
+            lap("iterator")
+            loss, right, rows = model.step(bt, lap)
+            losses.append(loss)
+            correct += right
+            total += bt.data[0].shape[0]
+            out["rows"].append(rows)
+            clock[0] = time.perf_counter()
+        out["loss"].append(float(np.mean(losses)))
+        out["acc"].append(correct / max(total, 1))
+    out["w"], out["b"] = model.weights()
+    return out
+
+
+def sparse_plain_step(torch, ids, labels, w, b, lr):
+    """One of 15b's steps in plain torch with dense tensors: the dense
+    weight ``w`` (dim,) and bias ``b`` (1,) updated on every row by a dense
+    gradient (``index_add_``), no store; ``ids`` (B, k) the batch's
+    features (value 1).  Returns the new weight and bias and, per element,
+    the bound on |the port's step from the same weights - this one|: the
+    two sum the same terms in other orders, so a forward sum of m terms may
+    differ by 2m·u·Σ|terms| and a gradient sum of n terms by 2n·u·Σ|terms|
+    (u = 2^-24), the loss's derivative by 8u of itself plus what a
+    difference e in its input makes (at most e / 4B), and the update by
+    its own rounding."""
+    f64 = torch.float64
+    dev = w.device
+    n_b, k = ids.shape
+    r = torch.arange(n_b, device=dev).repeat_interleave(k)
+    c = torch.as_tensor(ids.reshape(-1), device=dev)
+    y = torch.as_tensor(labels, dtype=torch.float32, device=dev)
+    terms = w[c]
+    z = torch.zeros(n_b, device=dev).index_add_(0, r, terms) + b
+    zz = z.detach().requires_grad_(True)
+    loss = torch.log(1 + torch.exp(-(2 * y - 1) * zz)).mean()
+    dz, = torch.autograd.grad(loss, zz)
+    gw = torch.zeros_like(w).index_add_(0, c, dz[r])
+    gb = dz.sum().reshape(1)
+    rowsum = torch.zeros(n_b, dtype=f64, device=dev).index_add_(
+        0, r, terms.abs().double())
+    ez = 2 * (k + 1) * U32 * (rowsum + float(b.abs()))
+    edz = ez / (4 * n_b) + 8 * U32 * dz.abs().double()
+    n_j = torch.zeros(w.numel(), dtype=f64, device=dev).index_add_(
+        0, c, torch.ones(c.numel(), dtype=f64, device=dev))
+    colsum = torch.zeros_like(n_j).index_add_(0, c, dz[r].abs().double())
+    egw = torch.zeros_like(n_j).index_add_(0, c, edz[r]) + \
+        2 * n_j * U32 * colsum
+    egb = float(edz.sum()) + 2 * n_b * U32 * float(dz.abs().sum())
+    ew = lr * egw + torch.where(
+        (gw != 0) | (egw > 0),
+        U32 * (2 * w.abs().double() + 2 * lr * gw.abs().double()), 0.0)
+    eb = lr * egb + U32 * (2 * float(b.abs()) + 2 * lr * float(gb.abs()))
+    return w - lr * gw, b - lr * gb, ew, eb
+
+
+def sum_bound(torch, abs_terms, n_terms):
+    """Per output element, how far two sums of the same ``n_terms`` terms
+    in other orders may lie apart: 2(n - 1)·u·Σ|terms|."""
+    return 2.0 * (n_terms - 1).clamp(min=0) * U32 * abs_terms
+
+
+def _timed(fn, reps, torch, dev):
+    """Mean ms of ``fn()`` on the card after warm-up (``cuda_ms``); None
+    on the CPU (a rehearsal)."""
+    if dev.type != "cuda":
+        fn()
+        return None
+    return cuda_ms(fn, reps, torch)
+
+
+def _try_ms(fn, reps, torch, dev, what):
+    """``_timed`` of a torch formulation that may not take this size: its
+    error is printed and the time is None."""
+    try:
+        return _timed(fn, reps, torch, dev)
+    except (RuntimeError, NotImplementedError, MemoryError) as exc:
+        print("sparse 15a: %s not measured (%s: %s)"
+              % (what, type(exc).__name__, str(exc)[:160]), flush=True)
+        return None
+
+
+def _host(a):
+    return a.asnumpy() if hasattr(a, "asnumpy") else np.asarray(a)
+
+
+def same_sparse(a, b):
+    """Whether two sparse arrays (or two dense ones) hold the same
+    components, bit for bit."""
+    if a.stype != b.stype:
+        return False
+    keys = {"csr": ("indptr", "indices", "data"),
+            "row_sparse": ("indices", "data")}.get(a.stype)
+    if keys is None:
+        return np.array_equal(a.asnumpy(), b.asnumpy())
+    return all(np.array_equal(_host(getattr(a, k)), _host(getattr(b, k)))
+               for k in keys)
+
+
+def sparse_card_ops(mx, card, dim=SPARSE["dim"], batch=SPARSE["batch"],
+                    nnz=SPARSE["nnz"], seed=SEED, reps=SPARSE_REPS):
+    """15a: the sparse ops on the card against the port's CPU path on the
+    same inputs, f32, at config 5's size: a (batch, dim) CSR batch of
+    ``nnz`` distinct Zipf ids a row with normal values, a (dim, 1) weight,
+    and row-sparse gradients over the batch's rows.  Structure (indices,
+    indptr), casts, retain and add_n must be bit-equal; a product's
+    element within ``sum_bound`` of its terms.  Each op's mean ms beside
+    the same result in dense torch (``dense_ms``) and through torch's own
+    sparse layouts or cuSPARSE (``torch_ms``), where those take the size.
+    The updates, elementwise f32 steps on both sides, are held in ulps at
+    each output's largest value (``UPDATE_ULP``, as 8d's).  The dense batch
+    is batch x dim f32: its casts run while the card has 1.3 times that
+    free, else they are reported as not measured."""
+    import torch
+    nd, sp = mx.nd, mx.nd.sparse
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    dev = gpu.torch_device()
+    cuda = dev.type == "cuda"
+    rs = np.random.RandomState(seed + 15)
+    ids = zipf_ids(rs, batch, nnz, dim, SPARSE["zipf"])
+    vals = rs.standard_normal(ids.size).astype(np.float32)
+    indptr = np.arange(0, ids.size + 1, nnz, dtype=np.int64)
+    triple = (vals, ids.reshape(-1).astype(np.int64), indptr)
+    X = sp.csr_matrix(triple, shape=(batch, dim), ctx=gpu)
+    Xc = sp.csr_matrix(triple, shape=(batch, dim), ctx=cpu)
+    W0 = rs.standard_normal((dim, 1)).astype(np.float32)
+    rows = np.unique(ids)
+    G0 = np.zeros((dim, 1), np.float32)
+    G0[rows] = rs.standard_normal((rows.size, 1))
+    G1 = np.zeros((dim, 1), np.float32)
+    G1[rows[::3]] = rs.standard_normal((rows[::3].size, 1))
+    D = rs.standard_normal((batch, 1)).astype(np.float32)
+    res = dict(shape=[batch, dim], nnz=int(ids.size),
+               distinct_rows=int(rows.size), ops={})
+    fails = []
+
+    def record(name, ok, err, bound, ms, dense_ms=None, torch_ms=None,
+               **extra):
+        res["ops"][name] = dict(ok=bool(ok), max_abs_err=err, bound=bound,
+                                ms=ms, dense_ms=dense_ms, torch_ms=torch_ms,
+                                **extra)
+        if not ok:
+            fails.append("%s: error %r, bound %r" % (name, err, bound))
+        print("sparse 15a: %-36s %s err %.3e (bound %.3e) | ms %s, dense %s, "
+              "torch %s | %s" % (name, "ok" if ok else "FAILED", err, bound,
+                                 ms, dense_ms, torch_ms, card), flush=True)
+
+    def exact(name, got, want, ms, **kw):
+        ok = same_sparse(got, want)
+        record(name, ok, 0.0 if ok else float("inf"), 0.0, ms, **kw)
+
+    t_csr = torch.sparse_csr_tensor(X.indptr._data, X.indices._data,
+                                    X.data._data, (batch, dim))
+    Wg, Dg = nd.array(W0, ctx=gpu), nd.array(D, ctx=gpu)
+    dense_ms = {}
+    # -- the batch: CSR -> dense -> CSR
+    big = 4 * batch * dim
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0] if cuda else 1 << 62
+    res["dense_batch"] = dict(bytes=big, free_bytes=int(free))
+    if free >= 1.3 * big:
+        ms = _timed(lambda: X.tostype("default"), reps, torch, dev)
+        torch_ms = _try_ms(lambda: t_csr.to_dense(), reps, torch, dev,
+                           "torch's CSR to_dense")
+        Xd = X.tostype("default")
+        td = Xd._data
+        at = td[torch.arange(batch, device=dev).repeat_interleave(nnz),
+                X.indices._data]
+        step = max(1, (1 << 28) // dim)     # count_nonzero makes int64s
+        found = sum(int((td[i:i + step] != 0).sum())
+                    for i in range(0, batch, step))
+        ok = same_bits(torch, at, X.data._data) and \
+            found == int(np.count_nonzero(vals))
+        record("cast csr->default (batch)", ok, 0.0 if ok else float("inf"),
+               0.0, ms, torch_ms=torch_ms)
+        exact("cast default->csr (batch)", Xd.tostype("csr"), Xc,
+              _timed(lambda: Xd.tostype("csr"), reps, torch, dev),
+              torch_ms=_try_ms(lambda: td.to_sparse_csr(), reps, torch, dev,
+                               "torch's to_sparse_csr"))
+        dense_ms["dot"] = _try_ms(lambda: td @ Wg._data, reps, torch, dev,
+                                  "dense X·W")
+        dense_ms["dotT"] = _try_ms(lambda: td.t() @ Dg._data, reps, torch,
+                                   dev, "dense Xᵀ·D")
+        del Xd, td, at
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    else:
+        print("sparse 15a: the dense batch (%d bytes) not measured: %d bytes "
+              "free | %s" % (big, free, card), flush=True)
+    # -- the weight and a gradient: dense <-> row-sparse <-> CSR
+    Wc = nd.array(W0, ctx=cpu)
+    Gg, Gc = nd.array(G0, ctx=gpu), nd.array(G0, ctx=cpu)
+    for name, src_g, src_c, to, torch_fn in (
+            ("cast default->row_sparse", Wg, Wc, "row_sparse",
+             lambda: Wg._data.to_sparse(1)),
+            ("cast gradient->row_sparse", Gg, Gc, "row_sparse",
+             lambda: Gg._data.to_sparse(1)),
+            ("cast default->csr", Wg, Wc, "csr",
+             lambda: Wg._data.to_sparse_csr())):
+        exact(name, src_g.tostype(to), src_c.tostype(to),
+              _timed(lambda: src_g.tostype(to), reps, torch, dev),
+              torch_ms=_try_ms(torch_fn, reps, torch, dev, name))
+    Rg, Rc = Wg.tostype("row_sparse"), Wc.tostype("row_sparse")
+    Cg, Cc = Wg.tostype("csr"), Wc.tostype("csr")
+    for name, src_g, src_c, to in (
+            ("cast row_sparse->default", Rg, Rc, "default"),
+            ("cast row_sparse->csr", Rg, Rc, "csr"),
+            ("cast csr->row_sparse", Cg, Cc, "row_sparse"),
+            ("cast csr->default", Cg, Cc, "default")):
+        exact(name, src_g.tostype(to), src_c.tostype(to),
+              _timed(lambda: src_g.tostype(to), reps, torch, dev))
+    # -- retain every other row of the gradient
+    Sg, Sc = Gg.tostype("row_sparse"), Gc.tostype("row_sparse")
+    keep = nd.array(rows[::2].astype(np.float32), ctx=gpu)
+    mask = torch.zeros(dim, 1, dtype=torch.bool, device=dev)
+    mask[torch.as_tensor(rows[::2], device=dev)] = True
+    exact("retain", sp.retain(Sg, keep), sp.retain(Sc, rows[::2]),
+          _timed(lambda: sp.retain(Sg, keep), reps, torch, dev),
+          dense_ms=_timed(lambda: torch.where(mask, Gg._data, 0.0), reps,
+                          torch, dev))
+    # -- products, and their backward into the dense operand
+    per_row = torch.full((batch, 1), float(nnz), dtype=torch.float64)
+    per_col = torch.zeros(dim, 1, dtype=torch.float64).index_add_(
+        0, torch.as_tensor(triple[1]), torch.ones(ids.size, 1,
+                                                  dtype=torch.float64))
+    absX = sp.csr_matrix((np.abs(vals), triple[1], indptr),
+                         shape=(batch, dim), ctx=cpu)
+    absW, absD = nd.array(np.abs(W0), ctx=cpu), nd.array(np.abs(D), ctx=cpu)
+    Dc = nd.array(D, ctx=cpu)
+
+    def product(name, fn_g, fn_c, abs_terms, n_terms, dense, torch_fn):
+        got, again, want = fn_g(), fn_g(), fn_c()
+        diff = (got._data.double().cpu() - want._data.double()).abs()
+        bound = sum_bound(torch, abs_terms._data.double(), n_terms)
+        repeat = same_bits(torch, got._data, again._data)
+        record(name, bool((diff <= bound).all()) and repeat,
+               float(diff.max()), float(bound.max()),
+               _timed(fn_g, reps, torch, dev), dense_ms=dense,
+               torch_ms=_try_ms(torch_fn, reps, torch, dev, name),
+               repeats_bit_equal=repeat)
+
+    def backward(lhs, rhs, head, transpose):
+        r = rhs.copy()
+        r.attach_grad()
+        with mx.autograd.record():
+            out = sp.dot(lhs, r, transpose_a=transpose)
+        out.backward(head)
+        return r.grad
+
+    Hg, Hc, Vg, Vc = Dg, Dc, Wg, Wc
+    product("dot csr·dense", lambda: sp.dot(X, Wg), lambda: sp.dot(Xc, Wc),
+            sp.dot(absX, absW), per_row, dense_ms.get("dot"),
+            lambda: torch.sparse.mm(t_csr, Wg._data))
+    product("dot csrᵀ·dense", lambda: sp.dot(X, Dg, transpose_a=True),
+            lambda: sp.dot(Xc, Dc, transpose_a=True),
+            sp.dot(absX, absD, transpose_a=True), per_col,
+            dense_ms.get("dotT"),
+            lambda: torch.sparse.mm(t_csr.t(), Dg._data))
+    product("dot csr·dense, backward", lambda: backward(X, Wg, Hg, False),
+            lambda: backward(Xc, Wc, Hc, False),
+            sp.dot(absX, absD, transpose_a=True), per_col, None,
+            lambda: torch.sparse.mm(t_csr.t(), Hg._data))
+    product("dot csrᵀ·dense, backward", lambda: backward(X, Dg, Vg, True),
+            lambda: backward(Xc, Dc, Vc, True), sp.dot(absX, absW), per_row,
+            None, lambda: torch.sparse.mm(t_csr, Vg._data))
+    # -- add_n of row-sparse gradients: a row sums at most two terms, and
+    # IEEE addition commutes, so bit-equal
+    S1g = nd.array(G1, ctx=gpu).tostype("row_sparse")
+    S1c = nd.array(G1, ctx=cpu).tostype("row_sparse")
+    G1g = nd.array(G1, ctx=gpu)
+    exact("add_n row_sparse", sp.add_n(Sg, S1g), sp.add_n(Sc, S1c),
+          _timed(lambda: sp.add_n(Sg, S1g), reps, torch, dev),
+          dense_ms=_timed(lambda: Gg._data + G1g._data, reps, torch, dev))
+    # -- the lazy updates against the CPU, bit for bit
+    untouched = np.setdiff1d(np.arange(dim), rows)
+    for kw in SPARSE_UPDATES:
+        kw = dict(kw, lr=0.1, rescale_grad=1.0 / batch)
+        mom = kw["momentum"] != 0.0
+        if not mom:
+            del kw["momentum"]
+        op = "_sparse_sgd_mom_update" if mom else "_sparse_sgd_update"
+        dense_op = "sgd_mom_update" if mom else "sgd_update"
+
+        def lazy(w, s, m, op=op, kw=kw):
+            args = [w, s.data, s.indices] + ([m] if mom else [])
+            return getattr(nd, op)(*args, out=w, **kw)
+        outs = []
+        for ctx_, W_, S_ in ((gpu, Wg, Sg), (cpu, Wc, Sc)):
+            w, m = W_.copy(), nd.zeros((dim, 1), ctx=ctx_) + 0.5
+            lazy(w, S_, m)
+            outs.append((w._data, m._data))
+        err = max(_ulp_err(a, b, "max") for a, b in zip(*outs))
+        ok = err <= UPDATE_ULP and np.array_equal(
+            outs[0][0].cpu().numpy()[untouched], W0[untouched])
+        wg, mg = Wg.copy(), nd.zeros((dim, 1), ctx=gpu)
+        dense_args = [wg, Gg] + ([mg] if mom else [])
+        record("lazy %s %s" % (op, json.dumps(
+            {k: kw.get(k, 0.0) for k in ("momentum", "wd", "clip_gradient")})),
+               ok, err, UPDATE_ULP,
+               _timed(lambda: lazy(wg, Sg, mg), reps, torch, dev),
+               dense_ms=_timed(lambda: getattr(nd, dense_op)(
+                   *dense_args, out=wg, **kw), reps, torch, dev))
+    res["failures"] = fails
+    res["ok"] = not fails
+    del X, t_csr
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def sparse_train(mx, card, cfg=SPARSE):
+    """15b: BASELINE config 5 through the port on the card
+    (``sparse_linear_fit``): the loss falls; ms a step by part, the rows a
+    batch pulls, one step's device busy time.  Then the same training again
+    as a witness: each step's weights (the store's, pulled whole) within
+    ``sparse_plain_step``'s bound of a plain dense step from the weights
+    before it, the final weights bit-equal to the first run's; and a free
+    plain rerun of all the steps from the first weights, whose distance to
+    the port is reported.  Rows no batch touched keep their first values
+    bit for bit in all three."""
+    import tempfile
+    import torch
+    gpu = mx.gpu(0)
+    dev = gpu.torch_device()
+    cuda = dev.type == "cuda"
+    res = dict(config=dict(cfg), source="example/sparse/linear_"
+               "classification/train.py (MXNet 1.2): Avazu, 1,000,000 "
+               "features, batch 8192")
+    batch, lr = cfg["batch"], cfg["lr"]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "train.libsvm")
+        t0 = time.perf_counter()
+        ids, labels, w0 = sparse_data(cfg, path)
+        res["data_s"] = time.perf_counter() - t0
+        res["file_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(cfg["dim"],),
+                              batch_size=batch)
+        res["parse_s"] = time.perf_counter() - t0
+        first = it.next()
+        check(np.array_equal(first.data[0].indices.asnumpy(),
+                             ids[:batch].reshape(-1)) and
+              np.array_equal(first.label[0].asnumpy(), labels[:batch]),
+              "15b: LibSVMIter's first batch differs from the rows written")
+        times = {}
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+        t0 = time.perf_counter()
+        fit = sparse_linear_fit(mx, path, cfg["dim"], batch, cfg["epochs"],
+                                lr, w0, gpu, sync, times)
+        res["train_s"] = time.perf_counter() - t0
+        res["steps"] = len(fit["rows"])
+        # the first step loads the kernels: its ms apart, the mean of the rest
+        res["first_step_ms"] = {k: 1e3 * v[0] for k, v in times.items()}
+        res["ms_a_step"] = {k: 1e3 * float(np.mean(v[1:]))
+                            for k, v in times.items()}
+        for row in (res["first_step_ms"], res["ms_a_step"]):
+            row["total"] = sum(row.values())
+        res["distinct_rows_a_batch"] = dict(
+            mean=float(np.mean(fit["rows"])), min=min(fit["rows"]),
+            max=max(fit["rows"]))
+        res["loss_by_epoch"], res["acc_by_epoch"] = fit["loss"], fit["acc"]
+        check(fit["loss"][-1] < fit["loss"][0],
+              "15b: the loss did not fall: %s" % fit["loss"])
+        plain = [(ids[i * batch:(i + 1) * batch],
+                  labels[i * batch:(i + 1) * batch])
+                 for i in range(cfg["rows"] // batch)]
+        # the witness, step by step
+        model = SparseLinear(mx, cfg["dim"], lr, w0, gpu)
+        wit = dict(max_abs_err=0.0, bound_max=0.0, worst_share=0.0,
+                   bias_err=0.0, ok=True)
+        for _ in range(cfg["epochs"]):
+            it.reset()
+            for bt, (b_ids, b_labels) in zip(it, plain):
+                wb, bb = (torch.as_tensor(a.reshape(-1), device=dev)
+                          for a in model.weights())
+                model.step(bt)
+                wa, ba = (torch.as_tensor(a.reshape(-1), device=dev)
+                          for a in model.weights())
+                pw, pb, ew, eb = sparse_plain_step(torch, b_ids, b_labels, wb,
+                                                   bb, lr)
+                err = (wa.double() - pw.double()).abs()
+                berr = abs(float(ba[0]) - float(pb[0]))
+                wit["ok"] &= bool((err <= ew).all()) and berr <= eb
+                wit["max_abs_err"] = max(wit["max_abs_err"], float(err.max()))
+                wit["bound_max"] = max(wit["bound_max"], float(ew.max()))
+                wit["worst_share"] = max(wit["worst_share"], float(
+                    (err / ew.clamp(min=1e-300)).max()))
+                wit["bias_err"] = max(wit["bias_err"], berr)
+        again = model.weights()
+        wit["final_bit_equal_to_first_run"] = bool(
+            np.array_equal(again[0], fit["w"]) and
+            np.array_equal(again[1], fit["b"]))
+        res["witness"] = wit
+        check(wit["ok"] and wit["final_bit_equal_to_first_run"],
+              "15b: the steps differ from plain dense steps beyond the "
+              "bound, or the run does not repeat: %s" % wit)
+        # the free plain rerun
+        w = torch.as_tensor(w0.reshape(-1), device=dev)
+        b = torch.zeros(1, device=dev)
+        for _ in range(cfg["epochs"]):
+            for b_ids, b_labels in plain:
+                w, b, _, _ = sparse_plain_step(torch, b_ids, b_labels, w, b,
+                                               lr)
+        wp = torch.as_tensor(fit["w"].reshape(-1), device=dev)
+        res["plain_rerun"] = dict(
+            max_abs_err=float((wp - w).abs().max()),
+            bit_equal_rows=int((wp == w).sum()),
+            bias_err=abs(float(fit["b"][0]) - float(b[0])))
+        touched = np.zeros(cfg["dim"], bool)
+        touched[ids.reshape(-1)] = True
+        res["untouched_rows"] = int((~touched).sum())
+        check(np.array_equal(fit["w"][~touched], w0[~touched]) and
+              np.array_equal(w.cpu().numpy()[~touched],
+                             w0.reshape(-1)[~touched]),
+              "15b: rows no batch touched moved")
+        if cuda:
+            res["profile"] = sparse_step_profile(mx, it, cfg, w0)
+    print("sparse 15b: %s | %s" % (json.dumps(res, default=str), card),
+          flush=True)
+    return res
+
+
+def sparse_step_profile(mx, it, cfg, w0):
+    """One step of 15b's loop (:class:`SparseLinear`, the batch already
+    read) under torch.profiler (``profiled``: an untimed step, then the
+    timed one): wall and device busy us, the idle share, the top
+    kernels."""
+    model = SparseLinear(mx, cfg["dim"], cfg["lr"], w0, mx.gpu(0))
+    it.reset()
+    batches = [it.next(), it.next()]
+    prof, wall_us = profiled(lambda: model.step(batches.pop()))
+    kernels = trace_kernels(prof)
+    busy = sum(us for us, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    return dict(wall_us=wall_us, busy_us=busy,
+                idle_share=1 - busy / wall_us if wall_us else None,
+                kernels=sum(n for _, n in kernels.values()),
+                top=[(name[:80], round(us, 1), n)
+                     for name, (us, n) in top])
+
+
+def sparse_records(mx, card, dim=SPARSE["dim"], batch=SPARSE["batch"],
+                   nnz=SPARSE["nnz"], seed=SEED):
+    """15c: a CSR batch and a row-sparse gradient saved with ``nd.save``
+    and loaded back on the card, bit-equal; ``rand_ndarray`` of each
+    sparse stype at the density asked (within 5 standard deviations)."""
+    import tempfile
+    rs = np.random.RandomState(seed + 16)
+    ids = zipf_ids(rs, batch, nnz, dim, SPARSE["zipf"])
+    gpu = mx.gpu(0)
+    sp = mx.nd.sparse
+    X = sp.csr_matrix((rs.standard_normal(ids.size).astype(np.float32),
+                       ids.reshape(-1),
+                       np.arange(0, ids.size + 1, nnz)),
+                      shape=(batch, dim), ctx=gpu)
+    rows = np.unique(ids)
+    G = sp.row_sparse_array((rs.standard_normal((rows.size, 1)).astype(
+        np.float32), rows), shape=(dim, 1), ctx=gpu)
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "sparse.params")
+        t0 = time.perf_counter()
+        mx.nd.save(path, {"batch": X, "grad": G})
+        res["save_s"] = time.perf_counter() - t0
+        res["file_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = mx.nd.load(path)
+        res["load_s"] = time.perf_counter() - t0
+    res["bit_equal"] = dict(
+        batch=back["batch"].stype == "csr" and same_sparse(back["batch"], X),
+        grad=back["grad"].stype == "row_sparse" and
+        same_sparse(back["grad"], G),
+        on_card=all(c._data.is_cuda for a in back.values()
+                    for c in a._components()))
+    check(all(res["bit_equal"].values()), "15c: %s" % res["bit_equal"])
+    np.random.seed(seed)
+    res["density"] = {}
+    for stype, shape, want in (("csr", (2048, 4096), 0.05),
+                               ("row_sparse", (4096, 64), 0.02)):
+        a = mx.test_utils.rand_ndarray(shape, stype, density=want, ctx=gpu)
+        got = float(np.count_nonzero(a.data.asnumpy())) / np.prod(shape)
+        sigma = math.sqrt(want * (1 - want) / np.prod(shape))
+        res["density"][stype] = dict(asked=want, got=got)
+        check(a.stype == stype and abs(got - want) <= 5 * sigma,
+              "15c: rand_ndarray(%s) density %r, asked %r" % (stype, got,
+                                                              want))
+    print("sparse 15c: %s | %s" % (json.dumps(res), card), flush=True)
+    return res
+
+
+def sparse_bulk(mx, card, dim=SPARSE["dim"], rows=50000, seed=SEED):
+    """15d: the lazy update (sgd with momentum and wd on a row-sparse
+    gradient) twice inside ``mx.engine.bulk(16)``, each followed by a read
+    of the weight through an op, against the same eagerly: weights and
+    momentum bit-equal; the flushes counted (one a scope, the second
+    scope a replay of the first's graph)."""
+    import torch
+    nd = mx.nd
+    gpu = mx.gpu(0)
+    rs = np.random.RandomState(seed + 17)
+    w0 = rs.standard_normal((dim, 1)).astype(np.float32)
+    idx = np.sort(rs.choice(dim, rows, replace=False))
+    grad = nd.sparse.row_sparse_array(
+        (rs.standard_normal((rows, 1)).astype(np.float32), idx),
+        shape=(dim, 1), ctx=gpu)
+
+    def run(bulked):
+        opt = mx.optimizer.SGD(learning_rate=0.1, momentum=0.9, wd=1e-4)
+        w = nd.array(w0, ctx=gpu)
+        state = opt.create_state(0, w)
+        sums = []
+        for _ in range(2):
+            if bulked:
+                with mx.engine.bulk(16):
+                    opt.update(0, w, grad, state)
+                    s = (w * 1.0).sum()
+            else:
+                opt.update(0, w, grad, state)
+                s = (w * 1.0).sum()
+            sums.append(s.asnumpy())
+        return w._data.clone(), state._data.clone(), sums
+    we, se, sums_e = run(False)
+    mx.engine.reset_flush_stats()
+    wb, sb, sums_b = run(True)
+    stats = mx.engine.flush_stats()
+    res = dict(bit_equal=same_bits(torch, we, wb) and same_bits(torch, se, sb)
+               and all(np.array_equal(a, b) for a, b in zip(sums_e, sums_b)),
+               flushes=sum(stats["causes"].values()), causes=stats["causes"],
+               graphs=stats["graphs"],
+               untouched_equal=bool(np.array_equal(
+                   np.delete(wb.cpu().numpy(), idx, 0),
+                   np.delete(w0, idx, 0))))
+    check(res["bit_equal"] and res["untouched_equal"] and
+          res["flushes"] == 2 and stats["causes"]["scope-close"] == 2,
+          "15d: %s" % res)
+    if gpu.torch_device().type == "cuda":
+        check(stats["graphs"]["captures"] == 1 and
+              stats["graphs"]["replays"] == 1, "15d: graphs %s" % res)
+    print("sparse 15d: %s | %s" % (json.dumps(res, default=str), card),
+          flush=True)
+    return res
+
+
+def register_host_sync(mx):
+    """Register ``HOST_SYNC_OP`` (x + 1 after waiting for the card), which
+    claims ``deferrable=True``: a capture that reaches it fails, as a
+    capture of any op that synchronizes does."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops import registry
+    if HOST_SYNC_OP not in registry._REGISTRY:
+        def host_sync(data):
+            if data.is_cuda:
+                torch.cuda.synchronize(data.device)
+            return data + 1
+        registry.register(HOST_SYNC_OP, num_inputs=1)(host_sync)
+    return registry.get_op(HOST_SYNC_OP)
+
+
+def c11_contract(mx, card, shape=(256, 1024), seed=SEED):
+    """15e (ROADMAP C11): a capture that fails inside a block that drew
+    random numbers (Dropout, then an op that waits for the card) raises
+    MXNetError naming the block, and afterwards the card's next draw works
+    and equals an eager run of the same calls from the same seed; a second
+    hybridized block with Dropout then captures and replays, bit-equal to
+    eager.  The same for a bulk segment."""
+    import torch
+    from incubator_mxnet_tpu_torch.base import MXNetError
+    from incubator_mxnet_tpu_torch import random_state
+    nd = mx.nd
+    gpu = mx.gpu(0)
+    dev = gpu.torch_device()
+    sync_op = register_host_sync(mx)
+    x = nd.array(np.random.RandomState(seed).standard_normal(shape).astype(
+        np.float32), ctx=gpu)
+
+    class Drop(mx.gluon.HybridBlock):
+        def __init__(self, sync, **kw):
+            super().__init__(**kw)
+            self.sync = sync
+            with self.name_scope():
+                self.drop = mx.gluon.nn.Dropout(0.5)
+
+        def hybrid_forward(self, F, v):
+            y = self.drop(v)
+            return F.invoke(sync_op, [y], {}) if self.sync else y * 2
+
+    def draw():
+        return nd.random.uniform(shape=(64,), ctx=gpu)._data.clone()
+
+    res = {}
+    for what in ("CachedOp", "bulk"):
+        def call():
+            with mx.autograd.train_mode():
+                if what == "CachedOp":
+                    return bad(x)
+                with mx.engine.bulk(16):
+                    y = nd.Dropout(x, p=0.5)
+                    z = nd.invoke(sync_op, [y], {})
+                return z
+        bad = Drop(True, prefix="c11_%s_bad_" % what.lower())
+        bad.initialize(ctx=gpu)
+        mx.random.seed(seed + 7)
+        with mx.autograd.train_mode():
+            bad(x) if what == "CachedOp" else nd.invoke(
+                sync_op, [nd.Dropout(x, p=0.5)], {})
+        want = draw()
+        bad.hybridize()
+        mx.random.seed(seed + 7)
+        old = random_state.generator(dev)
+        err = None
+        try:
+            call()._data
+        except MXNetError as exc:
+            err = str(exc)
+        after = draw()
+        named = err is not None and (
+            "CachedOp(%s)" % bad.name in err if what == "CachedOp"
+            else "bulk engine segment" in err)
+        good = Drop(False, prefix="c11_%s_good_" % what.lower())
+        good.initialize(ctx=gpu)
+        runs = []
+        for hyb in (False, True):
+            good.hybridize(hyb)
+            mx.random.seed(seed + 9)
+            outs = []
+            for _ in range(3):
+                with mx.autograd.train_mode():
+                    if what == "CachedOp":
+                        outs.append(good(x)._data.clone())
+                    else:
+                        if hyb:
+                            with mx.engine.bulk(16):
+                                o = nd.Dropout(x, p=0.5) * 2
+                        else:
+                            o = nd.Dropout(x, p=0.5) * 2
+                        outs.append(o._data.clone())
+            runs.append(outs)
+        res[what] = dict(
+            raised=err is not None, names_it=named,
+            error=(err or "")[:200],
+            draw_equal_to_eager=same_bits(torch, after, want),
+            generator_replaced=random_state.generator(dev) is not old,
+            second_block_bit_equal=all(same_bits(torch, a, b)
+                                       for a, b in zip(*runs)),
+            masks_differ=not torch.equal(runs[1][0], runs[1][1]))
+        check(all(v for k, v in res[what].items() if k != "error"),
+              "15e %s: %s" % (what, res[what]))
+    print("sparse 15e: C11 %s | %s" % (json.dumps(res), card), flush=True)
+    return res
+
+
+def sparse_phase(mx, card):
+    """Phase 15: sparse storage on the card (15a-15e)."""
+    import torch
+    t0 = time.perf_counter()
+    out = dict(ops=sparse_card_ops(mx, card))
+    check(out["ops"]["ok"], "15a: %s" % out["ops"]["failures"])
+    out["train"] = sparse_train(mx, card)
+    out["records"] = sparse_records(mx, card)
+    out["bulk"] = sparse_bulk(mx, card)
+    out["c11"] = c11_contract(mx, card)
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    print("sparse: phase 15 in %.1f s | %s" % (out["seconds"], card),
+          flush=True)
+    return out
+
+
 def main():
     import torch
     t_run = time.perf_counter()
@@ -10282,6 +11112,11 @@ def main():
     hybrid["lm_serving"] = hybrid_lm
     hybrid_launches = hybrid["lm_train"]["launches"]
     hybrid_rows = hybrid["lm_train"]["trace_rows"]
+    hybrid_release(mx)
+
+    # phase 15: sparse storage and BASELINE config 5 (no hand kernel), then
+    # C11's contract: a failed capture leaves mx.random usable
+    sparse = sparse_phase(mx, card)
 
     def entry(name, source, design, launches_, err, t,
               replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
@@ -10309,6 +11144,8 @@ def main():
     print("data: summary " + json.dumps(data, default=str), flush=True)
     print("rnn: summary " + json.dumps(rnn, default=str), flush=True)
     print("hybrid: summary " + json.dumps(dict(hybrid, card=card),
+                                          default=str), flush=True)
+    print("sparse: summary " + json.dumps(dict(sparse, card=card),
                                           default=str), flush=True)
     print("smoke: the whole run took %.1f s | %s"
           % (time.perf_counter() - t_run, card), flush=True)

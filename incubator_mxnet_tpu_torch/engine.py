@@ -22,7 +22,10 @@ On the card a flush runs the program once eagerly on a side stream (its
 results are this flush's), captures it into a ``torch.cuda.CUDAGraph`` and
 caches the graph by (instructions, external input shapes, dtypes and
 strides, live set, generators, the math flags); a later flush of the same
-program replays the graph on the current stream.  Three traps shape it:
+program replays the graph on the current stream.  The sparse arrays'
+casts, ``retain`` and ``row_sparse_pull`` size their outputs from the data:
+they are not registry ops, and they read their inputs' values, which
+flushes an open segment first (cause ``read``).  Three traps shape it:
 
 - a graph reads fixed addresses.  An entry reads each external input
   where the caller's tensor lies, and keeps its address, not the tensor.
@@ -41,7 +44,9 @@ program replays the graph on the current stream.  Three traps shape it:
   after the last (:func:`pool_order`), whatever thread or stream runs it;
 - a segment that draws random numbers registers the framework generator
   with the graph, which advances it per replay exactly as the eager calls
-  would.
+  would.  A capture that fails leaves such a generator unusable: it is
+  replaced by a fresh one at the state the eager run left, and every
+  cached graph that registered it is dropped (:func:`drop_generators`).
 
 On the CPU a flush runs the program op by op with the same bookkeeping:
 that is the plain version the tests hold against the JAX build.
@@ -84,7 +89,7 @@ import weakref
 
 import torch
 
-from . import config, profiler as _profiler
+from . import config, profiler as _profiler, random_state
 from .analysis.engine_check import (EngineHazardError,
                                     check_segment_integrity, oracle_compare)
 from .base import MXNetError, torch_dtype
@@ -685,8 +690,11 @@ def _run_program(instrs, ext, gens, want, grad=False, ops=None):
     tmp = []
     if ops is None:
         ops = [get_op(i[0]) for i in instrs]
+    split = capturing()
     for op, (_name, kw, _key, _train, in_refs, rng_slot, _n, rec) in zip(
             ops, instrs):
+        if split is not None:
+            split.last_op = op.name
         args = [ext[i] if tag == "e" else tmp[i] for tag, i in in_refs]
         on = grad and rec
         if on and op.nograd_inputs:
@@ -733,6 +741,19 @@ def graph_pool(device):
             anchor.capture_end()
         entry = _pools[device.index] = (pool, anchor)
     return entry[0]
+
+
+_retired = []   # (pool, anchor) of pools no capture may use again
+
+
+def retire_pool(device, pool):
+    """Stop capturing into ``pool`` on ``device``: the next capture there
+    makes a new pool.  Its anchor is kept, so the graphs captured into it
+    stay valid and the allocator never releases a pool it still marks as
+    recording."""
+    entry = _pools.get(device.index)
+    if entry is not None and entry[0] == pool:
+        _retired.append(_pools.pop(device.index))
 
 
 def clear_graphs():
@@ -862,15 +883,11 @@ class _Split(object):
         try:
             g.capture_end()
         except Exception:
-            # an invalidated capture raises before the allocator stops
-            # sending this stream's allocations to the pool (and the graph
-            # has no pool() to name then)
-            end = getattr(torch._C, "_cuda_endAllocateToPool", None)
-            if end is not None:
-                try:
-                    end(device.index or 0, self.pool)
-                except Exception:
-                    pass
+            # an invalidated capture (an op that waited for the card, a
+            # library error) leaves its pool marked as recording in the
+            # allocator: no capture can begin in it again, so the device's
+            # later captures take a new pool
+            retire_pool(device, self.pool)
 
     def eager(self, fcompute, args, kw):
         """Place one op outside the graphs, between two pieces."""
@@ -934,6 +951,7 @@ class _Graph(object):
                   for buf, t in zip(self.owned, inputs)]
         stream = _side_stream(self.device)
         torch.cuda.synchronize(self.device)
+        states = [g.get_state() for g in self.gens]
         split = _Split(self.gens, graph_pool(self.device), seen)
         with torch.cuda.stream(stream):
             split.begin()
@@ -943,6 +961,7 @@ class _Graph(object):
             except BaseException as exc:
                 _capturing.split = None
                 split.abort(self.device)
+                drop_generators(self.gens, states)
                 raise MXNetError(
                     "capturing %s into a CUDA graph failed at op %s "
                     "(%s: %s); an op that cannot be captured must be "
@@ -990,6 +1009,42 @@ class _Graph(object):
     def release(self):
         self.variants.clear()
         self.owned = [None] * len(self.owned)
+
+
+# functions ``fn(ids)`` that drop whatever holds a generator a failed
+# capture left unusable (a hybridized block's graphs and backward
+# generators register one: gluon/block.py)
+_generator_hooks = []
+
+
+def on_dropped_generators(fn):
+    """Register ``fn(ids)``, called with the ids of the generators a failed
+    capture dropped (:func:`drop_generators`)."""
+    _generator_hooks.append(fn)
+    return fn
+
+
+def drop_generators(gens, states):
+    """After a failed capture: the generators registered with it are left
+    bound to an unfinished graph, and a draw from one raises.  Put a fresh
+    generator at each one's ``states`` entry (its state before the
+    capture, the one the eager run left) wherever the framework holds it
+    (``random_state.replace_generator``), and drop every cached graph that
+    registered one; a program keyed on a dropped generator is captured
+    afresh with the new one."""
+    if not gens:
+        return
+    for g, s in zip(gens, states):
+        random_state.replace_generator(g, s)
+    dead = frozenset(id(g) for g in gens)
+    for cache in (_replay_cache, _seg_vjp_cache):
+        for key, entry in cache.items():
+            if isinstance(entry, _Graph) and \
+                    not dead.isdisjoint(map(id, entry.gens)):
+                cache.pop(key)
+                entry.release()
+    for fn in _generator_hooks:
+        fn(dead)
 
 
 def _eager_run(fn, inputs, device):

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import functools
 import threading
+import weakref
 from contextlib import contextmanager
 
 import numpy as np
@@ -434,6 +435,15 @@ class _CachedOpFunction(torch.autograd.Function):
         return (None,) + tuple(ctx.node.backward(grads))
 
 
+_CACHED_OPS = weakref.WeakSet()
+
+
+@_engine.on_dropped_generators
+def _forget_generators(dead):
+    for cop in list(_CACHED_OPS):
+        cop._forget(dead)
+
+
 class CachedOp(object):
     """The program of a hybridized block (ref: src/imperative/cached_op.cc;
     the JAX build's ``CachedOp``, block.py:265-399, a jit of the same
@@ -475,6 +485,23 @@ class CachedOp(object):
         self._graphs = {}
         self._bwd_graphs = {}
         self._bwd_gens = {}
+        _CACHED_OPS.add(self)
+
+    def _forget(self, dead):
+        """Drop every entry, graph and backward generator that holds a
+        generator of ``dead`` (ids of generators a failed capture left
+        unusable): the next call keys on the fresh generator and captures
+        anew."""
+        # a key's sixth field is its generator's id (__call__)
+        for key in [k for k in self._entries if k[5] in dead]:
+            del self._entries[key]
+        for graphs in (self._graphs, self._bwd_graphs):
+            for key, graph in list(graphs.items()):
+                if not dead.isdisjoint(map(id, graph.gens)):
+                    graphs.pop(key).release()
+        for key, gen in list(self._bwd_gens.items()):
+            if id(gen) in dead:
+                del self._bwd_gens[key]
 
     def _param_tensors(self):
         vals = []
@@ -540,8 +567,8 @@ class CachedOp(object):
                 _profiler.NO_SPAN:
             if device.type == "cuda":
                 # the generator joins the graph only if the first run drew
-                # from it: a failed capture leaves a registered generator
-                # unusable
+                # from it; a failed capture replaces a registered generator
+                # (engine.drop_generators, then _forget below)
                 results, captured = _engine._run_cuda(
                     self._graphs, key, functools.partial(entry.forward, gen),
                     [t.detach() for t in xs],

@@ -39,7 +39,7 @@ class Parameter(object):
 
     def __init__(self, name, grad_req="write", shape=None, dtype=np.float32,
                  lr_mult=1.0, wd_mult=1.0, init=None, allow_deferred_init=False,
-                 differentiable=True):
+                 differentiable=True, stype="default", grad_stype="default"):
         self._data = None   # OrderedDict[Context, NDArray]
         self._grad = None   # OrderedDict[Context, NDArray] or None
         self._ctx_list = None
@@ -56,6 +56,11 @@ class Parameter(object):
         self._grad_req = None
         self.grad_req = grad_req
         self.init = init
+        # kept as the JAX build keeps them (its parameter.py:62-63): the
+        # data and gradient stay dense, and the Trainer pulls such a
+        # parameter plainly
+        self._stype = stype
+        self._grad_stype = grad_stype
 
     def __repr__(self):
         s = "Parameter {name} (shape={shape}, dtype={dtype})"
@@ -431,7 +436,7 @@ class ParameterDict(object):
         ``restore_prefix`` put in front.  An initialized parameter is
         overwritten in place on its context (BatchNorm's running statistics
         too); one not yet initialized is initialized on ``ctx``."""
-        from ..ndarray.utils import load_host
+        from ..ndarray.utils import HostSparse, load_host
         if restore_prefix:
             for name in self.keys():
                 if not name.startswith(restore_prefix):
@@ -453,6 +458,8 @@ class ParameterDict(object):
                     raise ValueError("Parameter '%s' is missing in file '%s'"
                                      % (name[lprefix:], filename))
         for name, value in arg_dict.items():
+            if isinstance(value, HostSparse):
+                value = value.todense()
             if name not in self._params:
                 if not ignore_extra:
                     raise ValueError(

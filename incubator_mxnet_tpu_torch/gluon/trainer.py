@@ -14,7 +14,11 @@ item 7) and raise until then; the JAX build's bucketed, overlapped,
 quantized and elastic machinery is not ported.  ``save_states`` and
 ``load_states`` checkpoint the optimizer (through the store when the
 update runs there): its pickled state per parameter (momentum, ...), with
-the optimizer itself, its ``num_update`` and its ``lr_scheduler``.
+the optimizer itself, its ``num_update`` and its ``lr_scheduler``.  A
+parameter made with a sparse ``stype`` or ``grad_stype`` keeps dense data
+and gradients, and every pull is the plain ``pull`` (the JAX build keeps
+such a parameter out of its overlapped and bucketed paths, trainer.py:397,
+:654; the port has only the plain one).
 """
 from __future__ import annotations
 

@@ -9,7 +9,8 @@ context, the card unless the caller says ``mx.cpu()``; the prefetcher is a
 thread (the reference's dmlc ThreadedIter, iter_prefetcher.h).
 ``ImageRecordIter`` is ``image.ImageIter`` (decode and augmentation on a
 thread pool, on the host) under a ``PrefetchingIter``.  ``LibSVMIter``
-(sparse batches, ROADMAP item 10) is not ported yet and raises.
+parses a LibSVM file once into a CSR triple on the host and slices each
+batch from it, a ``CSRNDArray`` on the current context.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from collections import namedtuple
 import numpy as np
 
 from .base import MXNetError
-from .ndarray import NDArray
+from .ndarray import NDArray, sparse
 from . import ndarray as nd
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
@@ -506,13 +507,66 @@ class CSVIter(DataIter):
 
 
 class LibSVMIter(DataIter):
-    """LibSVM sparse-format iterator (ref: src/io/iter_libsvm.cc): its
-    batches are CSR arrays, which come with sparse storage (ROADMAP item
-    10)."""
+    """LibSVM sparse-format iterator (ref: src/io/iter_libsvm.cc; the JAX
+    build's io.py:541-614).  Each line ``label id:value id:value ...`` is
+    parsed once into one CSR triple on the host (ids and values in file
+    order; the rows are never made dense); a batch is the slice of
+    ``batch_size`` rows from the cursor, a ``CSRNDArray`` of shape
+    (batch_size, prod(data_shape)) on the current context, with its labels
+    (float32) as the batch's label.  The last batch wraps to the first
+    rows, and ``pad`` counts the rows wrapped.  ``label_libsvm`` is
+    accepted and, as in the JAX build, not read."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("LibSVMIter yields sparse (CSR) batches, which the "
-                         "PyTorch port does not have yet (ROADMAP item 10)")
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 batch_size=1, **kwargs):
+        super().__init__(batch_size)
+        labels, ids, values, counts = [], [], [], []
+        with open(data_libsvm) as f:
+            for line in f:
+                toks = line.replace(":", " ").split()
+                if not toks:
+                    continue
+                labels.append(toks[0])
+                ids.extend(toks[1::2])
+                values.extend(toks[2::2])
+                counts.append((len(toks) - 1) // 2)
+        self._labels = np.array(labels, dtype=np.float64).astype(np.float32)
+        self._indices = np.array(ids, dtype=np.int64)
+        self._values = np.array(values, dtype=np.float64).astype(np.float32)
+        self._indptr = np.concatenate(
+            [[0], np.cumsum(np.array(counts, np.int64))]).astype(np.int64)
+        self._dim = int(np.prod(data_shape))
+        self._n = len(labels)
+        self._cursor = 0
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._dim), "float32")]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("softmax_label", (self.batch_size,), "float32")]
+
+    def reset(self):
+        self._cursor = 0
+
+    def next(self):
+        if self._cursor >= self._n:
+            raise StopIteration
+        rows = (self._cursor + np.arange(self.batch_size)) % self._n
+        pad = max(self._cursor + self.batch_size - self._n, 0)
+        self._cursor += self.batch_size
+        ptr = self._indptr
+        # the rows are one run from the cursor, or two when they wrap
+        runs = np.split(rows, np.nonzero(np.diff(rows) != 1)[0] + 1)
+        spans = [(ptr[r[0]], ptr[r[-1] + 1]) for r in runs]
+        sizes = np.diff(ptr)[rows]
+        csr = sparse.csr_matrix(
+            (np.concatenate([self._values[a:b] for a, b in spans]),
+             np.concatenate([self._indices[a:b] for a, b in spans]),
+             np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)),
+            shape=(self.batch_size, self._dim))
+        return DataBatch([csr], [nd.array(self._labels[rows])], pad)
 
 
 class MNISTIter(DataIter):

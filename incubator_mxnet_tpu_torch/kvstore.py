@@ -4,26 +4,30 @@ Counterpart of ``incubator_mxnet_tpu/kvstore.py`` (``KVStore`` :257,
 ``create`` :741, ``create_kvstore`` :754-782) for one process and one
 card.  ``create("local")`` and ``create("device")`` (``"nccl"`` is
 ``"device"``) hold one copy of every value on the device of the value
-given to ``init``.  ``push`` sums a list of values in its order and keeps
-the store's dtype; with an updater (``set_optimizer``) the update runs on
-the store's copy, as MXNet's server-side optimizer does.  ``pull`` writes
-the store's value into every out array.
+given to ``init`` (a sparse value is stored dense, as in the JAX build).
+``push`` sums a list of values in its order and keeps the store's dtype
+(row-sparse values sum row-sparse, ``sparse.add_n``); with an updater
+(``set_optimizer``) the update runs on the store's copy, as MXNet's
+server-side optimizer does, so a row-sparse gradient takes SGD's lazy
+update.  ``pull`` writes the store's value into every out array;
+``row_sparse_pull`` only the rows a batch asks for.
 
 Not ported, and raising with their ROADMAP item: ``dist_*`` stores
-(multi-GPU, item 7), ``row_sparse_pull`` (sparse, item 10) and gradient
-compression (item 11).  The JAX build's asynchronous handles, bucket and
-quantized wires and its recorder hooks wait for item 12.
+(multi-GPU, item 7) and gradient compression (item 11).  The JAX build's
+asynchronous handles, bucket and quantized wires and its recorder hooks
+wait for item 12.
 """
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
 
 from . import optimizer as opt
 from .base import MXNetError
-from .ndarray import NDArray
+from .ndarray import NDArray, sparse
 from .ndarray import ndarray as _nd_mod
 
 __all__ = ["KVStore", "create", "create_kvstore"]
@@ -95,6 +99,7 @@ class KVStore(object):
                 raise MXNetError("key %s has not been initialized" % k)
             val = self._store[k]._data
             for o in olist:
+                _nd_mod._writable(o)
                 _nd_mod._write(o._data, val)
 
     def push_many(self, keys, values, priority=0):
@@ -106,18 +111,82 @@ class KVStore(object):
         return self.pull(list(keys), outs, priority=priority)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError("row_sparse_pull needs sparse arrays, which the "
-                         "PyTorch port does not have yet (ROADMAP item 10)")
+        """Pull only the rows ``row_ids`` of each key (ref:
+        KVStore::PullRowSparse, kvstore_local.h PullRowSparseImpl): the ids
+        deduplicated and sorted (one host sync on the card); a row-sparse
+        out receives just those rows, a dense out is zeros but for them.
+        ``row_ids`` is one NDArray for every out, or a list, one an out."""
+        if out is None or row_ids is None:
+            raise ValueError("row_sparse_pull needs out and row_ids")
+        keys, outs = self._normalize(key, out)
+        if isinstance(row_ids, NDArray):
+            row_ids = [row_ids] * len(outs[0])
+        for k, olist in zip(keys, outs):
+            if k not in self._store:
+                raise MXNetError("key %s has not been initialized" % k)
+            src = self._store[k]._data
+            for o, rid in zip(olist, row_ids):
+                idx = torch.unique(sparse._ids(rid, src.device))
+                sparse.check_range(idx, src.shape[0], "row")
+                rows = src.index_select(0, idx)
+                if isinstance(o, sparse.RowSparseNDArray):
+                    dev = o.context.torch_device()
+                    o.data = NDArray(rows.to(dev, o.data._data.dtype),
+                                     ctx=o.context)
+                    o.indices = NDArray(idx.to(dev), ctx=o.context)
+                    o.canonical = True
+                else:
+                    dense = torch.zeros_like(src).index_copy_(0, idx, rows)
+                    _nd_mod._write(o._data, dense)
 
     @staticmethod
     def _reduce(vlist):
         if len(vlist) == 1:
             return vlist[0]
+        if all(isinstance(v, sparse.CSRNDArray) for v in vlist):
+            return KVStore._sum_csr(vlist)
+        if any(isinstance(v, sparse.BaseSparseNDArray) for v in vlist):
+            # the sparse-aware sum (ref: comm.h ReduceRowSparse)
+            return sparse.add_n(*vlist)
         with torch.no_grad():
             acc = vlist[0]._data
             for v in vlist[1:]:
                 acc = acc + v._data.to(acc.device)
         return NDArray(acc)
+
+    @staticmethod
+    def _sum_csr(vlist):
+        """The sum of CSR values, as CSR.  The dense matrix is made only
+        while it fits ``MXTPU_CSR_DENSIFY_BOUND`` bytes (default 256 MB);
+        above, a warning, and the sum runs band by band of rows, each band
+        densified, summed and compressed alone (the JAX build's densify
+        guard, ``parallel/dist.py:655-700``)."""
+        nrows, ncols = vlist[0].shape
+        data = vlist[0].data._data
+        bound = int(os.environ.get("MXTPU_CSR_DENSIFY_BOUND", str(1 << 28)))
+        row_bytes = ncols * data.element_size()
+        band = nrows
+        if nrows * row_bytes > bound:
+            warnings.warn(
+                "CSR reduce of %s (%d bytes dense) exceeds "
+                "MXTPU_CSR_DENSIFY_BOUND=%d; using the chunked row-band path "
+                "(slower, bounded memory)" % ((nrows, ncols),
+                                              nrows * row_bytes, bound))
+            band = max(1, bound // max(row_bytes, 1))
+        rows, cols, vals = [], [], []
+        for r0 in range(0, nrows, band):
+            r1 = min(r0 + band, nrows)
+            acc = torch.zeros((r1 - r0, ncols), dtype=data.dtype,
+                              device=data.device)
+            for v in vlist:
+                acc += v[r0:r1]._dense().to(data.device)
+            r, c = sparse._nonzero_2d(acc)
+            rows.append(r + r0)
+            cols.append(c)
+            vals.append(acc[r, c])
+        return sparse._csr_of(torch.cat(rows), torch.cat(cols),
+                              torch.cat(vals), (nrows, ncols),
+                              vlist[0].context)
 
     @staticmethod
     def _normalize(key, value):

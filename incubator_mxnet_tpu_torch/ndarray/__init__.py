@@ -11,12 +11,16 @@ from .ndarray import (NDArray, array, empty, invoke, waitall,  # noqa: F401
                       imperative_invoke, concatenate, moveaxis)
 from . import register as _register
 from .utils import save, load, load_buffer  # noqa: F401
+from . import sparse  # noqa: E402,F401
 
 
-def zeros(shape, ctx=None, dtype="float32", **kwargs):
-    """ref: python/mxnet/ndarray/utils.py zeros"""
+def zeros(shape, ctx=None, dtype="float32", stype=None, **kwargs):
+    """ref: python/mxnet/ndarray/utils.py zeros; ``stype`` ``'row_sparse'``
+    or ``'csr'`` gives an empty sparse array (``sparse.zeros``)."""
     if isinstance(shape, int):
         shape = (shape,)
+    if stype not in (None, "default"):
+        return sparse.zeros(stype, shape, ctx=ctx, dtype=dtype)
     return invoke(get_op("_zeros"), [], {"shape": tuple(shape),
                                          "dtype": dtype, "ctx": ctx})
 
@@ -79,7 +83,25 @@ def Custom(*args, **kwargs):
 # generate the remaining op surface
 _register.populate(globals())
 
-# the namespaces of the reference: nd.random, nd.linalg, nd.contrib
+
+def cast_storage(arr, stype="default"):
+    """The storage-type cast on the array surface (ref:
+    src/operator/tensor/cast_storage.cc): ``sparse.cast_storage``.  It
+    shadows the registered op, whose dense pass-through serves graphs."""
+    return sparse.cast_storage(arr, stype)
+
+
+def sparse_retain(data, indices):
+    """The rows ``indices`` of ``data`` (ref:
+    src/operator/tensor/sparse_retain.cc): row-sparse in, row-sparse out
+    (``sparse.retain``); a dense array takes the registered op, which
+    zeroes the other rows."""
+    if isinstance(data, sparse.RowSparseNDArray):
+        return sparse.retain(data, indices)
+    return invoke(get_op("_sparse_retain_dense"), [data, indices], {})
+
+# the namespaces of the reference: nd.random, nd.linalg, nd.contrib (and
+# nd.sparse, above)
 from . import random  # noqa: E402,F401
 from . import linalg  # noqa: E402,F401
 from . import contrib  # noqa: E402,F401

@@ -61,6 +61,13 @@ def _write_mode(dst: torch.Tensor):
     return torch.set_grad_enabled(autograd.is_recording() and not tracked_leaf)
 
 
+def _writable(arr):
+    """Raise ``TypeError`` for a sparse array, which takes no in-place
+    write (its ``_data`` is a dense copy made on each read)."""
+    if arr.stype != "default":
+        raise TypeError("in-place writes on sparse NDArray are not supported")
+
+
 def _write(dst: torch.Tensor, src):
     _engine.before_write(dst)
     with _write_mode(dst):
@@ -133,8 +140,8 @@ class NDArray:
 
     @property
     def stype(self):
-        """Storage type: always ``'default'`` (dense); sparse storage is
-        ROADMAP item 10."""
+        """Storage type: ``'default'`` (dense); the sparse arrays of
+        ``ndarray/sparse.py`` say ``'row_sparse'`` or ``'csr'``."""
         return "default"
 
     @property
@@ -174,16 +181,17 @@ class NDArray:
         return self
 
     def tostype(self, stype):
-        """``'default'`` gives this array; sparse storage types raise until
-        ROADMAP item 10 ports them."""
+        """``'default'`` gives this array; ``'row_sparse'`` or ``'csr'`` a
+        sparse copy of its nonzero rows or elements (``cast_storage``)."""
         if stype == "default":
             return self
-        raise MXNetError("storage type %r is not ported yet: sparse arrays "
-                         "come with ROADMAP item 10" % (stype,))
+        from . import sparse
+        return sparse.cast_storage(self, stype)
 
     def copyto(self, other):
         """ref: ndarray.py copyto / CopyFromTo (src/ndarray/ndarray.cc)."""
         if isinstance(other, NDArray):
+            _writable(other)
             if _engine.in_bulk() and other.shape == self.shape and \
                     _engine.defer_setitem(other, slice(None), self):
                 return other
@@ -531,6 +539,11 @@ def invoke(op: Operator, inputs, params, out=None, hidden=False):
     While the profiler runs, the call is the op's span
     (``profiler.op_span``); with ``MXTPU_ENGINE_TYPE=NaiveEngine`` it
     waits for the card before it returns."""
+    if out is not None:
+        for t in [out] if isinstance(out, NDArray) else out:
+            _writable(t)
+    for idx in op.mutate_inputs[1:]:
+        _writable(inputs[idx])
     with _profiler.op_span(op.name) or _profiler.NO_SPAN:
         res = None
         if not hidden and _engine._active(_engine._current()):

@@ -11,7 +11,9 @@ As in the reference, an update is an op: ``nd.sgd_update(w, g, lr=...,
 out=w)`` writes the new weight, and the state outputs (momentum, Adam's
 moments, the f32 master weight of the ``mp_`` ops) are written back in
 place (``mutate_inputs``).  Updates are never recorded.  The row-sparse
-``_sparse_sgd_*`` updates wait for the sparse arrays (ROADMAP item 10).  Scalars round to a
+lazy updates ``_sparse_sgd_update`` and ``_sparse_sgd_mom_update`` (:35,
+:56) touch only the rows of the gradient's indices, which must be unique:
+``optimizer.SGD`` resolves a repeated row first.  Scalars round to a
 16-bit array's dtype, as the JAX build's weakly typed scalars do; the
 ``mp_`` ops keep an f32 master copy of a bf16 or f16 weight, compute in f32
 and round the new weight once.
@@ -52,6 +54,43 @@ def _sgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
     """ref: optimizer_op.cc sgd_update: w -= lr·(clip(rescale·g) + wd·w)"""
     g = _prep_grad(grad, wd, weight, rescale_grad, clip_gradient)
     return weight - _c(g, lr) * g
+
+
+def _sparse_grad(grad_data, rescale_grad, clip_gradient):
+    return _clip(grad_data * _c(grad_data, rescale_grad), clip_gradient)
+
+
+@register("_sparse_sgd_update", num_inputs=3, differentiable=False,
+          mutate_inputs=(0,))
+def _sparse_sgd_update(weight, grad_data, grad_indices, lr=0.01, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0):
+    """Row-sparse lazy SGD (ref: optimizer_op.cc SGDUpdateRspRspImpl): the
+    rows ``grad_indices`` of the weight take sgd_update's step with the
+    rows ``grad_data``; every other row is left as it is.  Registered as an
+    op so ``mx.engine.bulk`` defers it (static shapes: it can live in a
+    graph)."""
+    idx = grad_indices.to(torch.int64)
+    rows = weight.index_select(0, idx)
+    g = _sparse_grad(grad_data, rescale_grad, clip_gradient) + \
+        _c(rows, wd) * rows
+    return weight.index_copy(0, idx, rows - _c(g, lr) * g)
+
+
+@register("_sparse_sgd_mom_update", num_inputs=4, differentiable=False,
+          num_outputs=2, num_visible_outputs=1, mutate_inputs=(0, 3))
+def _sparse_sgd_mom_update(weight, grad_data, grad_indices, mom, lr=0.01,
+                           momentum=0.0, wd=0.0, rescale_grad=1.0,
+                           clip_gradient=-1.0):
+    """Row-sparse lazy SGD with momentum (ref: optimizer_op.cc
+    SGDMomUpdateRspRspImpl): the momentum too changes only on the rows of
+    ``grad_indices``."""
+    idx = grad_indices.to(torch.int64)
+    rows = weight.index_select(0, idx)
+    g = _sparse_grad(grad_data, rescale_grad, clip_gradient) + \
+        _c(rows, wd) * rows
+    new_m = _c(mom, momentum) * mom.index_select(0, idx) - _c(g, lr) * g
+    return weight.index_copy(0, idx, rows + new_m), mom.index_copy(0, idx,
+                                                                   new_m)
 
 
 @register("sgd_mom_update", num_inputs=3, differentiable=False, num_outputs=2,

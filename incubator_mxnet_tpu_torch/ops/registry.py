@@ -250,6 +250,13 @@ class BoundedCache(object):
     def __len__(self):
         return len(self._d)
 
+    def items(self):
+        """A list of the (key, value) pairs, least recent first."""
+        return list(self._d.items())
+
+    def pop(self, key, default=None):
+        return self._d.pop(key, default)
+
     def clear(self):
         self._d.clear()
 

@@ -1,8 +1,10 @@
 """Shape-manipulation, indexing, ordering and sequence operators.
 
 Counterpart of ``incubator_mxnet_tpu/ops/tensor.py``: every op it
-registers except the sparse storage twins ``_cast_storage_dense``/
-``_sparse_retain_dense`` (:454, :465; item 10); the creation ops are in
+registers, the sparse storage twins ``_cast_storage_dense`` and
+``_sparse_retain_dense`` (:454, :465) among them (the dense forms used
+inside graphs; ``nd.cast_storage``/``nd.sparse_retain`` keep sparse
+storage, ``ndarray/sparse.py``); the creation ops are in
 ``init_ops.py``.  Many ops return
 torch views; ``ndarray.invoke`` copies them so results never alias
 inputs.  Indices follow the JAX build: a float index truncates
@@ -574,6 +576,32 @@ def _hard_sigmoid(data, alpha=0.2, beta=0.5):
 @register("square_sum", num_inputs=1)
 def _square_sum(data, axis=None, keepdims=False, exclude=False):
     """sum(x²) over ``axis`` (ref: src/operator/tensor/square_sum.cc, the
-    dense registered op; row-sparse storage is ROADMAP item 10)."""
+    dense registered op, as in the JAX build)."""
     ax = _norm_axis(axis, data.ndim, exclude and axis is not None)
     return _sum(data * data, ax, keepdims)
+
+
+@register("_cast_storage_dense", num_inputs=1, aliases=("cast_storage",))
+def _cast_storage_op(data, stype="default"):
+    """The registered twin of ``nd.cast_storage`` (ref:
+    src/operator/tensor/cast_storage.cc): inside a graph every tensor is
+    dense, so the values pass through; the storage types live on the
+    NDArray surface (``ndarray/sparse.py``)."""
+    return data
+
+
+@register("_sparse_retain_dense", num_inputs=2, nograd_inputs=(1,),
+          aliases=("sparse_retain",))
+def _sparse_retain_op(data, indices):
+    """Every row but those of ``indices`` zeroed (ref:
+    src/operator/tensor/sparse_retain.cc, dense form): an index truncates
+    as ``_as_index`` takes it, a negative one counts from the end, and one
+    out of range keeps nothing, as the JAX build's scatter drops it."""
+    n = data.shape[0]
+    idx = _as_index(indices).reshape(-1)
+    idx = torch.where(idx < 0, idx + n, idx)
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    mask = torch.zeros(n + 1, dtype=torch.bool, device=data.device)
+    mask = mask.scatter(0, idx, True)[:n]
+    return torch.where(mask.reshape((-1,) + (1,) * (data.ndim - 1)), data,
+                       torch.zeros_like(data))

@@ -11,8 +11,11 @@ never ``torch.optim``), or, where the reference's optimizer is Python
 (AdaGrad, AdaDelta, SGLD, DCASGD, Test), computes the same formulas in
 torch ops; SGLD's noise comes from the framework generator of the
 weight's device.  A 16-bit weight with ``multi_precision`` updates an f32
-master copy.  The JAX build's fused bucket updates (:693-) wait for
-ROADMAP item 12, its row-sparse SGD for item 10.
+master copy.  ``SGD`` with ``lazy_update`` takes a row-sparse gradient
+through the lazy updates ``_sparse_sgd_update``/``_sparse_sgd_mom_update``
+(:199-230), which touch only its rows (a repeated row keeps its last
+value, as the JAX build's scatter does).  The JAX build's fused bucket
+updates (:693-) wait for ROADMAP item 12.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from . import random_state
 from .base import dtype_name
 from .ndarray import NDArray, invoke
 from .ndarray import ndarray as _nd_mod
+from .ndarray.sparse import RowSparseNDArray
 from .ops.registry import get_op
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "AdaDelta",
@@ -205,6 +209,22 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         kw = _common_kwargs(self, index)
+        if isinstance(grad, RowSparseNDArray) and self.lazy_update:
+            # the lazy update: only the gradient's rows (ref:
+            # optimizer_op.cc SGDUpdateRspRspImpl); a registered op, so
+            # mx.engine.bulk defers it
+            kw["clip_gradient"] = kw.get("clip_gradient", -1.0)
+            idx, data = grad._canonical_parts()
+            gnd = [NDArray(data, ctx=grad.context),
+                   NDArray(idx, ctx=grad.context)]
+            if state is not None:
+                kw["momentum"] = self.momentum
+                invoke(get_op("_sparse_sgd_mom_update"),
+                       [weight] + gnd + [state], kw, out=weight)
+            else:
+                invoke(get_op("_sparse_sgd_update"), [weight] + gnd, kw,
+                       out=weight)
+            return
         kw["lazy_update"] = self.lazy_update
         if state is not None:
             kw["momentum"] = self.momentum

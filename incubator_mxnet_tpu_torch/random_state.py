@@ -14,7 +14,7 @@ from contextlib import contextmanager
 
 import torch
 
-__all__ = ["seed", "generator", "use_generator"]
+__all__ = ["seed", "generator", "use_generator", "replace_generator"]
 
 _override = threading.local()     # .scope: (generator, seed, made)
 
@@ -43,6 +43,23 @@ class _GeneratorTable:
                 self._gens[key] = g
             return g
 
+    def replace(self, gen, state):
+        """A fresh generator at ``state`` in ``gen``'s place, if ``gen`` is
+        one of the table's; None otherwise."""
+        with self._lock:
+            return _replace_in(self._gens, gen, state)
+
+
+def _replace_in(gens, gen, state):
+    """Put a fresh generator at ``state`` where dict ``gens`` holds
+    ``gen``; returns it, or None."""
+    for key, g in gens.items():
+        if g is gen:
+            fresh = gens[key] = torch.Generator(device=gen.device)
+            fresh.set_state(state)
+            return fresh
+    return None
+
 
 _TABLE = _GeneratorTable()
 
@@ -70,6 +87,21 @@ def generator(device: torch.device) -> torch.Generator:
                 g.manual_seed(seed_value)
             return g
     return _TABLE.generator(device)
+
+
+def replace_generator(gen, state):
+    """Put a fresh generator at ``state`` wherever the framework holds
+    ``gen``: the device's table entry and this thread's seeded
+    :func:`use_generator` scope.  A CUDA graph whose capture failed leaves
+    the generators registered with it unusable; the engine calls this
+    with the states they held before the capture, so the next draw goes
+    on as the eager calls before it left the stream.  Returns the fresh
+    generator, or None when the framework does not hold ``gen``."""
+    fresh = _TABLE.replace(gen, state)
+    scope = getattr(_override, "scope", None)
+    if scope is not None and scope[2] is not None:
+        fresh = _replace_in(scope[2], gen, state) or fresh
+    return fresh
 
 
 @contextmanager

@@ -3,8 +3,8 @@ python/mxnet/test_utils.py).
 
 ``default_context`` (``MXTPU_TEST_CTX``/``MXNET_TEST_CTX`` and
 ``MXTPU_TEST_DEVICE_ID``, else the current context), ``assert_almost_equal``
-with tolerances by dtype, ``rand_ndarray`` (dense; sparse storage waits for
-ROADMAP item 10), ``check_numeric_gradient`` (central differences against
+with tolerances by dtype, ``rand_ndarray`` (dense, row-sparse or CSR),
+``check_numeric_gradient`` (central differences against
 the autograd tape) and ``check_consistency`` (the CPU against the card when
 there is one).
 """
@@ -16,9 +16,8 @@ import numpy as np
 import torch
 
 from . import autograd
-from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
-from .ndarray import NDArray, array
+from .ndarray import NDArray, array, sparse
 
 __all__ = ["default_context", "default_dtype", "assert_almost_equal", "same",
            "rand_shape_nd", "rand_ndarray", "numeric_grad",
@@ -76,14 +75,20 @@ def rand_shape_nd(ndim, dim=10):
 
 def rand_ndarray(shape, stype="default", density=None, dtype=np.float32,
                  ctx=None, scale=1.0):
-    """A dense array of uniform draws in [-scale, scale) from numpy's
-    global generator (ref: test_utils.py rand_ndarray)."""
-    if stype != "default":
-        raise MXNetError("storage type %r is not ported yet: sparse arrays "
-                         "come with ROADMAP item 10" % (stype,))
+    """An array of uniform draws in [-scale, scale) from numpy's global
+    generator (ref: test_utils.py rand_ndarray).  ``'row_sparse'`` or
+    ``'csr'``: each element kept with probability ``density`` (default
+    0.3; a second draw of the same shape decides), then cast to that
+    storage type."""
     ctx = ctx or default_context()
-    return array(np.random.uniform(-scale, scale, shape).astype(dtype),
-                 ctx=ctx)
+    a = np.random.uniform(-scale, scale, shape).astype(dtype)
+    if stype == "default":
+        return array(a, ctx=ctx)
+    if stype not in ("row_sparse", "csr"):
+        raise ValueError(stype)
+    density = 0.3 if density is None else density
+    a = a * (np.random.rand(*shape) < density)
+    return sparse.cast_storage(array(a, ctx=ctx), stype)
 
 
 def numeric_grad(f, inputs, eps=1e-2):

@@ -15,7 +15,9 @@ deferred shapes, dropout's recompute, threads, ``mx.engine.bulk``, and
 serving a hybridized block.  The card's tests (``-m cuda``) hold a replay
 bit for bit against eager, fresh dropout masks per replay, outputs across
 replays, a parameter moved to a new address, an op that splits the graph,
-a capture that fails, and two threads on two streams.
+a capture that fails, and two threads on two streams; and ROADMAP C11: a
+failed capture replaces the generators registered with it and forgets
+every graph that holds one, so ``mx.random`` stays usable.
 """
 import threading
 
@@ -670,6 +672,76 @@ def test_each_call_is_a_profiler_span(tmp_path):
         for e in fc)
 
 
+# -- C11: a failed capture leaves mx.random usable ------------------------------
+
+def test_dropped_generators_are_replaced_and_forgotten():
+    """What a failed capture does with the generators registered with it
+    (``engine.drop_generators``), driven on the CPU with stand-in entries:
+    the device's framework generator is replaced by a fresh one at the
+    state given, which the next draw continues from; every cached graph
+    (the bulk caches and each CachedOp's forward and backward graphs) that
+    registered it goes, with the CachedOp entries keyed on it and a
+    backward generator among them."""
+    from incubator_mxnet_tpu_torch import engine, random_state
+    cpu = torch.device("cpu")
+    tmx.random.seed(11)
+    gen = random_state.generator(cpu)
+    tmx.nd.random.uniform(shape=(5,))
+    state = gen.get_state()
+    want_gen = torch.Generator()
+    want_gen.set_state(state)
+    want = torch.rand(4, generator=want_gen)
+    other = torch.Generator()
+    net = tmx.gluon.nn.Dense(2, in_units=3, prefix="c11_")
+    net.initialize()
+    net.hybridize()
+    net(tmx.nd.ones((1, 3)))
+    cop = net._cached_op
+
+    def graph(gens):
+        return engine._Graph(lambda xs: xs, [torch.zeros(1)], gens, cpu)
+    key = next(iter(cop._entries))      # keyed on the framework generator
+    assert key[5] == id(gen)
+    live_key = key[:5] + (id(other),) + key[6:]
+    cop._entries[live_key] = cop._entries[key]
+    cop._graphs.update(dead=graph([gen]), live=graph([other]))
+    cop._bwd_graphs.update(dead=graph([gen]))
+    cop._bwd_gens.update(dead=gen, live=other)
+    engine._replay_cache["dead"] = graph([gen])
+    engine._replay_cache["live"] = graph([other])
+    engine._seg_vjp_cache["dead"] = graph([gen])
+    try:
+        engine.drop_generators([gen], [state])
+        fresh = random_state.generator(cpu)
+        assert fresh is not gen
+        assert torch.equal(torch.rand(4, generator=fresh), want)
+        assert "dead" not in engine._replay_cache and \
+            "dead" not in engine._seg_vjp_cache
+        assert "live" in engine._replay_cache
+        assert set(cop._graphs) == {"live"} and not cop._bwd_graphs
+        assert set(cop._bwd_gens) == {"live"}
+        assert list(cop._entries) == [live_key]
+    finally:
+        engine._replay_cache.pop("live")
+        tmx.random.seed(0)
+
+
+def test_a_seeded_scope_generator_is_replaced_too():
+    from incubator_mxnet_tpu_torch import random_state
+    cpu = torch.device("cpu")
+    with random_state.use_generator(5):
+        gen = random_state.generator(cpu)
+        state = gen.get_state()
+        torch.rand(3, generator=gen)
+        fresh = random_state.replace_generator(gen, state)
+        assert random_state.generator(cpu) is fresh
+        want = torch.Generator()
+        want.manual_seed(5)
+        assert torch.equal(torch.rand(3, generator=fresh),
+                           torch.rand(3, generator=want))
+    assert random_state.replace_generator(torch.Generator(), state) is None
+
+
 # -- the card ------------------------------------------------------------------
 
 @pytest.fixture
@@ -688,3 +760,20 @@ def test_card_contracts(card):
     import chip_smoke as cs
     res = cs.hybrid_card_contracts(tmx, cs.card_line())
     assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_card_failed_capture_leaves_random_usable(card):
+    """ROADMAP C11 on the card: a hybridized block with Dropout whose
+    capture fails at an op registered deferrable=True that waits for the
+    card raises MXNetError naming the block; the next ``nd.random.uniform``
+    works and equals an eager run of the same calls from the same seed;
+    a second hybridized block with Dropout captures and replays bit-equal
+    to eager.  The same for a bulk segment (``mx.engine.bulk``)."""
+    import chip_smoke as cs
+    res = cs.c11_contract(tmx, cs.card_line(), shape=(32, 64))
+    for what in ("CachedOp", "bulk"):
+        r = res[what]
+        assert r["raised"] and r["names_it"], r
+        assert r["draw_equal_to_eager"] and r["generator_replaced"], r
+        assert r["second_block_bit_equal"] and r["masks_differ"], r

@@ -181,14 +181,80 @@ def test_load_buffer_matches_load(tmp_path):
 
 
 def test_sparse_record_raises_naming_item_10():
+    """A row-sparse record written by hand (item 10 ported sparse storage:
+    it loads, as in the JAX build); a record of an unknown storage type and
+    a bad magic raise."""
     rec = (struct.pack("<Ii", 0xF993FAC9, 1) + struct.pack("<Iq", 1, 2)
            + struct.pack("<Iq", 1, 5) + struct.pack("<iii", 1, 0, 0)
            + struct.pack("<iIq", 6, 1, 2) + np.ones(2, np.float32).tobytes()
            + np.arange(2, dtype=np.int64).tobytes())
-    with pytest.raises(tmx.MXNetError, match="row_sparse.*item 10"):
-        tmx.nd.load_buffer(_container([rec]))
+    got = tmx.nd.load_buffer(_container([rec]))[0]
+    want = jmx.nd.load_buffer(_container([rec]))[0]
+    assert got.stype == want.stype == "row_sparse"
+    np.testing.assert_array_equal(_host(got.indices), [0, 1])
+    np.testing.assert_array_equal(_host(got), _host(want))
+    odd = struct.pack("<Ii", 0xF993FAC9, 3) + rec[8:]
+    with pytest.raises(tmx.MXNetError, match="storage type 3"):
+        tmx.nd.load_buffer(_container([odd]))
     with pytest.raises(ValueError, match="bad magic"):
         tmx.nd.load_buffer(struct.pack("<QQ", 7, 0))
+
+
+@pytest.mark.parametrize("named", [True, False], ids=["named", "list"])
+def test_sparse_params_bytes_equal_the_jax_build(tmp_path, named):
+    """Row-sparse and CSR arrays (an empty one, an f16 one, a 3-d
+    row-sparse one) beside a dense one: the port's ``.params`` bytes equal
+    the JAX build's for the same arrays; each package loads the other's
+    file to the same components; the legacy npz container's sparse
+    entries load too."""
+    rs = np.random.RandomState(0)
+    a = rs.standard_normal((6, 4)).astype(np.float32)
+    a *= rs.rand(6, 4) < 0.4
+    a[2] = 0
+    b = rs.standard_normal((5, 2, 3)).astype(np.float16)
+    b[[0, 3]] = 0
+
+    def arrays(m):
+        sp = m.nd.sparse
+        out = {"rsp": sp.row_sparse_array(a), "csr": sp.csr_matrix(a),
+               "rsp3": m.nd.array(b, dtype="float16").tostype("row_sparse"),
+               "empty": sp.zeros("csr", (3, 7)),
+               "dense": m.nd.array(a)}
+        return out if named else list(out.values())
+    paths = {}
+    for m, tag in ((tmx, "t"), (jmx, "j")):
+        paths[tag] = str(tmp_path / ("%s.params" % tag))
+        m.nd.save(paths[tag], arrays(m))
+    raw = open(paths["t"], "rb").read()
+    assert raw == open(paths["j"], "rb").read()
+    for src in paths.values():
+        got, want = tmx.nd.load(src), jmx.nd.load(src)
+        pairs = zip(got.values(), want.values()) if named else \
+            zip(got, want)
+        for g, w in pairs:
+            assert g.stype == w.stype
+            np.testing.assert_array_equal(_host(g), _host(w))
+            for k in ("indices", "indptr", "data"):
+                if hasattr(w, k):
+                    np.testing.assert_array_equal(_host(getattr(g, k)),
+                                                  _host(getattr(w, k)))
+    manifest = {"entries": [
+        {"idx": 0, "name": "r", "stype": "row_sparse", "shape": [6, 4]},
+        {"idx": 1, "name": "c", "stype": "csr", "shape": [6, 4]}]}
+    jr, jc = jmx.nd.sparse.row_sparse_array(a), jmx.nd.sparse.csr_matrix(a)
+    npz = io.BytesIO()
+    np.savez(npz, __manifest__=np.frombuffer(json.dumps(manifest).encode(),
+                                             np.uint8),
+             a0_data=_host(jr.data), a0_indices=_host(jr.indices),
+             a1_data=_host(jc.data), a1_indices=_host(jc.indices),
+             a1_indptr=_host(jc.indptr))
+    npz_path = str(tmp_path / "old.params")
+    open(npz_path, "wb").write(npz.getvalue())
+    got, want = tmx.nd.load(npz_path), jmx.nd.load(npz_path)
+    for k, stype in (("r", "row_sparse"), ("c", "csr")):
+        assert got[k].stype == want[k].stype == stype
+        np.testing.assert_array_equal(_host(got[k]), a)
+        np.testing.assert_array_equal(_host(want[k]), a)
 
 
 def test_a_crash_before_the_rename_leaves_the_old_file(tmp_path,

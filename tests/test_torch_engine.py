@@ -729,6 +729,40 @@ def test_gluon_batchnorm_training_forward_in_bulk():
     assert not np.array_equal(want[1], 0.0)
 
 
+def test_bulk_lazy_sparse_sgd_defers():
+    """The twin of the JAX build's contract: the row-sparse lazy SGD update
+    is a registered op and defers under bulk; one flush covers the update
+    and its consumer, the weight equals eager bit for bit and equals the
+    JAX build's, and the rows without gradient stay untouched."""
+    rs = np.random.RandomState(5)
+    w0 = rs.randn(16, 4).astype(np.float32)
+    dense_g = np.zeros((16, 4), np.float32)
+    dense_g[[2, 9]] = rs.randn(2, 4)
+
+    def run(m, bulked):
+        opt = m.optimizer.SGD(learning_rate=0.1, lazy_update=True)
+        w = m.nd.array(w0)
+        grad = m.nd.array(dense_g).tostype("row_sparse")
+        with (m.engine.bulk(16) if bulked else contextlib.nullcontext()):
+            opt.update(0, w, grad, None)
+            if bulked and m is tmx:
+                assert type(w._slot) is engine._Pending
+            out = (w * 1.0).sum().asnumpy()
+        return w.asnumpy(), float(out)
+
+    we, se = run(tmx, False)
+    engine.reset_flush_stats()
+    wb, sb = run(tmx, True)
+    stats = engine.flush_stats()
+    assert sum(stats["causes"].values()) == 1, stats
+    assert stats["segment_lengths"] == {3: 1}, stats
+    np.testing.assert_array_equal(we, wb)
+    assert se == sb
+    np.testing.assert_array_equal(we, run(jmx, True)[0])
+    np.testing.assert_array_equal(we[0], w0[0])
+    assert not np.allclose(we[2], w0[2])
+
+
 # ---------------------------------------------------------------------------
 # on the card (skipped here): phase 11 of chip_smoke.py at small sizes
 # ---------------------------------------------------------------------------

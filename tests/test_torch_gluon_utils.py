@@ -216,8 +216,15 @@ def test_test_utils_match_jax(monkeypatch):
     np.random.seed(4)
     want = ju.rand_ndarray((4, 5), scale=2.0)
     np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
-    with pytest.raises(MXNetError, match="item 10"):
-        tu.rand_ndarray((4, 5), stype="row_sparse")
+    for stype in ("row_sparse", "csr"):
+        np.random.seed(4)
+        got = tu.rand_ndarray((4, 5), stype=stype, density=0.5)
+        np.random.seed(4)
+        want = ju.rand_ndarray((4, 5), stype=stype, density=0.5)
+        assert got.stype == want.stype == stype
+        np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+        np.testing.assert_array_equal(got.indices.asnumpy(),
+                                      want.indices.asnumpy())
     x = _x((2, 3), 9)
     np.testing.assert_array_equal(
         tu.simple_forward(tmx.nd.relu, x),

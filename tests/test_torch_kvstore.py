@@ -231,9 +231,12 @@ def test_identity_and_raising_paths():
         kv.push(1, tmx.nd.ones(SHAPE))
     with pytest.raises(MXNetError, match="not been initialized"):
         kv.pull(1, out=tmx.nd.ones(SHAPE))
-    with pytest.raises(MXNetError, match="item 10"):
-        kv.row_sparse_pull(0, out=tmx.nd.ones(SHAPE),
+    # row_sparse_pull came with item 10 (tests/test_torch_sparse.py)
+    with pytest.raises(MXNetError, match="not been initialized"):
+        kv.row_sparse_pull(1, out=tmx.nd.ones(SHAPE),
                            row_ids=tmx.nd.array([0]))
+    with pytest.raises(ValueError, match="row_ids"):
+        kv.row_sparse_pull(0, out=tmx.nd.ones(SHAPE))
     with pytest.raises(MXNetError, match="item 11"):
         kv.set_gradient_compression({"type": "2bit"})
     with pytest.raises(MXNetError, match="set_optimizer"):

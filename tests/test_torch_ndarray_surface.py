@@ -76,8 +76,10 @@ def test_scalar_properties_and_sync():
     a = tmx.nd.array(X)
     assert a.stype == "default"
     assert a.tostype("default") is a
-    with pytest.raises(tmx.MXNetError, match="item 10"):
-        a.tostype("row_sparse")
+    rsp = a.tostype("row_sparse")
+    assert rsp.stype == "row_sparse" == jmx.nd.array(X).tostype(
+        "row_sparse").stype
+    np.testing.assert_array_equal(rsp.asnumpy(), a.asnumpy())
     assert a.as_nd_ndarray() is a
     assert a.as_in_context(tmx.cpu()) is a
     one = tmx.nd.array(np.array([2.5], np.float32))

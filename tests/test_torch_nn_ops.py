@@ -274,7 +274,7 @@ def test_nd_namespace_reexports_contexts():
 
 # names the JAX build registers in these modules that wait for a later
 # item (ROADMAP names each)
-LATER_OPS = {"_sparse_sgd_update": 10, "_sparse_sgd_mom_update": 10}
+LATER_OPS = {}          # none since item 10 (the sparse updates)
 SLICE_MODULES = ("incubator_mxnet_tpu.ops.nn",
                  "incubator_mxnet_tpu.ops.random_ops",
                  "incubator_mxnet_tpu.ops.linalg",
@@ -286,7 +286,7 @@ def test_every_op_of_this_slice_is_registered():
     """The set difference against the JAX registry: every name the JAX
     build registers from ops/nn.py, ops/random_ops.py, ops/linalg.py,
     ops/optimizer_ops.py and ops/rnn.py (RNN, CTCLoss and its three
-    aliases) is in the port but the sparse updates (item 10), each alias on
+    aliases) and the sparse updates (item 10) is in the port, each alias on
     the same Operator as in the JAX build, with the same differentiability
     and randomness."""
     from incubator_mxnet_tpu.ops import registry as jreg

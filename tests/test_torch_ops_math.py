@@ -613,9 +613,9 @@ def test_integer_edge_values_match_jax():
 
 
 # names the JAX build registers in ops/math.py, ops/tensor.py and
-# ops/init_ops.py that wait for a later item (ROADMAP names each)
-LATER = {"_cast_storage_dense": 10, "cast_storage": 10,
-         "_sparse_retain_dense": 10, "sparse_retain": 10}
+# ops/init_ops.py that wait for a later item (ROADMAP names each): none
+# since item 10 registered the sparse storage twins
+LATER = {}
 
 
 def test_every_array_op_of_the_jax_build_is_registered():
