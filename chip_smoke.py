@@ -385,8 +385,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              steps: step ms, img/s, the all-reduce's ms and bytes, peak
              memory a rank, the ranks' weights bit-equal, and the Module's
              within a measured bound of a one-process run of the same two
-             halves; 16c the full-width LM as 2 ranks x 4 x 1024 tokens
-             through DataParallelTrainer over worker_mesh() (bf16): step
+             halves; 16c the full-width LM (2 of its 4 layers) as 2 ranks
+             x 4 x 1024 tokens through DataParallelTrainer over
+             worker_mesh() (bf16): step
              ms, tokens/s, the all-reduce's ms and bytes, B1's forward and
              backward kernels once a layer a step on each rank, the loss
              falling, the ranks' master weights bit-equal; 16d BASELINE
@@ -395,9 +396,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              one-context run after the first step, 2e-2 after 2 epochs;
              16e (two cards or more) 16d over every card and 16b, 16c under
              dist_device_sync, one rank a card, else a line saying why not;
-17. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
-   launches of B1 in 9c, 10d, 11, 12e, 13f, 14d and 16c; phases 6-8 and 15
-   launch none), the whole run's seconds, then the card's name and power
+17. par   — ring attention, pipeline and expert parallelism over two
+             ranks sharing the card over gloo (``parallel_phase``, one
+             launch of ``par_task``): 17a the axis collectives on card
+             tensors bit-equal to the host's answers; 17b the full-width
+             LM with every attention on "sp" through DataParallelTrainer
+             over {"dp": 1, "sp": 2} (bf16), the ranks bit-equal, its
+             first update of the weights against a flash witness's, one
+             MHA layer against flash; 17c PipelineTrainer over {"pp": 2}
+             (B1's f32 route in every stage) against the unpipelined
+             step; 17d ExpertParallelMoE(16384, 4) over {"ep": 2}, dense
+             and capacity dispatch on each rank's experts against one
+             rank's dense layer, tokens dropped as a host recount says,
+             then adam over {"dp": 1, "ep": 2}; 17e (two cards or more)
+             the same under NCCL, else a line saying why not;
+18. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
+   launches of B1 in 9c, 10d, 11, 12e, 13f, 14d, 16c, 17b and 17c; phases
+   6-8 and 15 launch none), the whole run's seconds, then the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -10708,8 +10723,10 @@ DIST_BIG = 1 << 24              # f32 elements of 16a's reduces
 DIST_RESNET = dict(batch=128, warmup=1, steps=3, classes=1000, lr=0.05,
                    momentum=0.9, wd=1e-4, image=224)
 # 16c: bench_transformer.py:64-70's LM at full width, global batch 8 as 2 x
-# 4, one warm-up step and 3 timed (4d's optimizer and dtype)
-DIST_LM = dict(batch=4, warmup=1, steps=3)
+# 4, one warm-up step and 3 timed (4d's optimizer and dtype); its depth cut
+# to 2 of the 4 layers for the smoke's time (17b trains all 4 across the
+# ranks; the gradient all-reduce is the same path at either depth)
+DIST_LM = dict(batch=4, warmup=1, steps=3, layers=2)
 # what a 16c rank holds beyond dist_lm_layers' model of it (workspaces,
 # the loss's f32 logits): 24.33 GB measured against 22.41 GB modelled
 DIST_LM_SLACK = 2 << 30
@@ -10793,7 +10810,8 @@ def dist_worker(argv):
     torch.cuda.set_device(dist.local_context().torch_device())
     wire = WireClock(dist, torch)
     result = {"store": dist_store_task, "nccl": dist_nccl_task,
-              "resnet": dist_resnet_task, "lm": dist_lm_task}[task](
+              "resnet": dist_resnet_task, "lm": dist_lm_task,
+              "parallel": par_task}[task](
                   mx, dist, wire, out_dir, *args)
     result["rank"] = rank
     with open(os.path.join(out_dir, "%s-rank%d.json" % (task, rank)),
@@ -11325,15 +11343,15 @@ def dist_lm_layers(torch, lm_peak, n_params, nw, cards):
     weights), plus half its activations (the rest of the peak: a rank
     takes 4 sequences, not 8), plus the flat gradient buffer (4 bytes a
     parameter) and DIST_LM_SLACK, for each rank that shares a card,
-    against 90% of the card's free memory; the layers cut until it fits.  Returns (layers,
-    the estimate a rank in bytes)."""
+    against 90% of the card's free memory; the layers (DIST_LM's at most)
+    cut until it fits.  Returns (layers, the estimate a rank in bytes)."""
     free, _ = torch.cuda.mem_get_info()
     per_card = -(-nw // cards)
     activations = max(lm_peak - 14 * n_params, 0) * DIST_LM["batch"] \
         / TRAIN_BATCH
     d, f = LM_CONFIG["d_model"], LM_CONFIG["d_ffn"]
     layer_params = 4 * d * d + 2 * d * f
-    layers = LM_CONFIG["n_layers"]
+    layers = DIST_LM["layers"]
     while True:
         params = n_params - (LM_CONFIG["n_layers"] - layers) * layer_params
         est = int(18 * params + activations * layers
@@ -11355,7 +11373,7 @@ def dist_lm_phase(mx, card, out_dir, lm_peak, n_params, kind="dist_sync",
           "%d ranks on %d card(s) with %d bytes free: %d of %d layers%s | %s"
           % (lm_peak, 4 * n_params, est, DIST_LM["batch"], nw, cards,
              torch.cuda.mem_get_info()[0], layers, LM_CONFIG["n_layers"],
-             "" if layers == LM_CONFIG["n_layers"] else " (cut to fit)",
+             "" if layers == DIST_LM["layers"] else " (cut to fit)",
              card), flush=True)
     results = launch_ranks("lm", nw, out_dir, DIST_TIMEOUT["lm"],
                            json.dumps(dict(LM_CONFIG, n_layers=layers)),
@@ -11558,6 +11576,881 @@ def dist_phase(mx, card, lm_peak, n_params):
     print("dist: phase 16 in %.1f s | %s" % (out["seconds"], card),
           flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the rest of ROADMAP item 7 (parallel/ring_attention.py,
+# parallel/pipeline.py, parallel/moe.py, the axis collectives of
+# parallel/mesh.py and dist.RankAxis, DataParallelTrainer over 2-D meshes)
+# at the LM's width, in two ranks sharing the card over gloo, one launch:
+# 17a the axis collectives on card tensors, 17b ring attention over "sp"
+# (the LM through DataParallelTrainer over {"dp": 1, "sp": 2}), 17c
+# PipelineTrainer over {"pp": 2}, 17d ExpertParallelMoE over {"ep": 2};
+# 17e on machines of two cards or more.
+# ---------------------------------------------------------------------------
+PAR_RANKS = 2
+PAR_TIMEOUT = 480
+# 17a: a K/V block of 17b's ring (bf16), 17d's dispatched slots (f32), a
+# (2^24,) f32 sum, 17b's output block (bf16)
+PAR_COLLECTIVES = dict(ring=(8, 32, 512, 128), a2a=(4, 1280, 4096),
+                       psum=(1 << 24,), gather=(8, 32, 512, 128))
+# 17b: the LM's 8 x 1024 tokens on every rank of {"dp": 1, "sp": 2}
+# (the batch splits over "dp" only), 4d's optimizer, bf16
+PAR_LM = dict(batch=8, warmup=1, steps=3)
+# 17c: 2 stages of 2 DecoderBlocks, f32 (the JAX trainer's only dtype), 4
+# microbatches of 2 x 1024
+PAR_PP = dict(batch=8, micro=4, warmup=1, steps=3, lr=0.05)
+# 17d: the LM's FFN widths over 4 experts, 8192 tokens of d_model, f32
+# tokens; every token shares a seeded direction of norm ``skew`` (a token's
+# own norm is ~64), so the router sends ~43% of them to one expert against
+# a capacity of 31% (1.25 / 4) and capacity dispatch drops ~12% of them
+PAR_MOE = dict(tokens=8192, hidden=16384, experts=4, capacity_factor=1.25,
+               classes=16, lr=1e-4, warmup=1, steps=3, skew=32.0)
+# 17b: the ring against flash attention's bf16 kernel on one MHA layer
+PAR_MHA_REL = 2e-2
+# 17c: pipelined against unpipelined after one SGD step: the gradients are
+# the same f32 sums in another order (microbatches of 2048 tokens against
+# one product over 8192, TF32 off), a few ulps of the sum each: held to
+# 2^-10 of the step's largest update plus 2 ulps of the largest weight
+PAR_PP_REL = 2.0 ** -10
+# 17d: the split experts against one rank's dense layer, f32
+PAR_MOE_REL = 1e-4
+
+
+def set_seq_axis(net, axis):
+    """Every MultiHeadAttention of ``net`` on ``axis`` (None: flash
+    attention on the local device)."""
+    stack = [net]
+    while stack:
+        b = stack.pop()
+        if hasattr(b, "_seq_axis"):
+            b._seq_axis = axis
+        stack.extend(b._children)
+
+
+class AxisClock(object):
+    """Times each collective of ``dist.RankAxis`` (the card synchronized
+    before and after) by kind; bytes sent from ``dist.axis_stats``."""
+
+    KINDS = ("ring_shift", "_all_to_all", "_psum", "_all_gather", "send",
+             "recv")
+
+    def __init__(self, dist, torch):
+        self.dist, self.torch = dist, torch
+        self.reset()
+        for name in self.KINDS:
+            inner = getattr(dist.RankAxis, name)
+
+            def timed(ax, *a, _inner=inner, _name=name, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _inner(ax, *a, **k)
+                torch.cuda.synchronize()
+                self.ms[_name] = self.ms.get(_name, 0.0) + \
+                    (time.perf_counter() - t0) * 1e3
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return out
+
+            setattr(dist.RankAxis, name, timed)
+
+    def reset(self):
+        import copy
+        self.ms, self.calls = {}, {}
+        self._stats = copy.deepcopy(self.dist.axis_stats)
+
+    def read(self):
+        out = {}
+        for name in self.KINDS:
+            kind = name.lstrip("_")
+            st = self.dist.axis_stats.get(kind, {})
+            before = self._stats.get(kind, {})
+            out[kind] = dict(
+                calls=self.calls.get(name, 0), ms=self.ms.get(name, 0.0),
+                bytes=st.get("bytes", 0) - before.get("bytes", 0),
+                staged=st.get("staged", 0) - before.get("staged", 0))
+        return out
+
+
+def _flash_counts(flash_attention, split_f32):
+    return dict(fwd=flash_attention.launches,
+                f32=flash_attention.f32_launches,
+                bwd_calls=flash_attention.backward_calls,
+                bwd=flash_attention.backward_kernel_launches,
+                bwd_torch=flash_attention.backward_torch_calls,
+                split=split_f32.launches)
+
+
+def _minus(a, b):
+    return {k: a[k] - b[k] for k in a}
+
+
+def par_collectives(mx, dist, torch, clock, meshes):
+    """17a on one rank: each axis collective on card tensors against the
+    answer made on the host from every rank's seeded values, bit for bit
+    (over gloo the all-to-all and the gather take the card tensors
+    themselves, the ring shift stages them); the second of two calls
+    timed (the first sets up the wire: NCCL makes its communicators
+    then), with its bytes.  The sum of more than two ranks is added in the
+    wire's own order: it is held to the rounding of n - 1 additions of the
+    sum in f64, and its bits compared across the ranks (``psum_digest``)."""
+    ax = dist.RankAxis(meshes["sp"], "sp")
+    dev, n, me = ax.device, ax.size, ax.index
+
+    def host(shape, dtype, r):
+        v = np.random.default_rng(SEED + 17 * r).standard_normal(
+            shape, np.float32)
+        return torch.from_numpy(v).to(dtype)
+
+    calls = dict(ring=lambda t: ax.ring_shift(t),
+                 a2a=lambda t: ax.all_to_all(t, 0, 1),
+                 psum=lambda t: ax.psum(t),
+                 gather=lambda t: ax.all_gather(t, 2))
+    cases = dict(ring=torch.bfloat16, a2a=torch.float32, psum=torch.float32,
+                 gather=torch.bfloat16)
+    checks, ms, digest = {}, {}, None
+    for kind, dtype in cases.items():
+        shape = PAR_COLLECTIVES[kind]
+        mine = host(shape, dtype, me).to(dev)
+        every = [host(shape, dtype, r) for r in range(n)]
+        calls[kind](mine)
+        clock.reset()
+        got = calls[kind](mine)
+        read = clock.read()
+        if kind == "ring":
+            want = every[(me - 1) % n]
+        elif kind == "a2a":
+            want = torch.cat([v.chunk(n, 0)[me] for v in every], 1)
+        elif kind == "psum":
+            want = every[0].clone()
+            for v in every[1:]:
+                want += v
+            digest = _digest({"psum": got})
+        else:
+            want = torch.cat(every, 2)
+        same = got.is_cuda and got.dtype == want.dtype
+        if kind == "psum" and n > 2:
+            # against the sum in f64: n - 1 f32 additions and the rounding
+            # of the result, each within 2^-24 of the sum of magnitudes
+            exact = sum(v.double() for v in every)
+            slack = n * 2.0 ** -24 * sum(v.double().abs() for v in every)
+            checks[kind] = bool(same and ((got.cpu().double() - exact).abs()
+                                          <= slack).all())
+        else:
+            checks[kind] = bool(same and torch.equal(got.cpu(), want))
+        key = {"ring": "ring_shift", "a2a": "all_to_all", "psum": "psum",
+               "gather": "all_gather"}[kind]
+        ms[kind] = dict(ms=read[key]["ms"], bytes=read[key]["bytes"],
+                        staged=read[key]["staged"], shape=list(shape),
+                        dtype=str(dtype))
+    return dict(checks=checks, ms=ms, psum_digest=digest)
+
+
+def par_mha(mx, dist, torch, mesh, ctx):
+    """17b's layer check: one MultiHeadAttention at the LM's width, bf16,
+    forward and backward through the ring over ``mesh`` against the same
+    layer through flash attention (B1's bf16 kernels) on this rank."""
+    from incubator_mxnet_tpu_torch.models import HostXavier
+    d, heads = LM_CONFIG["d_model"], LM_CONFIG["n_heads"]
+    shape = (PAR_LM["batch"], LM_CONFIG["seq_len"], d)
+    rs = np.random.default_rng(SEED + 5)
+    x0 = torch.from_numpy(rs.standard_normal(shape, np.float32)).to(
+        ctx.torch_device(), torch.bfloat16)
+    g = torch.from_numpy(rs.standard_normal(shape, np.float32)).to(
+        ctx.torch_device(), torch.bfloat16)
+    res = {}
+    for tag, axis in (("local", None), ("ring", "sp")):
+        blk = mx.gluon.nn.MultiHeadAttention(d, heads, causal=True,
+                                             use_bias=False, seq_axis=axis,
+                                             prefix="mha_")
+        blk.initialize(HostXavier(SEED), ctx=ctx)
+        blk.cast("bfloat16")
+        x = mx.nd.NDArray(x0.clone(), ctx=ctx)
+        x.attach_grad()
+        with mx.parallel.use_mesh(mesh), mx.autograd.record():
+            out = blk(x)
+        out.backward(mx.nd.NDArray(g, ctx=ctx))
+        res[tag] = [out._data.detach().float(), x.grad._data.float()] + [
+            p.grad()._data.float() for p in blk.collect_params().values()]
+        del blk
+    errs = [float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+            for a, b in zip(res["ring"], res["local"])]
+    del res
+    return dict(rel_errs=dict(zip(["out", "dx", "wq", "wk", "wv", "wo"],
+                                  errs)), bound=PAR_MHA_REL,
+                ok=max(errs) <= PAR_MHA_REL)
+
+
+def par_lm(mx, dist, torch, clock, meshes, layers, ctx):
+    """17b on one rank: the LM with every MultiHeadAttention on "sp",
+    trained through DataParallelTrainer(dtype="bfloat16") over {"dp": 1,
+    "sp": 2}, as a user runs it (the trainer keeps the ranks' replicated
+    weights bit-equal itself); rank 0 first runs the witness, the same LM
+    from the same weights on flash attention, one step alone, and holds
+    the ring's first update of the weights against the witness's."""
+    from incubator_mxnet_tpu_torch.models import TransformerLM, HostXavier
+    from incubator_mxnet_tpu_torch.ops.attention import (flash_attention,
+                                                         split_f32)
+    rank = dist.rank()
+    cfg = dict(LM_CONFIG, n_layers=layers)
+    net = TransformerLM(**cfg)
+    net.pos_embed.init = None
+    net.initialize(HostXavier(SEED), ctx=ctx)
+    rs = np.random.RandomState(SEED)
+    B, S, V = PAR_LM["batch"], cfg["seq_len"], cfg["vocab"]
+    x = mx.nd.array(rs.randint(0, V, (B, S)), ctx=ctx, dtype="int32")
+    y = mx.nd.array(rs.randint(0, V, (B, S)).astype(np.float32), ctx=ctx)
+    loss_blk = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    sp_mesh = meshes["dp_sp"]
+    out = {}
+    set_seq_axis(net, None)
+    # the deferred shapes resolved alike on every rank, with no collective
+    # (a rank that resolved them in the witness would skip the pass)
+    net._run_deferred_init(x[:1])
+    w0 = {n: p.data()._data for n, p in net.collect_params().items()}
+    c0 = _flash_counts(flash_attention, split_f32)
+    moved = None
+    if rank == 0:
+        wit = mx.parallel.DataParallelTrainer(
+            net, loss_blk, "sgd", dict(TRAIN_OPT),
+            mesh=mx.parallel.make_mesh({"dp": 1}, [ctx]), dtype="bfloat16")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out["witness_loss"] = float(wit.step(x, y).asscalar())
+        torch.cuda.synchronize()
+        out["witness_ms"] = (time.perf_counter() - t1) * 1e3
+        with torch.no_grad():
+            moved = {n: v - w0[n] for n, v in wit._params.items()}
+        del wit
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["mha"] = par_mha(mx, dist, torch, sp_mesh, ctx)
+    out["witness_launches"] = _minus(_flash_counts(flash_attention,
+                                                   split_f32), c0)
+    set_seq_axis(net, "sp")
+    trainer = mx.parallel.DataParallelTrainer(
+        net, loss_blk, "sgd", dict(TRAIN_OPT), mesh=sp_mesh,
+        dtype="bfloat16")
+    losses, step_ms = [], []
+    for i in range(PAR_LM["warmup"] + PAR_LM["steps"]):
+        if i == PAR_LM["warmup"]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            clock.reset()
+            c1 = _flash_counts(flash_attention, split_f32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(trainer.step(x, y).asscalar()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if i == 0:
+            out["digest_after_one_step"] = _digest(trainer._params)
+            if moved is not None:
+                out["update_gap"] = _update_gap(torch, trainer._params, w0,
+                                                moved)
+                moved = None
+    timed = step_ms[PAR_LM["warmup"]:]
+    mean = sum(timed) / len(timed)
+    out.update(layers=layers, losses=losses, step_ms=step_ms,
+               step_ms_mean=mean, tokens_per_s=B * S / mean * 1e3,
+               wire=clock.read(), steps=PAR_LM["steps"],
+               sp_launches=_minus(_flash_counts(flash_attention, split_f32),
+                                  c1),
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del trainer, w0
+    set_seq_axis(net, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return net, x, y, out
+
+
+def _update_gap(torch, params, w0, moved):
+    """How far one step's update of the weights (``params`` less ``w0``)
+    lies from the witness's (``moved``): the norm of the difference over
+    every weight against the norm of the witness's update, and the tensor
+    whose largest difference is the largest share of its own largest
+    update."""
+    num = den = 0.0
+    worst = (0.0, None)
+    with torch.no_grad():
+        for n, m in moved.items():
+            diff = (params[n] - w0[n]) - m
+            num += float(diff.double().square().sum())
+            den += float(m.double().square().sum())
+            top = float(m.abs().max())
+            if top > 0:
+                share = float(diff.abs().max()) / top
+                if share > worst[0]:
+                    worst = (share, n)
+    return dict(rel_l2=math.sqrt(num / max(den, 1e-300)), worst=worst)
+
+
+def _lm_parts(mx, net, stages):
+    """The LM cut for the pipeline: ``pre`` (the token and position
+    embeddings), ``stages`` stages of as many DecoderBlocks each as divide
+    evenly (the blocks left over unused), ``post`` (the last LayerNorm and
+    the head), sharing ``net``'s blocks and values."""
+    nn = mx.gluon.nn
+
+    class Pre(mx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="pre_")
+            with self.name_scope():
+                self.embed = net.embed
+                self.pos_embed = self.params.get(
+                    "pos_embed", shape=net.pos_embed.shape)
+
+        def hybrid_forward(self, F, tokens, pos_embed):
+            return self.embed(tokens) + F.expand_dims(pos_embed, axis=0)
+
+    class Post(mx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="post_")
+            with self.name_scope():
+                self.ln_f = net.ln_f
+                self.head = net.head
+
+        def hybrid_forward(self, F, h):
+            return self.head(self.ln_f(h))
+
+    ctx = net.pos_embed.list_ctx()[0]
+    pre = Pre()
+    pre.pos_embed.initialize(ctx=ctx)
+    pre.pos_embed.set_data(net.pos_embed.data())
+    body = nn.HybridSequential(prefix="pp_")
+    blocks = list(net.blocks._children)
+    per = max(1, len(blocks) // stages)
+    for i in range(stages):
+        stage = nn.HybridSequential(prefix="stage%d_" % i)
+        for b in blocks[i * per:(i + 1) * per]:
+            stage.add(b)
+        body.add(stage)
+    return pre, body, Post()
+
+
+def par_pipeline(mx, dist, torch, clock, meshes, net, x, y, ctx):
+    """17c on one rank: PipelineTrainer over {"pp": 2} on the LM's blocks
+    in f32; rank 0 first runs the same step unpipelined (the reference of
+    the weights after one step)."""
+    from incubator_mxnet_tpu_torch.ops.attention import (flash_attention,
+                                                         split_f32)
+    rank = dist.rank()
+    nw = meshes["pp"].size
+    pre, body, post = _lm_parts(mx, net, nw)
+    per_stage = len(body[0]._children)
+    loss_blk = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    lr = PAR_PP["lr"]
+    blocks = [pre, body, post]
+    params = {n: p for b in blocks for n, p in b.collect_params().items()}
+    out = {}
+    if rank == 0:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with mx.autograd.record():
+            per = loss_blk(post(body(pre(x))), y)
+            ref_loss = per.mean()
+        ref_loss.backward()
+        torch.cuda.synchronize()
+        out["reference_ms"] = (time.perf_counter() - t1) * 1e3
+        out["reference_loss"] = float(ref_loss.asscalar())
+        ref = {}
+        with torch.no_grad():
+            for n, p in params.items():
+                w, g = p.data()._data, p.grad()._data
+                ref[n] = (w - lr * g, lr * float(g.abs().max()),
+                          float(w.abs().max()))
+        del per, ref_loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    pp_mesh = meshes["pp"]
+    trainer = mx.parallel.PipelineTrainer(
+        body, loss_blk, pp_mesh, num_microbatches=PAR_PP["micro"],
+        learning_rate=lr, pre=pre, post=post)
+    losses, step_ms = [], []
+    for i in range(PAR_PP["warmup"] + PAR_PP["steps"]):
+        if i == PAR_PP["warmup"]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            clock.reset()
+            c1 = _flash_counts(flash_attention, split_f32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(trainer.step(x, y)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if i == 0:
+            trainer.sync_params()
+            if rank == 0:
+                errs = {}
+                for n, p in params.items():
+                    w_ref, step_max, w_max = ref[n]
+                    err = float((p.data()._data - w_ref).abs().max())
+                    ulp = 2.0 ** (math.floor(math.log2(max(w_max, 1e-30)))
+                                  - 23)
+                    errs[n] = (err, PAR_PP_REL * step_max + 2 * ulp)
+                out["weights_after_one_step"] = dict(
+                    worst=max(errs.items(), key=lambda kv: kv[1][0] /
+                              kv[1][1]),
+                    within=all(e <= b for e, b in errs.values()),
+                    params=len(errs))
+                del ref
+                gc.collect()
+                torch.cuda.empty_cache()
+    timed = step_ms[PAR_PP["warmup"]:]
+    mean = sum(timed) / len(timed)
+    n, m = nw, PAR_PP["micro"]
+    wire = clock.read()
+    out.update(losses=losses, step_ms=step_ms, step_ms_mean=mean,
+               tokens_per_s=x.shape[0] * x.shape[1] / mean * 1e3,
+               wire=wire, recv_share=wire["recv"]["ms"] / sum(timed),
+               schedule_bubble=(n - 1) / (m + n - 1),
+               launches=_minus(_flash_counts(flash_attention, split_f32), c1),
+               expected_f32_launches=per_stage * m * PAR_PP["steps"],
+               stages=nw, blocks_a_stage=per_stage,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_moe(mx, dist, torch, clock, meshes, ctx):
+    """17d on one rank: ExpertParallelMoE at the LM's FFN widths over
+    {"ep": 2}, dense and capacity dispatch, forward and backward, each rank
+    holding its own experts (as the trainer hands them over), against one
+    rank's dense layer from the same whole weights (every rank computes it
+    and holds its shard to its slice); then DataParallelTrainer over
+    {"dp": 1, "ep": 2} with adam.  The tokens share a seeded direction, so
+    the router favours one expert and capacity dispatch drops tokens."""
+    from incubator_mxnet_tpu_torch.models import HostXavier
+    from incubator_mxnet_tpu_torch.parallel import ExpertParallelMoE
+    cfg = PAR_MOE
+    N, d, E, h = cfg["tokens"], LM_CONFIG["d_model"], cfg["experts"], \
+        cfg["hidden"]
+    ep_mesh = meshes["ep"]
+    nw = ep_mesh.size
+    me = dist.RankAxis(ep_mesh, "ep").index
+    lo, hi = me * E // nw, (me + 1) * E // nw
+    rs = np.random.default_rng(SEED + 7)
+    skew = np.random.default_rng(SEED + 8).standard_normal(d).astype(
+        np.float32)
+    skew *= cfg["skew"] / np.linalg.norm(skew)
+    x0 = torch.from_numpy(rs.standard_normal((N, d), np.float32) + skew).to(
+        ctx.torch_device())
+
+    def layer(dispatch, params=None):
+        blk = ExpertParallelMoE(h, E, dispatch=dispatch,
+                                capacity_factor=cfg["capacity_factor"],
+                                prefix="moe_", params=params)
+        if params is None:
+            blk._pre_infer(x0)
+        return blk
+
+    def run(blk, mesh, mask=None):
+        x = mx.nd.NDArray(x0.clone(), ctx=ctx)
+        x.attach_grad()
+        scope = mx.parallel.use_mesh(mesh) if mesh is not None else \
+            contextlib.nullcontext()
+        torch.cuda.synchronize()
+        clock.reset()
+        t1 = time.perf_counter()
+        with scope, mx.autograd.record():
+            out = blk(x)
+            sq = out * out if mask is None else \
+                mx.nd.broadcast_mul(out * out, mask)
+            loss = sq.sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        vals = [out._data, x.grad._data] + [
+            p.grad()._data for p in blk.collect_params().values()]
+        return [v.detach().clone() for v in vals], ms, clock.read()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+    res = {}
+    # one set of whole weights, drawn once: the one-rank reference's and,
+    # later, the trainer's (which splits them itself)
+    whole = layer("dense")
+    whole.initialize(HostXavier(SEED + 3), ctx=ctx)
+    gw, w1, w2 = (p.data()._data for p in whole.collect_params().values())
+    def own(dispatch):
+        # this rank's experts only, as DataParallelTrainer hands them over
+        blk = layer(dispatch)
+        blk.expert_w1.shape = (hi - lo, d, h)
+        blk.expert_w2.shape = (hi - lo, h, d)
+        blk.initialize(mx.init.Zero(), ctx=ctx)
+        for p, w in zip(blk.collect_params().values(),
+                        (gw, w1[lo:hi], w2[lo:hi])):
+            p.set_data(mx.nd.NDArray(w.detach(), ctx=ctx))
+        return blk
+
+    got, res["dense_ms"], res["dense_wire"] = run(own("dense"), ep_mesh)
+    cap = own("capacity")
+    got_cap, res["capacity_ms"], res["capacity_wire"] = run(cap, ep_mesh)
+    res["last_drop_fraction"] = cap.last_drop_fraction
+    del cap
+    # the host recount: each shard's tokens (N/2 each) routed by the
+    # router's argmax on the card, slots in arrival order, cap per expert
+    nloc = N // nw
+    capn = max(1, int(math.ceil(cfg["capacity_factor"] * nloc / E)))
+    keep, drops = [], []
+    with torch.no_grad():
+        for s in range(nw):
+            xs = x0[s * nloc:(s + 1) * nloc]
+            choice = torch.argmax(torch.softmax(xs @ gw, dim=-1),
+                                  dim=-1).cpu().numpy()
+            seen = np.zeros(E, np.int64)
+            k = np.zeros(nloc, bool)
+            for t, e in enumerate(choice):
+                k[t] = seen[e] < capn
+                seen[e] += 1
+            keep.append(k)
+            drops.append(1.0 - k.sum() / nloc)
+    keep = np.concatenate(keep)
+    res["host_drop_fraction"] = float(np.mean(drops))
+    res["drop_matches"] = abs(res["last_drop_fraction"] -
+                              res["host_drop_fraction"]) <= 1e-6
+    # the reference's expert gradients are whole: this rank's slice of them
+    ref, res["reference_ms"], _ = run(whole, None)
+    ref[3], ref[4] = ref[3][lo:hi], ref[4][lo:hi]
+    res["dense_rel"] = [rel(a, b) for a, b in zip(got, ref)]
+    mask = mx.nd.NDArray(torch.from_numpy(keep.astype(np.float32))[
+        :, None].to(ctx.torch_device()), ctx=ctx)
+    ref_cap, _, _ = run(whole, None, mask)
+    ref_cap[3], ref_cap[4] = ref_cap[3][lo:hi], ref_cap[4][lo:hi]
+    kept = torch.from_numpy(keep).to(ctx.torch_device())
+    res["capacity_rel"] = [
+        rel(got_cap[0][kept], ref_cap[0][kept]),
+        rel(got_cap[1][kept], ref_cap[1][kept])] + [
+        rel(a, b) for a, b in zip(got_cap[2:], ref_cap[2:])]
+    res["dropped_rows"] = int((~kept).sum())
+    res["dropped_rows_zero"] = bool(
+        (got_cap[0][~kept] == 0).all() and (got_cap[1][~kept] == 0).all())
+    res["dense_ok"] = max(res["dense_rel"]) <= PAR_MOE_REL
+    res["capacity_ok"] = max(res["capacity_rel"]) <= PAR_MOE_REL
+    del got, got_cap, ref, ref_cap, gw, w1, w2
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the trainer: the capacity layer and a classifier head, adam
+    net = mx.gluon.nn.HybridSequential(prefix="moe_net_")
+    moe = layer("capacity", whole.collect_params())
+    del whole
+    net.add(moe)
+    head = mx.gluon.nn.Dense(cfg["classes"], in_units=d, prefix="moe_head_")
+    head.initialize(HostXavier(SEED + 4), ctx=ctx)
+    net.add(head)
+    labels = mx.nd.array(np.random.RandomState(SEED).randint(
+        0, cfg["classes"], N).astype(np.float32), ctx=ctx)
+    trainer = mx.parallel.DataParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+        {"learning_rate": cfg["lr"]},
+        mesh=meshes["dp_ep"])
+    xin = mx.nd.NDArray(x0, ctx=ctx)
+    losses, step_ms, drops = [], [], []
+    for i in range(cfg["warmup"] + cfg["steps"]):
+        if i == cfg["warmup"]:
+            clock.reset()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(trainer.step(xin, labels).asscalar()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        drops.append(moe.last_drop_fraction)
+    w1 = trainer._params[moe.expert_w1.name]
+    timed = step_ms[cfg["warmup"]:]
+    res["trainer"] = dict(
+        losses=losses, step_ms=step_ms, step_ms_mean=sum(timed) / len(timed),
+        wire=clock.read(), drop_fractions=drops,
+        expert_shard_shape=list(w1.shape),
+        sharded=w1.shape[0] == E // nw,
+        # the weights every rank of "ep" holds whole (the gate, the head)
+        replicated_digest=_digest({n: v for n, v in trainer._params.items()
+                                   if n not in trainer._split}))
+    del trainer, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def par_task(mx, dist, wire, out_dir, layers, kind="dist_sync"):
+    """Phase 17 on one rank (17a-17d, in order), its meshes of ranks on
+    the wire ``kind``."""
+    import torch
+    from incubator_mxnet_tpu_torch.ops.attention import (flash_attention,
+                                                         split_f32)
+    ctx = dist.local_context()
+    nw = dist.num_workers()
+    meshes = {name: dist.worker_mesh(kvstore=kind, axes=axes) for name, axes
+              in (("sp", {"sp": nw}), ("dp_sp", {"dp": 1, "sp": nw}),
+                  ("pp", {"pp": nw}), ("ep", {"ep": nw}),
+                  ("dp_ep", {"dp": 1, "ep": nw}))}
+    clock = AxisClock(dist, torch)
+    out = {}
+    t0 = time.perf_counter()
+    out["a"] = par_collectives(mx, dist, torch, clock, meshes)
+    out["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net, x, y, out["b"] = par_lm(mx, dist, torch, clock, meshes,
+                                 int(layers), ctx)
+    out["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["c"] = par_pipeline(mx, dist, torch, clock, meshes, net, x, y, ctx)
+    out["c_s"] = time.perf_counter() - t0
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["d"] = par_moe(mx, dist, torch, clock, meshes, ctx)
+    out["d_s"] = time.perf_counter() - t0
+    out["flash_totals"] = _flash_counts(flash_attention, split_f32)
+    return out
+
+
+def par_lm_layers(torch, lm_peak, nw):
+    """17b's depth: each rank holds 4d's whole step (batch 8, bf16: its
+    peak ``lm_peak`` for 4 layers) plus DIST_LM_SLACK; the layers cut until
+    ``nw`` such ranks fit 90% of the card's free memory."""
+    free, _ = torch.cuda.mem_get_info()
+    layers = LM_CONFIG["n_layers"]
+    while True:
+        est = int(lm_peak * layers / LM_CONFIG["n_layers"]) + DIST_LM_SLACK
+        if nw * est <= 0.9 * free or layers == 1:
+            return layers, est
+        layers -= 1
+
+
+def par_report(ranks, layers, card, label=""):
+    """Phase 17's checks and lines over the ranks' results (17a-17d, or
+    17e's with ``label``); returns B1's launches in them."""
+    def chk(cond, msg):
+        check(cond, label + msg)
+
+    r0 = ranks[0]
+    # 17a
+    for r in ranks:
+        chk(all(r["a"]["checks"].values()), "17a rank %d: %s"
+            % (r["rank"], r["a"]["checks"]))
+    chk(len({r["a"]["psum_digest"] for r in ranks}) == 1,
+        "17a: the ranks' sums differ")
+    print(label + "par 17a: ring shift, all_to_all, psum and all_gather on "
+          "card tensors bit-equal to the host's answers on every rank; "
+          "rank 0 ms and bytes %s | %s" % (json.dumps(r0["a"]["ms"]), card),
+          flush=True)
+    # 17b
+    b = [r["b"] for r in ranks]
+    wl = b[0]["witness_launches"]
+    for r in b:
+        want = layers + 1 if r is b[0] else 1
+        got = r["witness_launches"]
+        chk(got["fwd"] == want and got["bwd"] == want and
+            got["bwd_torch"] == 0,
+            "17b: the witness step and the local MHA layer launched %s, "
+            "expected %d forward and backward kernels" % (got, want))
+    for r in b:
+        chk(r["mha"]["ok"], "17b: the ring MHA layer against flash: %s"
+            % r["mha"])
+        chk(r["sp_launches"]["fwd"] == 0 and r["sp_launches"]["bwd"] == 0,
+            "17b: the ring run launched flash kernels %s"
+            % r["sp_launches"])
+        chk(all(math.isfinite(v) for v in r["losses"]) and
+            r["losses"][-1] < r["losses"][0],
+            "17b: the loss did not fall: %s" % r["losses"])
+    equal = len({r["digest_after_one_step"] for r in b}) == 1
+    chk(equal, "17b: the ranks' weights differ after one step")
+    # the bound: the ring and flash round each layer's attention output to
+    # bf16 in their own ways, one MHA layer's gradients within flash's bf16
+    # bound (PAR_MHA_REL) of each other; every gradient passes through at
+    # most ``layers`` such layers
+    bound = layers * PAR_MHA_REL
+    upd = b[0]["update_gap"]
+    gap = abs(b[0]["losses"][0] - b[0]["witness_loss"])
+    chk(upd["rel_l2"] <= bound, "17b: the ring's first update of the "
+        "weights is %.3g of the witness's away from it, bound %.3g"
+        % (upd["rel_l2"], bound))
+    ring = b[0]["wire"]["ring_shift"]
+    gath = b[0]["wire"]["all_gather"]
+    print(label + "par 17b (%d layers, {dp: 1, sp: %d}, bf16): step %.3f ms, "
+          "%.1f tokens/s (each rank the whole batch); ring hops %d calls %.3f "
+          "ms %d bytes, gathers %d calls %.3f ms %d bytes in %d steps on rank "
+          "0 (staged through the host: %d, %d); losses by rank %s; first loss "
+          "%.6f against the witness's %.6f (flash, one rank, %.3f ms a step): "
+          "%.3g; the first update of the weights %.3g of the witness's from "
+          "it (norm over every weight; bound %.3g), at most %.3g of a "
+          "tensor's largest (%s); weights bit-equal after one step %s; MHA "
+          "ring vs flash relative %s (bound %g); witness launches %s; peak "
+          "memory by rank %s | %s"
+          % (layers, len(b), b[0]["step_ms_mean"], b[0]["tokens_per_s"],
+             ring["calls"], ring["ms"], ring["bytes"], gath["calls"],
+             gath["ms"], gath["bytes"], b[0]["steps"], ring["staged"],
+             gath["staged"], [["%.6f" % v for v in r["losses"]] for r in b],
+             b[0]["losses"][0], b[0]["witness_loss"], b[0]["witness_ms"],
+             gap, upd["rel_l2"], bound, upd["worst"][0], upd["worst"][1],
+             equal,
+             {k: "%.3g" % v for k, v in b[0]["mha"]["rel_errs"].items()},
+             PAR_MHA_REL, wl, [r["peak_memory_bytes"] for r in b], card),
+          flush=True)
+    # 17c
+    c = [r["c"] for r in ranks]
+    for r, rc in zip(ranks, c):
+        la = rc["launches"]
+        chk(la["f32"] == rc["expected_f32_launches"] and
+            la["bwd_torch"] == rc["expected_f32_launches"],
+            "17c rank %d: B1's f32 launches %s, expected %d forward and "
+            "%d backward through the torch ops" % (
+                r["rank"], la, rc["expected_f32_launches"],
+                rc["expected_f32_launches"]))
+        chk(all(math.isfinite(v) for v in rc["losses"]) and
+            rc["losses"][-1] < rc["losses"][0],
+            "17c: the loss did not fall: %s" % rc["losses"])
+    w = c[0]["weights_after_one_step"]
+    chk(w["within"], "17c: the pipelined step's weights against the "
+        "unpipelined step's: worst %s" % (w["worst"],))
+    chk(abs(c[0]["losses"][0] - c[0]["reference_loss"]) <=
+        1e-5 * abs(c[0]["reference_loss"]),
+        "17c: the first loss %.7f against the unpipelined %.7f"
+        % (c[0]["losses"][0], c[0]["reference_loss"]))
+    hops = c[0]["wire"]
+    print(label + "par 17c ({pp: %d}, %d stages of %d DecoderBlocks, f32, %d "
+          "microbatches of 2 x 1024): step %.3f ms, %.1f tokens/s; sends "
+          "%d calls %.3f ms %d bytes, receives %d calls %.3f ms on rank 0 "
+          "(staged %d); receive wait %.3f of the step on rank 0, %.3f on "
+          "rank 1 (the schedule's bubble %.3f); losses %s; first loss "
+          "%.7f, unpipelined %.7f (%.3f ms); weights after one step: %d "
+          "within 2^-10 of the largest update plus 2 ulps, worst %s; B1 "
+          "f32 launches by rank %s; peak memory by rank %s | %s"
+          % (c[0]["stages"], c[0]["stages"], c[0]["blocks_a_stage"],
+             PAR_PP["micro"], c[0]["step_ms_mean"], c[0]["tokens_per_s"],
+             hops["send"]["calls"], hops["send"]["ms"], hops["send"]["bytes"],
+             hops["recv"]["calls"], hops["recv"]["ms"],
+             hops["send"]["staged"], c[0]["recv_share"], c[1]["recv_share"],
+             c[0]["schedule_bubble"], ["%.6f" % v for v in c[0]["losses"]],
+             c[0]["losses"][0], c[0]["reference_loss"],
+             c[0]["reference_ms"], w["params"], w["worst"],
+             [rc["launches"] for rc in c],
+             [rc["peak_memory_bytes"] for rc in c], card), flush=True)
+    # 17d
+    d = [r["d"] for r in ranks]
+    d0 = d[0]
+    for r, rd in zip(ranks, d):
+        chk(rd["dense_ok"], "17d rank %d: dense dispatch against one rank: "
+            "%s" % (r["rank"], rd["dense_rel"]))
+        chk(rd["capacity_ok"] and rd["dropped_rows_zero"],
+            "17d rank %d: capacity dispatch against one rank: %s, dropped "
+            "rows zero %s" % (r["rank"], rd["capacity_rel"],
+                              rd["dropped_rows_zero"]))
+        chk(rd["dropped_rows"] > 0, "17d: capacity dispatch dropped no "
+            "token, so the drop path went untested")
+        chk(rd["drop_matches"], "17d: last_drop_fraction %r against the "
+            "host's recount %r" % (rd["last_drop_fraction"],
+                                   rd["host_drop_fraction"]))
+        t = rd["trainer"]
+        chk(t["sharded"] and t["losses"][-1] < t["losses"][0] and
+            all(math.isfinite(v) for v in t["losses"]),
+            "17d: the trainer: losses %s, expert shard %s"
+            % (t["losses"], t["expert_shard_shape"]))
+    chk(len({rd["trainer"]["replicated_digest"] for rd in d}) == 1,
+        "17d: the ranks' replicated weights (gate, head) differ after the "
+        "trainer's steps")
+    t = d0["trainer"]
+    print(label + "par 17d (ExpertParallelMoE(%d, %d) on (%d, %d) f32 over "
+          "{ep: %d}): dense fwd+bwd %.3f ms (psum %d bytes), capacity %.3f ms "
+          "(all_to_all %d calls %d bytes), one rank's dense %.3f ms; "
+          "relative to it on rank 0 (its experts' slice): dense %s, "
+          "capacity kept rows %s (bound %g), %d dropped rows zero %s; drop "
+          "fraction %.6f = host recount %.6f; adam over {dp: 1, ep: %d}: "
+          "step %.3f ms, losses %s, drop fractions %s, expert shard %s, "
+          "all_to_all %d bytes in %d steps, the gate and head bit-equal "
+          "across the ranks | %s"
+          % (PAR_MOE["hidden"], PAR_MOE["experts"], PAR_MOE["tokens"],
+             LM_CONFIG["d_model"], len(ranks), d0["dense_ms"],
+             d0["dense_wire"]["psum"]["bytes"], d0["capacity_ms"],
+             d0["capacity_wire"]["all_to_all"]["calls"],
+             d0["capacity_wire"]["all_to_all"]["bytes"], d0["reference_ms"],
+             ["%.3g" % v for v in d0["dense_rel"]],
+             ["%.3g" % v for v in d0["capacity_rel"]], PAR_MOE_REL,
+             d0["dropped_rows"], d0["dropped_rows_zero"],
+             d0["last_drop_fraction"],
+             d0["host_drop_fraction"], len(ranks), t["step_ms_mean"],
+             ["%.6f" % v for v in t["losses"]],
+             ["%.4f" % v for v in t["drop_fractions"]],
+             t["expert_shard_shape"], t["wire"]["all_to_all"]["bytes"],
+             PAR_MOE["steps"], card), flush=True)
+    return dict(
+        bf16_fwd=sum(r["witness_launches"]["fwd"] for r in b),
+        bf16_bwd=sum(r["witness_launches"]["bwd"] for r in b),
+        f32_fwd=sum(rc["launches"]["f32"] for rc in c),
+        f32_fwd_by_rank=[rc["launches"]["f32"] for rc in c],
+        split=sum(rc["launches"]["split"] for rc in c))
+
+
+def parallel_phase(mx, card, lm_peak):
+    """Phase 17 (17a-17e); the card's memory released first: the ranks
+    are processes of their own."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    hybrid_release(mx)
+    layers, est = par_lm_layers(torch, lm_peak, PAR_RANKS)
+    print("par: %d ranks sharing the card over gloo; 17b's LM: about %d "
+          "bytes a rank (4d's peak %d for 4 layers, batch 8) with %d bytes "
+          "free: %d of %d layers%s | %s"
+          % (PAR_RANKS, est, lm_peak, torch.cuda.mem_get_info()[0], layers,
+             LM_CONFIG["n_layers"], "" if layers == LM_CONFIG["n_layers"]
+             else " (cut to fit)", card), flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        ranks = launch_ranks("parallel", PAR_RANKS, tmp, PAR_TIMEOUT, layers,
+                             cards=1)
+    launches = par_report(ranks, layers, card)
+    out = dict(layers=layers, ranks=ranks, launches=launches)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        out["e"] = parallel_multicard(mx, card, layers)
+    else:
+        print("par 17e: not run: this machine has %d card "
+              "(torch.cuda.device_count() = %d); 17e needs 2 or more (17a-"
+              "17d with one rank a card under NCCL, and ring attention over "
+              "a one-process mesh of every card)" % (cards, cards),
+              flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    r0 = ranks[0]
+    print("par: phase 17 in %.1f s (rank 0: 17a %.1f, 17b %.1f, 17c %.1f, "
+          "17d %.1f) | %s" % (out["seconds"], r0["a_s"], r0["b_s"],
+                              r0["c_s"], r0["d_s"], card), flush=True)
+    return out
+
+
+def parallel_multicard(mx, card, layers):
+    """17e, on a machine of two cards or more: ring attention over a
+    one-process mesh of every card against flash attention on one, then
+    17a-17d with one rank a card under NCCL (dist_device_sync)."""
+    import tempfile
+    import torch
+    cards = torch.cuda.device_count()
+    mesh = mx.parallel.make_mesh({"sp": cards},
+                                 [mx.gpu(i) for i in range(cards)])
+    from incubator_mxnet_tpu_torch.parallel.ring_attention import \
+        ring_attention
+    from incubator_mxnet_tpu_torch.ops.attention import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((2, 8, 256 * cards, 128), generator=gen,
+                           device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    got = ring_attention(q, k, v, mesh, "sp", True)
+    want = flash_attention(q, k, v, True)
+    rel = float((got.float() - want.float()).abs().max() /
+                want.float().abs().max())
+    check(rel <= PAR_MHA_REL, "17e: ring over %d cards against flash: %.3g"
+          % (cards, rel))
+    print("par 17e: ring attention over a one-process mesh of %d cards "
+          "against flash on one: %.3g (bound %g) | %s"
+          % (cards, rel, PAR_MHA_REL, card), flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        ranks = launch_ranks("parallel", cards, tmp, PAR_TIMEOUT, layers,
+                             "dist_device_sync")
+    label = "17e, %d ranks, one a card, under NCCL: " % cards
+    return dict(ring_rel=rel, ranks=ranks,
+                launches=par_report(ranks, layers, card, label))
 
 
 def main():
@@ -12023,6 +12916,14 @@ def main():
     dist = dist_phase(mx, card, train["peak_memory_bytes"], train["n_params"])
     dist_launches = dist["lm"]["launches"]
 
+    # phase 17: the rest of item 7 across two ranks sharing the card: the
+    # axis collectives (17a), ring attention in the LM over {"dp": 1, "sp":
+    # 2} (17b: its witness runs kernel B1's bf16 forward and backward),
+    # PipelineTrainer over {"pp": 2} (17c: B1's f32 route in every stage),
+    # ExpertParallelMoE over {"ep": 2} (17d), 17e on 2+ cards
+    par = parallel_phase(mx, card, train["peak_memory_bytes"])
+    par_launches = par["launches"]
+
     def entry(name, source, design, launches_, err, t,
               replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -12054,6 +12955,8 @@ def main():
                                           default=str), flush=True)
     print("dist: summary " + json.dumps(dict(dist, card=card), default=str),
           flush=True)
+    print("par: summary " + json.dumps(dict(par, card=card), default=str),
+          flush=True)
     print("smoke: the whole run took %.1f s | %s"
           % (time.perf_counter() - t_run, card), flush=True)
     print(json.dumps({"kernels": [
@@ -12061,8 +12964,9 @@ def main():
               launches["flash_attention_fwd"] + sym_launches["launches"] +
               store_launches["launches"] + data_launches["launches"] +
               rnn_launches["launches"] + hybrid_launches["launches"] +
-              dist_launches["launches"],
+              dist_launches["launches"] + par_launches["bf16_fwd"],
               errs[serving], bf16,
+              parallel_ring_witness_launches=par_launches["bf16_fwd"],
               dist_trainer_launches_by_rank=[
                   r["launches"]["flash_attention_fwd"]
                   for r in dist["lm"]["ranks"]],
@@ -12090,12 +12994,14 @@ def main():
               errs[case_key(*ATTENTION_CASES[-1], "float16")], f16,
               tflops=f16["tflops"]),
         entry("flash_attention_fwd_f32", F32_SOURCE, F32_DESIGN,
-              small_launches["f32_d16"],
+              small_launches["f32_d16"] + par_launches["f32_fwd"],
               errs[case_key(*ATTENTION_CASES[-1], "float32")], f32,
               split_ms=f32["split_ms"], attention_ms=f32["attention_ms"],
-              bound_terms_ms=f32["bound_terms_ms"], hgmma=hgmma["f32"]),
+              bound_terms_ms=f32["bound_terms_ms"], hgmma=hgmma["f32"],
+              pipeline_launches_by_rank=par_launches["f32_fwd_by_rank"]),
         entry("split_f32", F32_SOURCE, "the f32 route's split pass (q, k, "
-              "v: three calls)", 3 * small_launches["f32_d16"],
+              "v: three calls)", 3 * small_launches["f32_d16"] +
+              par_launches["split"],
               split_errs[case_key(*ATTENTION_CASES[-1], "float32")],
               dict(ms=f32["split_ms"], plain_ms=split_plain_ms,
                    bound_ms=split_bound, bound_by="bytes", library_ms=None,
@@ -12133,7 +13039,8 @@ def main():
               data_launches["backward_kernel_launches"] +
               rnn_launches["backward_kernel_launches"] +
               hybrid_launches["backward_kernel_launches"] +
-              dist_launches["backward_kernel_launches"],
+              dist_launches["backward_kernel_launches"] +
+              par_launches["bf16_bwd"],
               max(backward_errs[case_key(*BACKWARD_CASES[0][:2], "bfloat16")
                                 + "_" + n] for n in ("dq", "dk", "dv")),
               backward, replaces="incubator_mxnet_tpu/ops/attention.py:168",
@@ -12151,6 +13058,7 @@ def main():
               dist_trainer_launches_by_rank=[
                   r["launches"]["flash_attention_bwd"]
                   for r in dist["lm"]["ranks"]],
+              parallel_ring_witness_launches=par_launches["bf16_bwd"],
               bulk_replay_trace_launches=dict(
                   lm_train_step=bulk_rows["flash_bwd"]),
               hybridized_replay_trace_launches=dict(

@@ -3,14 +3,14 @@
 
 ``MultiHeadAttention`` projects q/k/v (three Dense layers, or one fused
 (E, 3E) Dense), splits heads, runs ``_contrib_FlashAttention`` — the
-hand-written Hopper kernel on a CUDA context — and projects back.  Ring
-attention over a sequence-parallel mesh (``seq_axis``) is not ported yet.
+hand-written Hopper kernel on a CUDA context — and projects back.  With
+``seq_axis`` the same layer runs ring attention (``_contrib_RingAttention``,
+``parallel/ring_attention.py``) over that axis of the scoped mesh.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from ...base import MXNetError
 from ..block import HybridBlock
 from .basic_layers import Dense
 
@@ -28,9 +28,11 @@ class MultiHeadAttention(HybridBlock):
         Head count H; head dim D = E // H.
     causal : bool
         Autoregressive masking, the diagonal anchored at the end of the keys.
-    seq_axis : None
-        Must be None: ring attention is ROADMAP.md's Queue A item 7b
-        (``parallel/ring_attention.py``).
+    seq_axis : str or None
+        None: flash attention on the local device.  An axis name (``"sp"``):
+        exact ring attention with the sequence split over that axis of the
+        mesh in the enclosing ``parallel.use_mesh`` scope (a
+        ``DataParallelTrainer`` scopes its own).
     use_bias : bool
         Bias on the q/k/v/out projections.
     fused_qkv : bool
@@ -44,14 +46,10 @@ class MultiHeadAttention(HybridBlock):
         if units % num_heads:
             raise ValueError("units (%d) must be divisible by num_heads (%d)"
                              % (units, num_heads))
-        if seq_axis is not None:
-            raise MXNetError(
-                "MultiHeadAttention(seq_axis=%r): ring attention is not ported "
-                "to the PyTorch build yet; see ROADMAP.md, Queue A item 7b "
-                "(parallel/ring_attention.py)" % (seq_axis,))
         self._units = units
         self._num_heads = num_heads
         self._causal = bool(causal)
+        self._seq_axis = seq_axis
         self._fused_qkv = bool(fused_qkv)
         with self.name_scope():
             if self._fused_qkv:
@@ -100,8 +98,12 @@ class MultiHeadAttention(HybridBlock):
             k = self._split_heads(F, self.proj_k(key), B, Sk)
             v = self._split_heads(F, self.proj_v(value), B, Sk)
         scale = 1.0 / float(np.sqrt(self._units // self._num_heads))
-        out = F._contrib_FlashAttention(q, k, v, causal=self._causal,
-                                        scale=scale)
+        if self._seq_axis is None:
+            out = F._contrib_FlashAttention(q, k, v, causal=self._causal,
+                                            scale=scale)
+        else:
+            out = F._contrib_RingAttention(q, k, v, seq_axis=self._seq_axis,
+                                           causal=self._causal, scale=scale)
         out = F.transpose(out, axes=(0, 2, 1, 3))
         out = F.reshape(out, shape=(B, S, self._units))
         return self.proj_out(out)

@@ -39,12 +39,22 @@ class Parameter(object):
 
     def __init__(self, name, grad_req="write", shape=None, dtype=np.float32,
                  lr_mult=1.0, wd_mult=1.0, init=None, allow_deferred_init=False,
-                 differentiable=True, stype="default", grad_stype="default"):
+                 differentiable=True, stype="default", grad_stype="default",
+                 sharding=None):
         self._data = None   # OrderedDict[Context, NDArray]
         self._grad = None   # OrderedDict[Context, NDArray] or None
         self._ctx_list = None
         self._deferred_init = ()
         self.name = name
+        # per dimension, the mesh axis it splits over, e.g. ("tp", None):
+        # a DataParallelTrainer keeps such a parameter's master weights and
+        # optimizer state split over that axis (the JAX build's
+        # parameter.py:46-50)
+        self.sharding = tuple(sharding) if sharding is not None else None
+        # set by a layer that computes on its own shard of the parameter
+        # (ExpertParallelMoE's experts): a trainer over ranks hands it this
+        # rank's shard, not the gathered whole
+        self.shardwise = False
         self._differentiable = differentiable
         self._allow_deferred_init = allow_deferred_init
         if isinstance(shape, int):

@@ -526,3 +526,24 @@ flash_attention.backward_torch_calls = 0
 def _flash_attention_op(q, k, v, causal=False, scale=None):
     """Registered op wrapper — (B, H, S, D) inputs."""
     return flash_attention(q, k, v, causal, scale)
+
+
+@register("_contrib_RingAttention", num_inputs=3, deferrable=False,
+          aliases=("ring_attention",))
+def _ring_attention_op(q, k, v, seq_axis="sp", causal=False, scale=None):
+    """Exact attention over sequence shards (B, H, S, D): S splits over the
+    axis ``seq_axis`` of the mesh in the enclosing ``parallel.use_mesh``
+    scope, and K/V blocks travel the ring (``parallel/ring_attention.py``;
+    the JAX build's ops/attention.py:256-280).  The output and the
+    gradients are the whole (B, H, S, D) tensors, on every rank of the axis
+    over a mesh of ranks.  Not deferrable: its collectives wait on the
+    host."""
+    from ..parallel.mesh import current_mesh
+    mesh = current_mesh(required=True)
+    if seq_axis not in mesh.axis_names:
+        raise ValueError("mesh %s has no axis %r for ring attention"
+                         % (mesh.axis_names, seq_axis))
+    if q.device.type == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
+    from ..parallel.ring_attention import ring_attention
+    return ring_attention(q, k, v, mesh, seq_axis, causal, scale)

@@ -30,6 +30,19 @@ and rows, padded to the largest count, and is summed over the union of the
 ids.  The JAX build's lockstep auditor, elastic membership, flight
 recorder, heartbeat skew and knob mailbox wait for ROADMAP item 12, its
 compressed wires for item 11.
+
+A mesh of ranks may name its axes (``worker_mesh(axes={"dp": 1, "sp":
+2})``, rank r at flat position r, row-major).  :class:`RankAxis` is this
+rank's shard of one axis: its collectives run on the subgroup of the ranks
+along that axis through this rank (one subgroup for each slice along each
+named axis, made once per mesh layout, in the same order on every rank):
+``batch_isend_irecv`` for the ring shift, ``all_to_all_single``,
+``all_reduce``, ``all_gather_into_tensor``, ``send``/``recv``.  Over gloo
+the point-to-point calls (the ring shift, ``send``, ``recv``) stage a card
+tensor through a host tensor: gloo's point-to-point path reads host memory
+only.  Its ``all_to_all_single``, ``all_gather_into_tensor`` and
+``all_reduce`` take card tensors (copying them through the host
+themselves).  The staged calls are counted in ``axis_stats``.
 """
 from __future__ import annotations
 
@@ -49,7 +62,8 @@ from ..ndarray import ndarray as _nd_mod
 from .mesh import Mesh
 
 __all__ = ["init_process", "rank", "num_workers", "barrier",
-           "num_dead_nodes", "local_context", "worker_mesh", "DistKVStore"]
+           "num_dead_nodes", "local_context", "worker_mesh", "RankAxis",
+           "rank_dispatch", "DistKVStore"]
 
 _initialized = False
 _groups = {}        # "dist_sync" / "dist_device_sync" -> process group
@@ -106,9 +120,11 @@ def local_context():
     return gpu(rank() % max(torch.cuda.device_count(), 1))
 
 
-def worker_mesh(cpu=False, kvstore="dist_sync"):
-    """The process group as a 1-D ``Mesh`` with one device per rank, axis
-    ``"worker"`` (rank r's entry is :func:`local_context` of rank r); a
+def worker_mesh(cpu=False, kvstore="dist_sync", axes=None):
+    """The process group as a ``Mesh`` with one device per rank (rank r's
+    entry is :func:`local_context` of rank r, at flat position r): 1-D with
+    axis ``"worker"`` by default, else the named ``axes`` ({"dp": 1, "sp":
+    2}, row-major, their product the number of ranks).  A
     ``DataParallelTrainer`` over it keeps one replica a rank.  ``kvstore``
     names its wire as the stores do: ``"dist_sync"`` gloo,
     ``"dist_device_sync"`` NCCL for card tensors."""
@@ -116,27 +132,65 @@ def worker_mesh(cpu=False, kvstore="dist_sync"):
         raise ValueError("worker_mesh: kvstore must be 'dist_sync' or "
                          "'dist_device_sync', got %r" % (kvstore,))
     init_process()
+    n = num_workers()
+    if axes is None:
+        names, sizes = ("worker",), (n,)
+    else:
+        names = tuple(axes.keys())
+        sizes = tuple(int(v) for v in axes.values())
+        if int(np.prod(sizes)) != n:
+            raise ValueError("worker_mesh: axes %s make %d positions for %d "
+                             "ranks" % (dict(axes), int(np.prod(sizes)), n))
     cards = max(torch.cuda.device_count(), 1)
-    devs = np.empty(num_workers(), dtype=object)
-    devs[:] = [_cpu(0) if cpu else gpu(r % cards)
-               for r in range(num_workers())]
-    return Mesh(devs, ("worker",), kvstore=kvstore)
+    devs = np.empty(n, dtype=object)
+    devs[:] = [_cpu(0) if cpu else gpu(r % cards) for r in range(n)]
+    return Mesh(devs.reshape(sizes), names, kvstore=kvstore)
 
 
-def _group(kind):
+def _group(kind, ranks=None):
     """The process group of a wire, made once (a collective call: every
-    rank asks for the same wires in the same order)."""
+    rank asks for the same wires in the same order); with ``ranks``, the
+    subgroup of those ranks on that wire (every rank makes every
+    subgroup, members or not)."""
     if not _active():
         return None                         # one process: no collective
-    if kind not in _groups:
+    key = kind if ranks is None else (kind, tuple(ranks))
+    if key not in _groups:
         if kind == "dist_device_sync" and torch.cuda.is_available():
-            _check_private_cards()
-            _groups[kind] = tdist.new_group(backend="cpu:gloo,cuda:nccl")
-        elif tdist.get_backend() == "gloo":
-            _groups[kind] = None            # the default group
+            if ranks is None:
+                _check_private_cards()
+            else:
+                _group(kind)                # the cards checked once
+            _groups[key] = tdist.new_group(ranks,
+                                           backend="cpu:gloo,cuda:nccl")
+        elif ranks is None and tdist.get_backend() == "gloo":
+            _groups[key] = None             # the default group
         else:
-            _groups[kind] = tdist.new_group(backend="gloo")
-    return _groups[kind]
+            _groups[key] = tdist.new_group(ranks, backend="gloo")
+    return _groups[key]
+
+
+def _axis_groups(mesh):
+    """{(axis, position on the other axes): (subgroup, its ranks in axis
+    order)} of a mesh of ranks, every subgroup made once, in the order of
+    the axes and, along each, of the other axes' positions (row-major):
+    the same order on every rank."""
+    key = ("axes", mesh.kvstore, mesh.devices.shape, mesh.axis_names)
+    if key not in _groups:
+        shape = mesh.devices.shape
+        flat = np.arange(mesh.size).reshape(shape)
+        table = {}
+        for a, name in enumerate(mesh.axis_names):
+            other = [s for j, s in enumerate(shape) if j != a]
+            for coords in np.ndindex(*other):
+                idx = list(coords)
+                idx.insert(a, slice(None))
+                ranks = [int(r) for r in flat[tuple(idx)]]
+                group = _group(mesh.kvstore, ranks) if len(ranks) > 1 \
+                    else None
+                table[(name, tuple(coords))] = (group, ranks)
+        _groups[key] = table
+    return _groups[key]
 
 
 def _check_private_cards():
@@ -209,6 +263,260 @@ def broadcast_tensors(tensors, group=None, src=0):
         tdist.broadcast(flat, src, group=group)
     return [flat[s:s + t.numel() * t.element_size()].view(t.dtype)
             .view(t.shape).to(t.device) for s, t in zip(starts, tensors)]
+
+
+# calls of the axis collectives by kind: calls, bytes sent, and calls that
+# staged a card tensor through the host (gloo)
+axis_stats = {}
+
+
+def _count(kind, nbytes, staged):
+    st = axis_stats.setdefault(kind, {"calls": 0, "bytes": 0, "staged": 0})
+    st["calls"] += 1
+    st["bytes"] += int(nbytes)
+    st["staged"] += int(staged)
+
+
+class RankAxis(object):
+    """This rank's shard of ``axis`` of a mesh of ranks: ``index`` and
+    ``size`` along the axis, its Context, and the collectives of
+    :mod:`.mesh` on the axis's subgroup through this rank.  A body run by
+    :func:`rank_dispatch` calls them; ``all_to_all``, ``psum`` and
+    ``all_gather`` are differentiable (their backward is the matching
+    collective, every rank of the axis holding the same gradient downstream
+    of a sum or a gather), ``ring_shift`` and ``send``/``recv`` move
+    values only."""
+
+    def __init__(self, mesh, axis):
+        if axis not in mesh.axis_names:
+            raise ValueError("mesh %s has no axis %r"
+                             % (mesh.axis_names, axis))
+        a = mesh.axis_names.index(axis)
+        shape = mesh.devices.shape
+        coords = np.unravel_index(rank(), shape)
+        self.index, self.size = int(coords[a]), int(shape[a])
+        other = tuple(int(c) for j, c in enumerate(coords) if j != a)
+        self.group, self.ranks = _axis_groups(mesh)[(axis, other)]
+        self.ctx = mesh.devices.flat[rank()]
+        self.device = self.ctx.torch_device()
+        # gloo's point-to-point calls read host memory: card tensors go
+        # through a host tensor (NCCL, on dist_device_sync, takes them)
+        self._stage = not (mesh.kvstore == "dist_device_sync" and
+                           torch.cuda.is_available())
+
+    def _wire(self, t, kind, p2p=False):
+        t = t.detach().contiguous()
+        staged = p2p and self._stage and t.is_cuda
+        _count(kind, t.numel() * t.element_size(), staged)
+        return t.cpu() if staged else t
+
+    def _wire_device(self):
+        return torch.device("cpu") if self._stage else self.device
+
+    def ring_shift(self, tensors):
+        """Each rank's ``tensors`` (one tensor or a sequence) to the next
+        rank of the axis (mod size), in one ``batch_isend_irecv``: returns
+        what the previous rank held."""
+        one = isinstance(tensors, torch.Tensor)
+        ts = [tensors] if one else list(tensors)
+        if self.size == 1:
+            return tensors
+        nxt = self.ranks[(self.index + 1) % self.size]
+        prv = self.ranks[(self.index - 1) % self.size]
+        ops, bufs = [], []
+        for t in ts:
+            w = self._wire(t, "ring_shift", p2p=True)
+            b = torch.empty_like(w)
+            ops.append(tdist.P2POp(tdist.isend, w, nxt, self.group))
+            ops.append(tdist.P2POp(tdist.irecv, b, prv, self.group))
+            bufs.append(b)
+        for req in tdist.batch_isend_irecv(ops):
+            req.wait()
+        got = [b.to(t.device) for b, t in zip(bufs, ts)]
+        return got[0] if one else got
+
+    def _all_to_all(self, t, split_axis, concat_axis):
+        if self.size == 1:
+            return t
+        n = self.size
+        w = self._wire(t.movedim(split_axis, 0), "all_to_all")
+        if w.shape[0] % n:
+            raise ValueError("dimension %d of %s does not split over %d "
+                             "ranks" % (split_axis, tuple(t.shape), n))
+        out = torch.empty_like(w)
+        tdist.all_to_all_single(out, w, group=self.group)
+        pieces = [p.movedim(0, split_axis) for p in out.chunk(n, 0)]
+        return torch.cat(pieces, concat_axis)
+
+    def _psum(self, t):
+        if self.size == 1:
+            return t
+        flat = t.detach().clone(memory_format=torch.contiguous_format)
+        _count("psum", flat.numel() * flat.element_size(), False)
+        tdist.all_reduce(flat, group=self.group)
+        return flat
+
+    def _all_gather(self, t, axis):
+        if self.size == 1:
+            return t
+        w = self._wire(t.movedim(axis, 0), "all_gather")
+        out = torch.empty((self.size * w.shape[0],) + tuple(w.shape[1:]),
+                          dtype=w.dtype, device=w.device)
+        tdist.all_gather_into_tensor(out, w, group=self.group)
+        return torch.cat([p.movedim(0, axis) for p in out.chunk(self.size)],
+                         axis)
+
+    def _own(self, t, axis):
+        return t.chunk(self.size, axis)[self.index].contiguous()
+
+    def all_to_all(self, t, split_axis, concat_axis):
+        """Tiled all-to-all (``all_to_all_single``): ``t`` split evenly
+        along ``split_axis``, piece j to rank j, the pieces received
+        concatenated along ``concat_axis`` in rank order."""
+        if self.size == 1:
+            return t
+        return _AllToAll.apply(self, t, split_axis, concat_axis)
+
+    def psum(self, t):
+        """The sum over the axis (``all_reduce``)."""
+        if self.size == 1:
+            return t
+        return _Psum.apply(self, t)
+
+    def all_gather(self, t, axis=0):
+        """Every rank's ``t`` concatenated along ``axis`` in rank order."""
+        if self.size == 1:
+            return t
+        return _AllGather.apply(self, t, axis)
+
+    def send(self, t, dst):
+        """``t`` to the rank at position ``dst`` of the axis."""
+        tdist.send(self._wire(t, "send", p2p=True), self.ranks[dst],
+                   group=self.group)
+
+    def recv(self, src, shape, dtype):
+        """A tensor of ``shape`` and ``dtype`` from the rank at position
+        ``src`` of the axis, on this rank's device."""
+        buf = torch.empty(shape, dtype=dtype, device=self._wire_device())
+        _count("recv", buf.numel() * buf.element_size(), buf.device !=
+               self.device)
+        tdist.recv(buf, self.ranks[src], group=self.group)
+        return buf.to(self.device)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, t, split_axis, concat_axis):
+        ctx.ax, ctx.axes = ax, (split_axis, concat_axis)
+        return ax._all_to_all(t, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return None, ctx.ax._all_to_all(g, concat_axis, split_axis), None, \
+            None
+
+
+class _Psum(torch.autograd.Function):
+    # the sum is replicated: each rank's gradient of it is the whole one
+    @staticmethod
+    def forward(ctx, ax, t):
+        return ax._psum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _AllGather(torch.autograd.Function):
+    # the gathered value is replicated: this rank's part of its gradient
+    @staticmethod
+    def forward(ctx, ax, t, axis):
+        ctx.ax, ctx.axis = ax, axis
+        return ax._all_gather(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.ax._own(g, ctx.axis), None
+
+
+class _Replicated(torch.autograd.Function):
+    # a replicated operand enters a body: each rank's gradient is its part
+    @staticmethod
+    def forward(ctx, ax, t):
+        ctx.ax = ax
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.ax._psum(g)
+
+
+class _Scatter(torch.autograd.Function):
+    # a replicated operand enters split: the gradients' parts gathered
+    @staticmethod
+    def forward(ctx, ax, t, axis):
+        ctx.ax, ctx.axis = ax, axis
+        if t.shape[axis] % ax.size:
+            raise ValueError("dimension %d of %s does not split over %d "
+                             "ranks" % (axis, tuple(t.shape), ax.size))
+        return ax._own(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.ax._all_gather(g, ctx.axis), None
+
+
+class _GatherShards(torch.autograd.Function):
+    """A parameter kept sharded over an axis, gathered whole for a forward
+    every rank of the axis computes alike; its gradient is then the same
+    on every rank of the axis, and each keeps its own part."""
+
+    @staticmethod
+    def forward(ctx, ax, shard, axis):
+        ctx.ax, ctx.axis = ax, axis
+        return ax._all_gather(shard, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.ax._own(g, ctx.axis), None
+
+
+def gather_shards(mesh, axis, shard, dim):
+    """The whole parameter from this rank's ``shard`` (split along ``dim``
+    over ``axis``), differentiably: see :class:`_GatherShards`."""
+    return _GatherShards.apply(RankAxis(mesh, axis), shard, dim)
+
+
+def rank_dispatch(body, mesh, axis, in_specs, out_specs, *arrays):
+    """``body(ax, *shards)`` on this rank's shard of ``axis``
+    (:func:`.mesh.dispatch_on_mesh` over a mesh of ranks): a replicated
+    operand enters whole (its gradient summed over the axis), a sharded
+    one as this rank's part (its gradient gathered), a ``"local"`` one as
+    given; a result with an int spec is gathered along it, with ``"sum"``
+    summed over the axis."""
+    ax = RankAxis(mesh, axis)
+    args = []
+    for a, spec in zip(arrays, in_specs):
+        if a is None or spec == "local":
+            args.append(a)
+        elif spec is None:
+            args.append(_Replicated.apply(ax, a) if a.requires_grad and
+                        torch.is_grad_enabled() and ax.size > 1 else a)
+        else:
+            args.append(_Scatter.apply(ax, a, spec))
+    outs = body(ax, *args)
+
+    def leave(o, spec):
+        if spec is None or spec == "local":
+            return o
+        if spec == "sum":
+            return ax.psum(o)
+        return ax.all_gather(o, spec)
+
+    if not isinstance(out_specs, (tuple, list)):
+        return leave(outs, out_specs)
+    return tuple(leave(o, s) for o, s in zip(outs, out_specs))
 
 
 _ps_counter = [0]   # the n-th dist_async store of every rank meets the n-th

@@ -392,6 +392,191 @@ def test_two_process_training_surfaces_match_jax(tmp_path):
     assert ranks[0]["dpt_losses"][-1] < ranks[0]["dpt_losses"][0]
 
 
+# -- ring attention, experts and the pipeline over ranks ---------------------
+
+_PARALLEL_WORKER = """
+    import importlib
+    import sys
+    import numpy as np
+    import torch
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.parallel import dist
+    ring = importlib.import_module(
+        "incubator_mxnet_tpu_torch.parallel.ring_attention")
+    moe = importlib.import_module("incubator_mxnet_tpu_torch.parallel.moe")
+    pipe = importlib.import_module(
+        "incubator_mxnet_tpu_torch.parallel.pipeline")
+    TP_NAMES = ("tw0", "tb0", "tw1", "tb1")
+    dist.init_process()
+    r = dist.rank()
+    d = dict(np.load("inputs.npz"))
+    t = {k: torch.tensor(v) for k, v in d.items()}
+    out = {}
+    sp = dist.worker_mesh(cpu=True, axes={"dp": 1, "sp": 2})
+    for causal in (0, 1):
+        q, k, v = (t[n].clone().requires_grad_() for n in "qkv")
+        o = ring.ring_attention(q, k, v, sp, "sp", bool(causal))
+        grads = torch.autograd.grad(o, (q, k, v), t["g"])
+        out["ring%d_out" % causal] = o.detach()
+        for n, gr in zip("qkv", grads):
+            out["ring%d_d%s" % (causal, n)] = gr
+    ep = dist.worker_mesh(cpu=True, axes={"ep": 2})
+    args = [t[n].clone().requires_grad_() for n in ("x", "gw", "w1", "w2")]
+    o, drops, aux = moe.switch_moe_apply(*args, ep, "ep", 0.5)
+    grads = torch.autograd.grad((o * o).sum(), args)
+    out["cap_out"], out["cap_drops"] = o.detach(), drops.detach()
+    for n, gr in zip(("x", "gw", "w1", "w2"), grads):
+        out["cap_d" + n] = gr
+    with mx.cpu():
+        blk = moe.ExpertParallelMoE(10, 4, prefix="m_")
+        blk._pre_infer(torch.zeros((1, 6)))
+        blk.initialize()
+        for p, n in zip(blk.collect_params().values(), ("gw", "w1", "w2")):
+            p.set_data(mx.nd.array(d[n]))
+        x = mx.nd.array(d["x"])
+        x.attach_grad()
+        with mx.parallel.use_mesh(ep), mx.autograd.record():
+            o = blk(x)
+            loss = (o * o).sum()
+        loss.backward()
+    out["dense_out"], out["dense_dx"] = o._data.detach(), x.grad._data
+    for p, n in zip(blk.collect_params().values(), ("gw", "w1", "w2")):
+        out["dense_d" + n] = p.grad()._data
+    pp = dist.worker_mesh(cpu=True, axes={"pp": 2})
+    loss, grads = pipe.pipeline_train_step(
+        lambda p, a: torch.tanh(a @ p["W"] + p["b"]),
+        {"W": t["W"], "b": t["b"]}, t["px"], t["py"],
+        lambda o, y: ((o - y) ** 2).sum(-1), pp, num_microbatches=4)
+    out["pp_loss"], out["pp_dW"], out["pp_db"] = loss, grads["W"], grads["b"]
+    tp = dist.worker_mesh(cpu=True, axes={"dp": 1, "tp": 2})
+    with mx.cpu():
+        net = mx.gluon.nn.HybridSequential(prefix="t_")
+        net.add(mx.gluon.nn.Dense(8, in_units=6, activation="tanh"),
+                mx.gluon.nn.Dense(3, in_units=8))
+        net.initialize()
+        for p, n in zip(net.collect_params().values(), TP_NAMES):
+            p.set_data(mx.nd.array(d[n]))
+        net[0].weight.sharding = ("tp", None)
+        tr = mx.parallel.DataParallelTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": 0.5}, mesh=tp)
+        for _ in range(2):
+            out["tp_loss"] = tr.step(mx.nd.array(d["tx"]),
+                                     mx.nd.array(d["ty"]))._data
+        tr.sync_params()
+    for p, n in zip(net.collect_params().values(), TP_NAMES):
+        out["tp_" + n] = p.data()._data.detach()
+    np.savez("rank%d.npz" % r, **{k: v.numpy() for k, v in out.items()})
+    print("WORKER %d PARALLEL OK" % r, flush=True)
+"""
+
+
+def _parallel_inputs():
+    rs = np.random.RandomState(17)
+    f = lambda *s: rs.randn(*s).astype(np.float32)     # noqa: E731
+    return dict(q=f(1, 2, 16, 8), k=f(1, 2, 16, 8), v=f(1, 2, 16, 8),
+                g=f(1, 2, 16, 8), x=f(16, 6), gw=f(6, 4),
+                w1=f(4, 6, 10) * 0.3, w2=f(4, 10, 6) * 0.3,
+                W=f(2, 8, 8) * 0.4, b=f(2, 8) * 0.1, px=f(8, 8), py=f(8, 8),
+                tw0=f(8, 6) * 0.5, tb0=f(8) * 0.1, tw1=f(3, 8) * 0.5,
+                tb1=f(3) * 0.1, tx=f(8, 6),
+                ty=rs.randint(0, 3, 8).astype(np.float32))
+
+
+def _parallel_references(d):
+    """The same functions without a mesh: autograd through the plain
+    attention, the JAX build's capacity dispatch on its own mesh, the
+    dense mixture on one device, the unpipelined stage chain."""
+    import jax
+    from incubator_mxnet_tpu.parallel import make_mesh as jax_mesh
+    from incubator_mxnet_tpu.parallel.moe import switch_moe_apply
+    from incubator_mxnet_tpu_torch.ops.attention import _attention_reference
+    from incubator_mxnet_tpu_torch.parallel import moe as tmoe
+    t = {k: torch.tensor(v) for k, v in d.items()}
+    ref = {}
+    for causal in (0, 1):
+        q, k, v = (t[n].clone().requires_grad_() for n in "qkv")
+        o = _attention_reference(q, k, v, bool(causal))
+        grads = torch.autograd.grad(o, (q, k, v), t["g"])
+        ref["ring%d_out" % causal] = o.detach().numpy()
+        for n, gr in zip("qkv", grads):
+            ref["ring%d_d%s" % (causal, n)] = gr.numpy()
+    mesh = jax_mesh({"ep": 2}, jax.devices("cpu")[:2])
+    (o, drops, aux), vjp = jax.vjp(
+        lambda *a: switch_moe_apply(*a, mesh, "ep", 0.5),
+        *[jnp.asarray(d[n]) for n in ("x", "gw", "w1", "w2")])
+    grads = vjp((2 * o, jnp.zeros_like(drops), jnp.zeros_like(aux)))
+    ref["cap_out"], ref["cap_drops"] = np.asarray(o), np.asarray(drops)
+    for n, gr in zip(("x", "gw", "w1", "w2"), grads):
+        ref["cap_d" + n] = np.asarray(gr)
+    args = [t[n].clone().requires_grad_() for n in ("x", "gw", "w1", "w2")]
+    probs = torch.softmax(args[0] @ args[1], -1)
+    combine = probs * tmoe._one_hot(probs.argmax(-1), 4, probs.dtype)
+    o = tmoe._dense_body(None, args[0], combine, args[2], args[3])
+    grads = torch.autograd.grad((o * o).sum(), args)
+    ref["dense_out"] = o.detach().numpy()
+    for n, gr in zip(("dx", "dgw", "dw1", "dw2"), grads):
+        ref["dense_" + n] = gr.numpy()
+    W, b = t["W"].clone().requires_grad_(), t["b"].clone().requires_grad_()
+    a = t["px"]
+    for i in range(2):
+        a = torch.tanh(a @ W[i] + b[i])
+    loss = ((a - t["py"]) ** 2).sum(-1).mean()
+    loss.backward()
+    ref["pp_loss"] = loss.detach().numpy()
+    ref["pp_dW"], ref["pp_db"] = W.grad.numpy(), b.grad.numpy()
+    names = ("tw0", "tb0", "tw1", "tb1")
+    net = tmx.gluon.nn.HybridSequential(prefix="t_")
+    net.add(tmx.gluon.nn.Dense(8, in_units=6, activation="tanh"),
+            tmx.gluon.nn.Dense(3, in_units=8))
+    net.initialize(ctx=tmx.cpu())
+    for p, n in zip(net.collect_params().values(), names):
+        p.set_data(tmx.nd.array(d[n], ctx=tmx.cpu()))
+    tr = tmx.parallel.DataParallelTrainer(
+        net, tmx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": 0.5})
+    for _ in range(2):
+        ref["tp_loss"] = tr.step(tmx.nd.array(d["tx"], ctx=tmx.cpu()),
+                                 tmx.nd.array(d["ty"], ctx=tmx.cpu())
+                                 ).asnumpy()
+    tr.sync_params()
+    for p, n in zip(net.collect_params().values(), names):
+        ref["tp_" + n] = p.data().asnumpy()
+    return ref
+
+
+def test_two_process_ring_moe_pipeline(tmp_path):
+    """The rank backend (``dist.RankAxis``) of the three modules over two
+    ranks: ring attention over {"dp": 1, "sp": 2} with its gradients,
+    capacity and dense expert dispatch over {"ep": 2} with theirs, a GPipe
+    training pass over {"pp": 2}, two DataParallelTrainer steps with a
+    weight split over "tp" of {"dp": 1, "tp": 2}; the ranks bit-equal, and
+    against references computed here without a mesh: ring outputs rtol
+    2e-4 (atol 2e-5), ring gradients rtol 1e-3 (atol 1e-4), the rest 1e-5
+    of the largest value, the capacity drops exact."""
+    d = _parallel_inputs()
+    np.savez(tmp_path / "inputs.npz", **d)
+    out = launch(tmp_path, _PARALLEL_WORKER)
+    for r in (0, 1):
+        assert "WORKER %d PARALLEL OK" % r in out, out[-3000:]
+    ranks = [dict(np.load(tmp_path / ("rank%d.npz" % r))) for r in (0, 1)]
+    for k in ranks[0]:
+        assert ranks[0][k].tobytes() == ranks[1][k].tobytes(), k
+    ref = _parallel_references(d)
+    assert set(ref) == set(ranks[0])
+    for k, want in ref.items():
+        got = ranks[0][k]
+        if k == "cap_drops":
+            assert np.array_equal(got, want)
+        elif k.startswith("ring"):
+            tol = dict(rtol=2e-4, atol=2e-5) if k.endswith("out") else \
+                dict(rtol=1e-3, atol=1e-4)
+            np.testing.assert_allclose(got, want, err_msg=k, **tol)
+        else:
+            err = np.abs(got - want).max() / np.abs(want).max()
+            assert err <= REL, (k, err)
+
+
 # -- one process: the parameter service, and rank 0 of 1 --------------------
 
 def test_parameter_service_matches_jax(monkeypatch):

@@ -91,8 +91,14 @@ def test_embedding_clamps_out_of_range_ids():
 
 
 def test_seq_axis_raises():
-    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-        tmx.gluon.nn.MultiHeadAttention(16, 4, seq_axis="sp")
+    """MultiHeadAttention(seq_axis=...) needs a mesh in scope (the JAX
+    build's test_ring_attention_requires_mesh)."""
+    blk = tmx.gluon.nn.MultiHeadAttention(16, 4, seq_axis="sp")
+    blk.initialize(ctx=tmx.cpu())
+    x = tmx.nd.array(np.random.rand(1, 4, 16).astype(np.float32),
+                     ctx=tmx.cpu())
+    with pytest.raises(RuntimeError, match="no device mesh"):
+        blk(x)
 
 
 def test_load_numpy_params_checks():

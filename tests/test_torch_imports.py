@@ -55,6 +55,13 @@ def test_port_imports_with_jax_blocked():
             "from incubator_mxnet_tpu_torch.ops import optimizer_ops\n"
             "from incubator_mxnet_tpu_torch import optimizer, parallel\n"
             "from incubator_mxnet_tpu_torch.parallel import dist, ps, mesh\n"
+            "from incubator_mxnet_tpu_torch.parallel import moe, pipeline\n"
+            "import incubator_mxnet_tpu_torch.parallel.ring_attention\n"
+            "import torch\n"
+            "q = torch.ones((1, 1, 4, 2))\n"
+            "sp = parallel.make_mesh({'sp': 2}, [mx.cpu(0), mx.cpu(1)])\n"
+            "assert parallel.ring_attention(q, q, q, sp).shape == q.shape\n"
+            "assert parallel.ExpertParallelMoE and parallel.PipelineTrainer\n"
             "from incubator_mxnet_tpu_torch.gluon import loss, trainer\n"
             "from incubator_mxnet_tpu_torch import serving, telemetry\n"
             "from incubator_mxnet_tpu_torch.serving import __main__ as cli\n"

@@ -227,11 +227,30 @@ def test_data_parallel_trainer_replicas_and_mesh_axes():
                                reps[1].opt_state[n][0])
         with pytest.raises(ValueError, match="split evenly"):
             tr.step(x[:5], tmx.nd.zeros(5))
+        # a {"dp": 1, "tp": 2} mesh: the first layer's weight split over
+        # "tp" trains as the replicated one does
         tp = tmx.parallel.make_mesh({"dp": 1, "tp": 2},
                                     [tmx.cpu(0), tmx.cpu(1)])
-        with pytest.raises(tmx.MXNetError, match="item 7b"):
-            tmx.parallel.DataParallelTrainer(
-                net, tmx.gluon.loss.SoftmaxCrossEntropyLoss(), mesh=tp)
+        y = tmx.nd.array(np.arange(6) % 3)
+        runs = []
+        for split in (False, True):
+            tnet = _dense_net(tmx, "dpt%d_" % split)
+            tnet.initialize()
+            for a, b in zip(net.collect_params().values(),
+                            tnet.collect_params().values()):
+                b.set_data(a.data())
+            w = list(tnet.collect_params().values())[0]
+            if split:
+                w.sharding = ("tp",) + (None,) * (len(w.shape) - 1)
+            ttr = tmx.parallel.DataParallelTrainer(
+                tnet, tmx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                {"learning_rate": 0.1}, mesh=tp)
+            runs.append([float(ttr.step(x, y).asscalar())
+                         for _ in range(3)])
+            if split:
+                shards = ttr._params[w.name]
+                assert isinstance(shards, tuple) and len(shards) == 2
+        close(runs[1], runs[0])
         assert tmx.parallel.data_parallel_mesh().shape == {"dp": 1}
     two = tmx.parallel.data_parallel_mesh(
         devices=[tmx.cpu(0), tmx.cpu(1), tmx.cpu(2)], num_devices=2)

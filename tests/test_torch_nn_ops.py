@@ -307,8 +307,7 @@ LATER_NAMES = {
     "gluon.nn": {"SymbolBlock": 5},
     "optimizer": {"fused_bucket_kind": 12, "fused_bucket_update": 12,
                   "fused_lr_wd": 12, "fused_state_arity": 12},
-    "nd.contrib": {"RingAttention": 7,
-                   "DeformableConvolution": 9, "DeformablePSROIPooling": 9,
+    "nd.contrib": {"DeformableConvolution": 9, "DeformablePSROIPooling": 9,
                    "MultiProposal": 9, "PSROIPooling": 9, "Proposal": 9,
                    "ROIAlign": 9, "dequantize": 11, "quantize": 11,
                    "quantized_act": 11, "quantized_conv": 11,
