@@ -18,7 +18,9 @@ then run them hybridized, then train BASELINE config 5 (sparse linear
 classification) at 1,000,000 features through sparse arrays and the store,
 then train BASELINE config 2 and the LM across ranks through the dist
 stores and DataParallelTrainer, and BASELINE config 1 over several
-contexts in one process.
+contexts in one process, then ring attention, pipeline and expert
+parallelism across two ranks, then Faster R-CNN, R-FCN's deformable head,
+FlowNetC's correlation and the samplers, and a calibrated INT8 ResNet-50.
 
 Run from the root of a checkout, with one CUDA card and the CUDA toolkit:
 
@@ -303,11 +305,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              prefetch reader, one pipeline with ctx=gpu(0) and ctx=cpu(0)
              bit-equal, imdecode's MXNetError naming OpenCV where cv2 is
              absent; 12b train_imagenet.py's record path (:80-101) over
-             2,560 raw 224² records: one epoch drained with no model, the
+             1,280 raw 224² records: one epoch drained with no model, the
              first batch's loss through ResNet-50 bit-equal to NDArrayIter's,
-             then fit_gluon (10c's wiring) for 10 steps fed by it: step ms,
+             then fit_gluon (10c's wiring) for 5 steps fed by it: step ms,
              img/s, the share of a step in next(), the copy's ms, beside
-             10c's synthetic step; 12c the augmenting pipeline over 1,024
+             10c's synthetic step; 12c the augmenting pipeline over 512
              raw 256² records (crop, flip, jitter, lighting, normalize) at
              preprocess_threads 1, 4 and 8 against 6c's step; 12d gluon.data
              (RandomResizedCrop, flip, ToTensor, Normalize) through a
@@ -381,11 +383,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              all-reduce; 16b BASELINE config 2 (train_imagenet.py's
              ResNet-50 v1, f32, global batch 256 as 2 x 128) through
              Module.fit(kvstore="dist_sync") and a hybridized
-             gluon.Trainer(kvstore="dist_sync"), one warm-up and 3 timed
-             steps: step ms, img/s, the all-reduce's ms and bytes, peak
+             gluon.Trainer(kvstore="dist_sync"), one warm-up and 1 timed
+             step: step ms, img/s, the all-reduce's ms and bytes, peak
              memory a rank, the ranks' weights bit-equal, and the Module's
              within a measured bound of a one-process run of the same two
-             halves; 16c the full-width LM (2 of its 4 layers) as 2 ranks
+             halves; 16c the full-width LM (1 of its 4 layers) as 2 ranks
              x 4 x 1024 tokens through DataParallelTrainer over
              worker_mesh() (bf16): step
              ms, tokens/s, the all-reduce's ms and bytes, B1's forward and
@@ -400,8 +402,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              ranks sharing the card over gloo (``parallel_phase``, one
              launch of ``par_task``): 17a the axis collectives on card
              tensors bit-equal to the host's answers; 17b the full-width
-             LM with every attention on "sp" through DataParallelTrainer
-             over {"dp": 1, "sp": 2} (bf16), the ranks bit-equal, its
+             LM (2 of its 4 layers) with every attention on "sp" through
+             DataParallelTrainer over {"dp": 1, "sp": 2} (bf16), the
+             ranks bit-equal, its
              first update of the weights against a flash witness's, one
              MHA layer against flash; 17c PipelineTrainer over {"pp": 2}
              (B1's f32 route in every stage) against the unpipelined
@@ -410,10 +413,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              rank's dense layer, tokens dropped as a host recount says,
              then adam over {"dp": 1, "ep": 2}; 17e (two cards or more)
              the same under NCCL, else a line saying why not;
-18. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
+18. det   — the detection, sampling and INT8 ops (no hand kernel;
+             ``detection_phase``): 18a Faster R-CNN (ResNet-50-C4, the
+             RPN, MultiProposal at proposal.cc's defaults, ROIPooling then
+             ROIAlign at 14 x 14, res5 and the heads) on two 600 x 1000
+             images, f32: request, Proposal and ROI-op ms, peak memory;
+             the trunk and RPN within 1e-4 of the CPU, Proposal on the
+             card's RPN outputs bit for bit the CPU's, the head and d feat
+             through each ROI op on 32 ROIs within 1e-4; 18b R-FCN: a
+             deformable convolution (512 filters, dilate 2, 4 groups) on
+             (2, 512, 38, 63), PSROIPooling and DeformablePSROIPooling
+             (21 x 7 x 7) over 18a's ROIs, forward and backward within
+             1e-4 / 1e-5 of the CPU; 18c Correlation at FlowNetC's width
+             (441 channels), the warp sampler, a SpatialTransformer on (32,
+             3, 224, 224) and Crop, each within 1e-5 of the CPU; 18d
+             ResNet-50 v1 folded and calibrated (naive, entropy) into one
+             int8 chain on the card: its census, top-1 agreement with f32,
+             ms a batch of 32 in f32, bf16 and int8, every int8 and int32
+             intermediate of a batch bit for bit the CPU's;
+19. one JSON ``kernels`` line (the hand kernels of phases 2-5, and the
    launches of B1 in 9c, 10d, 11, 12e, 13f, 14d, 16c, 17b and 17c; phases
-   6-8 and 15 launch none), the whole run's seconds, then the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+   6-8, 15 and 18 launch none), each phase's seconds and the whole run's,
+   then the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -1278,17 +1300,31 @@ def profile_device(run, what, kernel_groups, gemm_flops, card):
         print("profile:   %10.1f us  %3d x  %s" % (us, n, name[:110]))
 
 
+_SASS_LISTINGS = {}
+
+
+def sass_listing(lib):
+    """``cuobjdump -sass`` of the library, run once a library (~12 s for
+    flash_attention's; phase 2 counts ten routes in it)."""
+    key = str(lib)
+    if key not in _SASS_LISTINGS:
+        tool = shutil.which("cuobjdump") or os.path.join(
+            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+            "cuobjdump")
+        out = subprocess.run([tool, "-sass", key], capture_output=True,
+                             text=True, timeout=120)
+        check(out.returncode == 0, "cuobjdump failed: " +
+              out.stderr.strip())
+        _SASS_LISTINGS[key] = out.stdout
+    return _SASS_LISTINGS[key]
+
+
 def sass_count(lib, opcode, function=""):
     """How many SASS instructions of ``opcode`` the library's device code
     holds (cuobjdump -sass), in the functions whose (mangled) name contains
     ``function``."""
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=120)
-    check(out.returncode == 0, "cuobjdump failed: " + out.stderr.strip())
     count, inside = 0, not function
-    for line in out.stdout.splitlines():
+    for line in sass_listing(lib).splitlines():
         if line.strip().startswith("Function :"):
             inside = function in line
         elif inside and re.search(r"\b%s\b" % opcode, line):
@@ -5642,7 +5678,7 @@ def kv_on_card(mx, card, shape=None):
     raised = {}
     for what, call, item in (
             ("set_gradient_compression", lambda: kv.set_gradient_compression(
-                {"type": "2bit"}), "item 11"),):
+                {"type": "2bit"}), "item 12"),):
         try:
             call()
             message = None
@@ -7254,10 +7290,11 @@ def bulk_phase(mx, card):
 # feeding the card: train_imagenet.py's record path into ResNet-50 and a
 # DataLoader into the LM
 # ---------------------------------------------------------------------------
-# train_imagenet.py's record path (:80-101): 10 batches of 256 raw 224²
-# records; the augmenting pipeline over 256² records cropped to 224²
-DATA_RECORDS = 2560
-DATA_AUG_RECORDS, DATA_AUG_RAW, DATA_AUG_BATCH = 1024, (3, 256, 256), 128
+# train_imagenet.py's record path (:80-101): 5 batches of 256 raw 224²
+# records (10 until the smoke's time was cut for phase 18); the augmenting
+# pipeline over 512 256² records cropped to 224² (1024 until then)
+DATA_RECORDS = 1280
+DATA_AUG_RECORDS, DATA_AUG_RAW, DATA_AUG_BATCH = 512, (3, 256, 256), 128
 DATA_THREADS = (1, 4, 8)
 DATA_READERS = 4            # preprocess_threads and prefetch_buffer of 12b
 # 12d: gluon.data at ImageNet's widths
@@ -7528,7 +7565,7 @@ def record_pipeline(mx, card, tmp, c10):
     224² records; one epoch drained with no model; the first batch's loss
     through ResNet-50 v1 bit-equal to the same batch's through
     ``NDArrayIter``; then ``fit_gluon`` (10c's wiring, a ``"device"``
-    store) for one epoch of 10 steps fed by it, the batches copied to the
+    store) for one epoch of 5 steps fed by it, the batches copied to the
     card: step ms, img/s, the share of each step in ``next()``, the copy's
     ms, beside 10c's synthetic step (``c10``) measured in this run."""
     import torch
@@ -10719,14 +10756,16 @@ def sparse_phase(mx, card):
 DIST_RANKS = 2
 DIST_BIG = 1 << 24              # f32 elements of 16a's reduces
 # 16b: train_imagenet.py's ResNet-50 v1, f32, global batch 256 as 2 x 128,
-# one warm-up step and 3 timed, Module.fit then a hybridized gluon.Trainer
-DIST_RESNET = dict(batch=128, warmup=1, steps=3, classes=1000, lr=0.05,
+# one warm-up step and 1 timed (3 until the smoke's time was cut for phase
+# 18), Module.fit then a hybridized gluon.Trainer
+DIST_RESNET = dict(batch=128, warmup=1, steps=1, classes=1000, lr=0.05,
                    momentum=0.9, wd=1e-4, image=224)
 # 16c: bench_transformer.py:64-70's LM at full width, global batch 8 as 2 x
-# 4, one warm-up step and 3 timed (4d's optimizer and dtype); its depth cut
-# to 2 of the 4 layers for the smoke's time (17b trains all 4 across the
-# ranks; the gradient all-reduce is the same path at either depth)
-DIST_LM = dict(batch=4, warmup=1, steps=3, layers=2)
+# 4, one warm-up step and 1 timed (4d's optimizer and dtype); its depth cut
+# to 1 of the 4 layers and 1 timed step for the smoke's time (2 layers and
+# 3 steps until phase 18; 17b trains 2 across the ranks; the gradient
+# all-reduce is the same path at any depth)
+DIST_LM = dict(batch=4, warmup=1, steps=1, layers=1)
 # what a 16c rank holds beyond dist_lm_layers' model of it (workspaces,
 # the loss's f32 logits): 24.33 GB measured against 22.41 GB modelled
 DIST_LM_SLACK = 2 << 30
@@ -11595,11 +11634,13 @@ PAR_TIMEOUT = 480
 PAR_COLLECTIVES = dict(ring=(8, 32, 512, 128), a2a=(4, 1280, 4096),
                        psum=(1 << 24,), gather=(8, 32, 512, 128))
 # 17b: the LM's 8 x 1024 tokens on every rank of {"dp": 1, "sp": 2}
-# (the batch splits over "dp" only), 4d's optimizer, bf16
-PAR_LM = dict(batch=8, warmup=1, steps=3)
+# (the batch splits over "dp" only), 4d's optimizer, bf16; 2 timed steps
+# and 2 of the LM's 4 layers (3 steps and 4 layers until the smoke's time
+# was cut for phase 18; the ring is the same path at either depth)
+PAR_LM = dict(batch=8, warmup=1, steps=2, layers=2)
 # 17c: 2 stages of 2 DecoderBlocks, f32 (the JAX trainer's only dtype), 4
-# microbatches of 2 x 1024
-PAR_PP = dict(batch=8, micro=4, warmup=1, steps=3, lr=0.05)
+# microbatches of 2 x 1024, 1 timed step (3 until phase 18)
+PAR_PP = dict(batch=8, micro=4, warmup=1, steps=1, lr=0.05)
 # 17d: the LM's FFN widths over 4 experts, 8192 tokens of d_model, f32
 # tokens; every token shares a seeded direction of norm ``skew`` (a token's
 # own norm is ~64), so the router sends ~43% of them to one expert against
@@ -12209,10 +12250,11 @@ def par_task(mx, dist, wire, out_dir, layers, kind="dist_sync"):
 
 def par_lm_layers(torch, lm_peak, nw):
     """17b's depth: each rank holds 4d's whole step (batch 8, bf16: its
-    peak ``lm_peak`` for 4 layers) plus DIST_LM_SLACK; the layers cut until
-    ``nw`` such ranks fit 90% of the card's free memory."""
+    peak ``lm_peak`` for 4 layers) plus DIST_LM_SLACK; PAR_LM['layers'],
+    cut further until ``nw`` such ranks fit 90% of the card's free
+    memory."""
     free, _ = torch.cuda.mem_get_info()
-    layers = LM_CONFIG["n_layers"]
+    layers = PAR_LM["layers"]
     while True:
         est = int(lm_peak * layers / LM_CONFIG["n_layers"]) + DIST_LM_SLACK
         if nw * est <= 0.9 * free or layers == 1:
@@ -12396,7 +12438,7 @@ def parallel_phase(mx, card, lm_peak):
           "bytes a rank (4d's peak %d for 4 layers, batch 8) with %d bytes "
           "free: %d of %d layers%s | %s"
           % (PAR_RANKS, est, lm_peak, torch.cuda.mem_get_info()[0], layers,
-             LM_CONFIG["n_layers"], "" if layers == LM_CONFIG["n_layers"]
+             LM_CONFIG["n_layers"], "" if layers == PAR_LM["layers"]
              else " (cut to fit)", card), flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
         ranks = launch_ranks("parallel", PAR_RANKS, tmp, PAR_TIMEOUT, layers,
@@ -12453,9 +12495,767 @@ def parallel_multicard(mx, card, layers):
                 launches=par_report(ranks, layers, card, label))
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the rest of the op registry (ROADMAP items 9b and 11a): the
+# detection and sampling ops (ops/vision.py) and INT8 quantized inference
+# (ops/quantization.py, contrib/quantization.py).  No hand kernel on this
+# path: the JAX build reaches no Pallas kernel here either.
+# ---------------------------------------------------------------------------
+
+# 18a: MXNet's example/rcnn Faster R-CNN (ResNet-50-C4): two 600 x 1000
+# images, f32, TF32 off; the RPN's anchors are proposal.cc's defaults
+DET = dict(batch=2, image=(600, 1000), rpn_mid=512, anchors=12, pooled=14,
+           scale=1.0 / 16, classes=21, sample_ratio=2, requests=4,
+           cpu_rois=16)
+# 18b: Deformable ConvNets' R-FCN head at R-FCN's 7 x 7 bins, 21 VOC classes
+RFCN = dict(channels=512, filters=512, dilate=2, groups=4, bins=7,
+            part=7, samples=4, trans_std=0.1)
+# 18c: FlowNetC's correlation; a spatial transformer on ImageNet images
+FLOW = dict(shape=(8, 256, 48, 64), displacement=20, stride2=2, pad=20,
+            cpu_batch=1)
+STN = dict(shape=(32, 3, 224, 224), target=(224, 224), cpu_batch=4)
+# 18d: example/quantization/imagenet_inference.py's path: ResNet-50 v1 at
+# batch 32, 4 calibration batches of 8, 2 held-out batches
+QUANT = dict(batch=32, image=224, calib_batches=4, calib_batch=8,
+             held_out=2, reps=5, classes=1000, bn_passes=40)
+# card against the port on the CPU, in f32 with TF32 off: the same
+# operations summed in other orders (cuDNN's convolutions, cuBLAS's and
+# MKL's products, CUDA's and the CPU's reductions and scatter-adds), a few
+# ulps an op, carried through stage 3 of ResNet-50: 1e-4 of the largest
+# magnitude (ZOO_REL's bound for whole nets); the sampling ops' gathers and
+# channel means: 1e-5.  Proposal on the same RPN outputs, and every int8
+# and int32 code: bit for bit.
+DET_REL = 1e-4
+SAMPLE_REL = 1e-5
+# d feat through the whole head (res5's relus, then the ROI op): an input
+# that moves by an ulp flips relu's derivative where a value sits at 0, so
+# gradients through a ResNet stage are held as phase 6 holds its updates,
+# by relative L2 distance (the JAX build's own gradients move by 2-2.5%
+# when their input moves by one ulp, tests/test_torch_resnet.py); the ROI
+# op's own backward, from the card's d pooled, is held to SAMPLE_REL
+HEAD_GRAD_REL = 0.1
+
+
+def _max_rel(got, want):
+    """max |got - want| over max |want| (numpy)."""
+    return float(np.abs(got.astype(np.float64) - want).max() /
+                 max(float(np.abs(want).max()), 1e-30))
+
+
+def _seeded_rpn(np, rs, c, mid, n_a):
+    return dict(conv=(rs.standard_normal((mid, c, 3, 3)) *
+                      math.sqrt(2.0 / (c * 9))).astype(np.float32),
+                conv_b=np.zeros(mid, np.float32),
+                cls=(rs.standard_normal((2 * n_a, mid, 1, 1)) * 0.01)
+                .astype(np.float32),
+                cls_b=np.zeros(2 * n_a, np.float32),
+                box=(rs.standard_normal((4 * n_a, mid, 1, 1)) * 0.01)
+                .astype(np.float32),
+                box_b=np.zeros(4 * n_a, np.float32))
+
+
+def _rcnn_nets(mx, np, ctx, rs_seed=SEED, rpn_scale=1.0):
+    """resnet50_v1 with seeded numpy weights (He-scaled, BatchNorm's
+    statistics drawn away from their init) loaded through
+    ``convert.load_numpy_params`` on ``ctx``, the RPN's weights (its 3 x 3
+    convolution's scaled by ``rpn_scale``) and the class and box heads'
+    (21 classes, 84 box values)."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo import vision
+    from incubator_mxnet_tpu_torch.convert import (load_numpy_params,
+                                                    numpy_params)
+    rs = np.random.RandomState(rs_seed + 18)
+    mx.random.seed(SEED)
+    with mx.cpu():
+        shape_net = vision.resnet50_v1(classes=1000)
+        shape_net.initialize(mx.init.Xavier())
+        with mx.autograd.predict_mode():
+            shape_net(mx.nd.zeros((1, 3, 64, 64)))
+        weights = {}
+        for name, v in numpy_params(shape_net).items():
+            if name.endswith("gamma") or name.endswith("running_var"):
+                w = rs.uniform(0.5, 1.5, v.shape)
+            elif name.endswith("beta") or name.endswith("running_mean"):
+                w = 0.1 * rs.standard_normal(v.shape)
+            else:
+                w = rs.standard_normal(v.shape) * math.sqrt(
+                    2.0 / max(1, int(np.prod(v.shape[1:]))))
+            weights[name] = w.astype(np.float32)
+    net = vision.resnet50_v1(classes=1000)
+    load_numpy_params(net, weights, ctx)
+    rpn = _seeded_rpn(np, rs, 1024, DET["rpn_mid"], DET["anchors"])
+    heads = dict(fc_cls=(rs.standard_normal((DET["classes"], 2048)) *
+                         0.01).astype(np.float32),
+                 fc_cls_b=np.zeros(DET["classes"], np.float32),
+                 fc_box=(rs.standard_normal((4 * DET["classes"], 2048)) *
+                         0.001).astype(np.float32),
+                 fc_box_b=np.zeros(4 * DET["classes"], np.float32))
+    rpn.update(heads)
+    rpn["conv"] = rpn["conv"] * np.float32(rpn_scale)
+    params = {k: mx.nd.array(v, ctx=ctx) for k, v in rpn.items()}
+    return net, params
+
+
+def _rcnn_trunk(mx, net, x):
+    """ResNet-50 v1 through stage 3: stride 16, 1024 channels."""
+    for i in range(7):
+        x = net.features[i](x)
+    return x
+
+
+def _rcnn_rpn(mx, p, feat, im_info):
+    """The RPN: 3 x 3 conv and relu, 1 x 1 class scores (2A) softmaxed
+    over background/object, 1 x 1 box deltas (4A), MultiProposal at
+    proposal.cc's defaults (pre 6000, post 300, threshold 0.7, min size
+    16, scales (4, 8, 16, 32), ratios (0.5, 1, 2), stride 16)."""
+    nd = mx.nd
+    n_a = DET["anchors"]
+    r = nd.relu(nd.Convolution(feat, p["conv"], p["conv_b"], kernel=(3, 3),
+                               pad=(1, 1), num_filter=DET["rpn_mid"]))
+    score = nd.Convolution(r, p["cls"], p["cls_b"], kernel=(1, 1),
+                           num_filter=2 * n_a)
+    b, _, h, w = score.shape
+    prob = nd.reshape(nd.softmax(nd.reshape(score, shape=(b, 2, -1, w)),
+                                 axis=1), shape=(b, 2 * n_a, h, w))
+    deltas = nd.Convolution(r, p["box"], p["box_b"], kernel=(1, 1),
+                            num_filter=4 * n_a)
+    return prob, deltas
+
+
+def _rcnn_head(mx, net, p, pooled):
+    """res5 (stage 4, stride 2: 14 x 14 -> 7 x 7) on the pooled ROIs,
+    global pooling, the class scores (softmax) and box deltas."""
+    nd = mx.nd
+    x = net.features[8](net.features[7](pooled))
+    x = nd.Flatten(x)
+    cls = nd.softmax(nd.FullyConnected(x, p["fc_cls"], p["fc_cls_b"],
+                                       num_hidden=DET["classes"]))
+    box = nd.FullyConnected(x, p["fc_box"], p["fc_box_b"],
+                            num_hidden=4 * DET["classes"])
+    return cls, box
+
+
+def _roi_ops(mx):
+    nd = mx.nd
+    k = DET["pooled"]
+    return {
+        "ROIPooling": lambda f, r: nd.ROIPooling(
+            f, r, pooled_size=(k, k), spatial_scale=DET["scale"]),
+        "ROIAlign": lambda f, r: nd.contrib.ROIAlign(
+            f, r, pooled_size=(k, k), spatial_scale=DET["scale"],
+            sample_ratio=DET["sample_ratio"])}
+
+
+def _head_grad(mx, net, p, feat_np, rois_np, roi_op, ctx, pooled_g=None):
+    """One backward of the head's outputs over ``rois_np`` (each weighted
+    by a seeded normal value: a plain sum of the class softmax has no
+    gradient but rounding) through ``roi_op``, from the same feature map on
+    ``ctx``: (d feat, d pooled).  With ``pooled_g`` the ROI op's backward
+    alone: d feat for that gradient of its output."""
+    feat = mx.nd.array(feat_np, ctx=ctx)
+    feat.attach_grad()
+    rois = mx.nd.array(rois_np, ctx=ctx)
+    if pooled_g is not None:
+        with mx.autograd.record(train_mode=False):
+            pooled = roi_op(feat, rois)
+        pooled.backward(mx.nd.array(pooled_g, ctx=ctx))
+        return feat.grad.asnumpy(), pooled_g
+    rs = np.random.RandomState(SEED + 1811)
+    wc = rs.standard_normal((len(rois_np), DET["classes"])).astype(
+        np.float32)
+    wb = rs.standard_normal((len(rois_np), 4 * DET["classes"])).astype(
+        np.float32)
+    with mx.autograd.record(train_mode=False):
+        pooled = roi_op(feat, rois)
+        pooled.attach_grad()
+        cls, box = _rcnn_head(mx, net, p, pooled)
+        loss = mx.nd.sum(cls * mx.nd.array(wc, ctx=ctx)) + mx.nd.sum(
+            box * mx.nd.array(wb, ctx=ctx))
+    loss.backward()
+    return feat.grad.asnumpy(), pooled.grad.asnumpy()
+
+
+def faster_rcnn(mx, card):
+    """18a: Faster R-CNN inference at two 600 x 1000 images (ResNet-50-C4,
+    the RPN, MultiProposal, ROIPooling then ROIAlign at 14 x 14 and 1/16,
+    res5 and the heads) on the card; the request timed (host clock to
+    synchronize, mean of DET['requests'] after a warm-up), Proposal and
+    the ROI op alone (CUDA events), the peak memory.  Held against the port
+    on the CPU from the same weights: the trunk's features and the RPN's
+    outputs (DET_REL), Proposal on the card's RPN outputs bit for bit (the
+    kept ROIs), the head on DET['cpu_rois'] ROIs of each image (DET_REL),
+    and d feat of the head's sum over them through each ROI op (DET_REL of
+    its largest magnitude)."""
+    import torch
+    nd = mx.nd
+    rs = np.random.RandomState(SEED + 181)
+    b, (ih, iw) = DET["batch"], DET["image"]
+    x_np = rs.standard_normal((b, 3, ih, iw)).astype(np.float32)
+    info_np = np.array([[ih, iw, 1.0]] * b, np.float32)
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    net, p = _rcnn_nets(mx, np, gpu)
+    x, info = nd.array(x_np, ctx=gpu), nd.array(info_np, ctx=gpu)
+    # the random trunk's features grow through its 13 units (RMS ~1e3):
+    # the RPN's convolution takes 1/RMS, so that its scores and deltas
+    # have a trained RPN's spread (distinct boxes for NMS to keep)
+    with torch.backends.cudnn.flags(allow_tf32=False), \
+            mx.autograd.predict_mode():
+        f0 = _rcnn_trunk(mx, net, x).asnumpy()
+    rpn_scale = float(np.float32(1.0 / np.sqrt(np.mean(
+        f0.astype(np.float64) ** 2))))
+    del f0
+    net, p = _rcnn_nets(mx, np, gpu, rpn_scale=rpn_scale)
+    ops = _roi_ops(mx)
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.backends.cudnn.flags(allow_tf32=False), \
+            mx.autograd.predict_mode():
+        def request(op_name):
+            feat = _rcnn_trunk(mx, net, x)
+            prob, deltas = _rcnn_rpn(mx, p, feat, info)
+            rois = nd.contrib.MultiProposal(prob, deltas, info)
+            cls, box = _rcnn_head(mx, net, p, ops[op_name](feat, rois))
+            return feat, prob, deltas, rois, cls, box
+
+        for op_name in ops:
+            res = request(op_name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DET["requests"]):
+                request(op_name)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / DET["requests"]
+            feat, prob, deltas, rois = res[:4]
+            roi_ms = cuda_ms(lambda: ops[op_name](feat, rois), 4, torch)
+            out[op_name] = dict(request_ms=ms, roi_op_ms=roi_ms,
+                                res=[a.asnumpy() for a in res])
+        prop_ms = cuda_ms(lambda: nd.contrib.MultiProposal(prob, deltas,
+                                                           info), 4, torch)
+    peak = torch.cuda.max_memory_allocated()
+    feat_g, prob_g, deltas_g, rois_g = out["ROIPooling"]["res"][:4]
+    check(rois_g.shape == (b * 300, 5) and np.isfinite(rois_g).all(),
+          "18a: rois %s" % (rois_g.shape,))
+    kept = [int(((rois_g[:, 0] == i) & (rois_g[:, 3] > rois_g[:, 1]))
+                .sum()) for i in range(b)]
+    # the port on the CPU, the same weights
+    net_c, p_c = _rcnn_nets(mx, np, cpu, rpn_scale=rpn_scale)
+    with mx.autograd.predict_mode(), cpu:
+        feat_c = _rcnn_trunk(mx, net_c, nd.array(x_np))
+        prob_c, deltas_c = _rcnn_rpn(mx, p_c, feat_c, nd.array(info_np))
+        rois_same = nd.contrib.MultiProposal(
+            nd.array(prob_g), nd.array(deltas_g), nd.array(info_np))
+        rois_own = nd.contrib.MultiProposal(prob_c, deltas_c,
+                                            nd.array(info_np)).asnumpy()
+    errs = dict(feat=_max_rel(feat_g, feat_c.asnumpy()),
+                prob=_max_rel(prob_g, prob_c.asnumpy()),
+                deltas=_max_rel(deltas_g, deltas_c.asnumpy()))
+    same = bool(np.array_equal(rois_same.asnumpy(), rois_g))
+    own_same = bool(np.array_equal(rois_own, rois_g))
+    check(same, "18a: Proposal on the CPU from the card's RPN outputs kept "
+          "other ROIs than the card")
+    for k_, v_ in errs.items():
+        check(v_ <= DET_REL, "18a: %s on the card %.3e from the CPU (bound "
+              "%.0e)" % (k_, v_, DET_REL))
+    sub = np.concatenate([np.where(rois_g[:, 0] == i)[0][:DET["cpu_rois"]]
+                          for i in range(b)])
+    for op_name, op in ops.items():
+        cls_g, box_g = out[op_name]["res"][4:]
+        with mx.autograd.predict_mode(), cpu:
+            cls_c, box_c = _rcnn_head(mx, net_c, p_c, op(
+                nd.array(feat_g), nd.array(rois_g[sub])))
+        e_cls = _max_rel(cls_g[sub], cls_c.asnumpy())
+        e_box = _max_rel(box_g[sub], box_c.asnumpy())
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            g_card, pooled_g = _head_grad(mx, net, p, feat_g, rois_g[sub],
+                                          op, gpu)
+            op_card, _ = _head_grad(mx, net, p, feat_g, rois_g[sub], op,
+                                    gpu, pooled_g)
+        with cpu:
+            g_cpu, _ = _head_grad(mx, net_c, p_c, feat_g, rois_g[sub], op,
+                                  cpu)
+            op_cpu, _ = _head_grad(mx, net_c, p_c, feat_g, rois_g[sub], op,
+                                   cpu, pooled_g)
+        e_op = _max_rel(op_card, op_cpu)
+        e_grad = float(np.linalg.norm((g_card - g_cpu).ravel()) /
+                       max(np.linalg.norm(g_cpu.ravel()), 1e-30))
+        check(max(e_cls, e_box) <= DET_REL and e_op <= SAMPLE_REL and
+              e_grad <= HEAD_GRAD_REL and np.abs(op_cpu).max() > 0,
+              "18a %s: head %.3e / %.3e, the ROI op's d feat %.3e (bound "
+              "%.0e), the head's d feat %.3e relative L2 (bound %.0e) from "
+              "the CPU" % (op_name, e_cls, e_box, e_op, SAMPLE_REL, e_grad,
+                           HEAD_GRAD_REL))
+        out[op_name].update(cls_err=e_cls, box_err=e_box, roi_grad_err=e_op,
+                            head_grad_rel_l2=e_grad)
+        del out[op_name]["res"]
+        print("det 18a %s: Faster R-CNN request (2 x 600 x 1000, f32) "
+              "%.3f ms, the ROI op alone %.3f ms on (%d, 1024, 38, 63) -> "
+              "(%d, 1024, 14, 14); head vs CPU on %d ROIs: cls %.3e, box "
+              "%.3e (bound %.0e); d feat of the ROI op's backward for the "
+              "card's d pooled %.3e (bound %.0e), of the whole head %.3e "
+              "relative L2 (bound %.0e) | %s"
+              % (op_name, out[op_name]["request_ms"],
+                 out[op_name]["roi_op_ms"], b, len(rois_g), len(sub), e_cls,
+                 e_box, DET_REL, e_op, SAMPLE_REL, e_grad, HEAD_GRAD_REL,
+                 card), flush=True)
+    print("det 18a: MultiProposal alone %.3f ms (2 x 22,680 anchors, pre "
+          "6000, post 300, NMS 0.7); kept ROIs a image %s; on the CPU from "
+          "the card's RPN outputs the same ROIs bit for bit: %s; from its "
+          "own RPN outputs: %s; trunk %.3e, RPN prob %.3e, deltas %.3e from "
+          "the CPU (bound %.0e); peak memory %d bytes | %s"
+          % (prop_ms, kept, same, own_same, errs["feat"], errs["prob"],
+             errs["deltas"], DET_REL, peak, card), flush=True)
+    del net_c, feat_c
+    gc.collect()
+    return dict(out, proposal_ms=prop_ms, kept=kept, same_rois=same,
+                own_rpn_same_rois=own_same, errs=errs,
+                peak_memory_bytes=peak, rois=rois_g, feat=feat_g)
+
+
+def _card_cpu(mx, fn, arrays, grads, ct_seed, cpu_slice=None):
+    """``fn(*nd arrays)`` on the card (forward and forward with backward
+    timed by CUDA events; one forward and backward of a seeded head
+    gradient) and on the CPU on the same arrays, the first ``cpu_slice``
+    images of the batch where given (every op here maps the images of a
+    batch independently): (card outputs, card grads, CPU outputs, CPU
+    grads, forward ms, forward and backward ms)."""
+    import torch
+    nd = mx.nd
+
+    def run(ctx, arrs, ct):
+        xs = [nd.array(a, ctx=ctx) for a in arrs]
+        for i in grads:
+            xs[i].attach_grad()
+        with mx.autograd.record():
+            y = fn(*xs)
+        if ct is None:
+            ct = np.random.RandomState(ct_seed).standard_normal(
+                y.shape).astype(np.float32)
+        y.backward(nd.array(ct[:y.shape[0]], ctx=ctx))
+        return y.asnumpy(), [xs[i].grad.asnumpy() for i in grads], xs, ct
+
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        yg, gg, xs, ct = run(mx.gpu(0), arrays, None)
+        fwd_ms = cuda_ms(lambda: fn(*xs), 3, torch)
+
+        def fwd_bwd():
+            with mx.autograd.record():
+                y = fn(*xs)
+            y.backward()
+        both_ms = cuda_ms(fwd_bwd, 3, torch)
+    del xs
+    cut = arrays if cpu_slice is None else [a[:cpu_slice] for a in arrays]
+    with mx.cpu():
+        yc, gc_, _, _ = run(mx.cpu(), cut, ct)
+    if cpu_slice is not None:
+        yg = yg[:cpu_slice]
+        gg = [g[:cpu_slice] for g in gg]
+    return yg, gg, yc, gc_, fwd_ms, both_ms
+
+
+def _held(what, card, bound, yg, gg, yc, gc_, fwd_ms, both_ms, names):
+    errs = {"out": _max_rel(yg, yc)}
+    for n, g, c in zip(names, gg, gc_):
+        errs["d " + n] = _max_rel(g, c)
+    check(all(v <= bound for v in errs.values()) and np.isfinite(yg).all(),
+          "%s: card vs CPU %s (bound %.0e)" % (what, errs, bound))
+    print("%s: forward %.3f ms, forward and backward %.3f ms; card vs CPU "
+          "%s (bound %.0e) | %s" % (what, fwd_ms, both_ms, ", ".join(
+              "%s %.3e" % kv for kv in errs.items()), bound, card),
+          flush=True)
+    return dict(fwd_ms=fwd_ms, fwd_bwd_ms=both_ms, errs=errs)
+
+
+def rfcn_heads(mx, card, rois, feat):
+    """18b: Deformable ConvNets' R-FCN head: a 3 x 3 deformable
+    convolution (512 filters, dilate 2, pad 2, 4 deformable groups) on
+    (2, 512, 38, 63) with its 72 offset channels from a 3 x 3 convolution;
+    PSROIPooling and DeformablePSROIPooling (output_dim 21, 7 x 7 bins, 1/16)
+    of a 1029-channel score map over 18a's ROIs; each forward and backward
+    against the port on the CPU."""
+    import torch
+    nd = mx.nd
+    rs = np.random.RandomState(SEED + 182)
+    c, f, dg = RFCN["channels"], RFCN["filters"], RFCN["groups"]
+    n, _, h, w = feat.shape
+    data = (rs.standard_normal((n, c, h, w))).astype(np.float32)
+    w_off = (rs.standard_normal((2 * dg * 9, c, 3, 3)) * 0.02).astype(
+        np.float32)
+    weight = (rs.standard_normal((f, c, 3, 3)) *
+              math.sqrt(2.0 / (c * 9))).astype(np.float32)
+    bias = np.zeros(f, np.float32)
+    conf = dict(kernel=(3, 3), pad=(2, 2), dilate=(2, 2), num_filter=f,
+                num_deformable_group=dg)
+
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        offset = nd.Convolution(nd.array(data, ctx=mx.gpu(0)), nd.array(
+            w_off, ctx=mx.gpu(0)), kernel=(3, 3), pad=(2, 2), dilate=(2, 2),
+            num_filter=2 * dg * 9, no_bias=True).asnumpy()
+    out = {}
+    out["deformable_conv"] = _held(
+        "rfcn 18b DeformableConvolution (2, 512, 38, 63) 3x3 dilate 2 DG 4, "
+        "offsets (2, 72, 38, 63) from a 3x3 conv", card, DET_REL,
+        *_card_cpu(mx, lambda d, o, wt, bi: nd.contrib.DeformableConvolution(
+            d, o, wt, bi, **conf), [data, offset, weight, bias], (0, 1, 2),
+            SEED + 1821), ("data", "offset", "weight"))
+    k, od = RFCN["bins"], DET["classes"]
+    scores = rs.standard_normal((n, od * k * k, h, w)).astype(np.float32)
+    out["psroi"] = _held(
+        "rfcn 18b PSROIPooling (%d ROIs, 21 x 7 x 7 over (2, 1029, 38, 63))"
+        % len(rois), card, SAMPLE_REL,
+        *_card_cpu(mx, lambda s, r: nd.contrib.PSROIPooling(
+            s, r, spatial_scale=DET["scale"], output_dim=od,
+            pooled_size=k, group_size=k), [scores, rois], (0,),
+            SEED + 1822), ("data",))
+    trans = rs.standard_normal((len(rois), 2, RFCN["part"], RFCN["part"])) \
+        .astype(np.float32)
+    out["deformable_psroi"] = _held(
+        "rfcn 18b DeformablePSROIPooling (part 7, 4 x 4 samples, trans_std "
+        "0.1)", card, SAMPLE_REL,
+        *_card_cpu(mx, lambda s, r, t: nd.contrib.DeformablePSROIPooling(
+            s, r, t, spatial_scale=DET["scale"], output_dim=od,
+            pooled_size=k, group_size=k, part_size=RFCN["part"],
+            sample_per_part=RFCN["samples"], trans_std=RFCN["trans_std"]),
+            [scores, rois, trans], (0, 2), SEED + 1823), ("data", "trans"))
+    return out
+
+
+def sampling_ops(mx, card):
+    """18c: FlowNetC's Correlation at (8, 256, 48, 64), displacement 20,
+    stride2 2, pad 20 (441 channels); GridGenerator(warp) and
+    BilinearSampler on a flow at that width; a SpatialTransformer (affine)
+    on (32, 3, 224, 224); Crop with center_crop.  Each forward and
+    backward against the port on the CPU (the first images of the batch:
+    every op maps images independently)."""
+    nd = mx.nd
+    rs = np.random.RandomState(SEED + 183)
+    shape = FLOW["shape"]
+    a = rs.standard_normal(shape).astype(np.float32)
+    b_ = rs.standard_normal(shape).astype(np.float32)
+    out = {}
+    corr = lambda x, y: nd.Correlation(  # noqa: E731
+        x, y, max_displacement=FLOW["displacement"],
+        stride2=FLOW["stride2"], pad_size=FLOW["pad"])
+    got = _card_cpu(mx, corr, [a, b_], (0, 1), SEED + 1831,
+                    cpu_slice=FLOW["cpu_batch"])
+    check(got[0].shape[1] == (2 * (FLOW["displacement"] //
+                                   FLOW["stride2"]) + 1) ** 2,
+          "18c: Correlation gives %s" % (got[0].shape,))
+    out["correlation"] = _held(
+        "flow 18c Correlation %s max_displacement %d stride2 %d pad %d -> "
+        "%d channels" % (shape, FLOW["displacement"], FLOW["stride2"],
+                         FLOW["pad"], got[0].shape[1]), card, SAMPLE_REL,
+        *got, ("data1", "data2"))
+    flow = (rs.standard_normal((shape[0], 2) + shape[2:]) * 3.0).astype(
+        np.float32)
+    warp = lambda d, fl: nd.BilinearSampler(  # noqa: E731
+        d, nd.GridGenerator(fl, transform_type="warp"))
+    out["warp"] = _held(
+        "flow 18c GridGenerator(warp) + BilinearSampler %s" % (shape,),
+        card, SAMPLE_REL, *_card_cpu(mx, warp, [a, flow], (0, 1),
+                                     SEED + 1832, cpu_slice=2),
+        ("data", "flow"))
+    imgs = rs.standard_normal(STN["shape"]).astype(np.float32)
+    theta = (np.tile([0.9, 0.1, 0.05, -0.1, 0.9, -0.05], (STN["shape"][0],
+                                                          1)) +
+             0.05 * rs.standard_normal((STN["shape"][0], 6))).astype(
+        np.float32)
+    stn = lambda d, t: nd.SpatialTransformer(  # noqa: E731
+        d, t, target_shape=STN["target"], transform_type="affine",
+        sampler_type="bilinear")
+    out["spatial_transformer"] = _held(
+        "flow 18c SpatialTransformer %s affine" % (STN["shape"],), card,
+        SAMPLE_REL, *_card_cpu(mx, stn, [imgs, theta], (0, 1), SEED + 1833,
+                               cpu_slice=STN["cpu_batch"]),
+        ("data", "loc"))
+    side = STN["target"][0] * 6 // 7
+    crop = lambda d: nd.Crop(d, h_w=(side, side),  # noqa: E731
+                             center_crop=True)
+    got = _card_cpu(mx, crop, [imgs], (0,), SEED + 1834, cpu_slice=2)
+    check(np.array_equal(got[0], got[2]) and np.array_equal(
+        got[1][0], got[3][0]), "18c: Crop differs from the CPU")
+    out["crop"] = _held("flow 18c Crop %s -> %d x %d centred"
+                        % (STN["shape"], side, side), card, 0.0, *got,
+                        ("data",))
+    return out
+
+
+def _walk_graph(mx, qsym, values, ctx):
+    """Every output of every node of ``qsym``, each op called alone
+    through ``invoke`` on ``ctx`` (an int8 graph's intermediates):
+    {(node, output): NDArray}."""
+    from incubator_mxnet_tpu_torch.ndarray.ndarray import invoke
+    vals = {k: v.as_in_context(ctx) for k, v in values.items()}
+    cache, out = {}, {}
+    with ctx:
+        for node in qsym._topo():
+            if node.is_variable():
+                cache[id(node)] = [vals[node.name]]
+                continue
+            ins = []
+            for e in node._inputs:
+                got = cache[id(e._base())]
+                ins.append(got[min(e._out_index or 0, len(got) - 1)])
+            res = invoke(node._op, ins, dict(node._params))
+            res = res if isinstance(res, (list, tuple)) else [res]
+            cache[id(node)] = list(res)
+            for j, r in enumerate(res):
+                out[(node._name, j)] = r
+    return out
+
+
+def _int8_prepare(mx):
+    """18d's preparation and its entropy calibration, on the current
+    context (the card): the symbolic ResNet-50 v1's logits with seeded
+    weights, BatchNorm's moving statistics from training-mode forwards over
+    the calibration images (QUANT['bn_passes'] at momentum 0.9, so that
+    every layer sees normalized activations as in a trained net and the
+    logits tell the images apart), ``fold_batchnorm``, then
+    ``quantize_model(calib_mode="entropy")``, whose numpy threshold search
+    takes ~0.8 s a layer of one host core."""
+    from incubator_mxnet_tpu_torch.contrib import quantization as qz
+    nd, gpu = mx.nd, mx.gpu(0)
+    quiet = logging.getLogger("chip_smoke.int8")
+    quiet.setLevel(logging.WARNING)
+    bsz, img = QUANT["batch"], QUANT["image"]
+    pred = resnet_symbol(mx, num_classes=QUANT["classes"]).get_internals()[
+        "fc1_output"]
+    rs = np.random.RandomState(SEED + 184)
+    args_np, aux_np = symbol_weights(np, pred, {"data": (bsz, 3, img, img)},
+                                     rs)
+    n_cal = QUANT["calib_batches"] * QUANT["calib_batch"]
+    calib = rs.uniform(-1, 1, (n_cal, 3, img, img)).astype(np.float32)
+    held = [rs.uniform(-1, 1, (bsz, 3, img, img)).astype(np.float32)
+            for _ in range(QUANT["held_out"])]
+    out = dict(calib=calib, held=held, quiet=quiet)
+    t0 = time.perf_counter()
+    with gpu:
+        args = {k: nd.array(v) for k, v in args_np.items()}
+        aux = {k: nd.array(v) for k, v in aux_np.items()}
+        exe = pred.bind(gpu, dict(args, data=nd.array(calib)),
+                        aux_states=aux, grad_req="null")
+        for _ in range(QUANT["bn_passes"]):
+            exe.forward(is_train=True)
+        exe.outputs[0].asnumpy()
+        del exe
+        out["bn_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["folded"] = qz.fold_batchnorm(pred, args, aux)
+        out["fold_s"] = time.perf_counter() - t0
+        fsym, fargs, _ = out["folded"]
+        t0 = time.perf_counter()
+        out["entropy"] = qz.quantize_model(
+            fsym, fargs, {}, calib_mode="entropy",
+            calib_data=mx.io.NDArrayIter(data=calib,
+                                         batch_size=QUANT["calib_batch"]),
+            num_calib_examples=n_cal, logger=quiet)
+        out["entropy_s"] = time.perf_counter() - t0
+    return out
+
+
+class Int8Prep(object):
+    """:func:`_int8_prepare` on a host thread, started before phase 16:
+    the main process then waits on the ranks of phases 16-17, so the
+    threshold search costs the smoke no wall time.  ``result()`` joins it
+    and raises what it raised."""
+
+    def __init__(self, mx):
+        self._out, self._error = None, None
+        self._thread = threading.Thread(target=self._run, args=(mx,),
+                                        name="int8-calibration", daemon=True)
+        self._thread.start()
+
+    def _run(self, mx):
+        # the lowest priority for this thread alone (Linux): the ranks of
+        # phases 16-17 and the main thread take the cores first
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+        try:
+            self._out = _int8_prepare(mx)
+        except BaseException as exc:          # re-raised by result()
+            self._error = exc
+
+    def result(self, timeout=900):
+        self._thread.join(timeout)
+        check(not self._thread.is_alive(), "18d: the int8 calibration "
+              "thread did not finish in %d s" % timeout)
+        if self._error is not None:
+            raise self._error
+        return self._out
+
+
+def int8_resnet(mx, card, prep):
+    """18d: example/quantization/imagenet_inference.py's path on the card:
+    the symbolic ResNet-50 v1 (batch 32, 224 x 224, seeded weights),
+    ``fold_batchnorm``, ``quantize_model`` with ``naive`` and ``entropy``
+    calibration on 4 batches of 8 (the calibration on the card, the
+    default context; the entropy one from ``prep``, an :class:`Int8Prep`
+    that ran beside phases 16-17); the int8 graph's census (one
+    ``_contrib_quantize``, one ``_contrib_dequantize``:
+    tests/test_quantization.py:352's contract); top-1 agreement of int8
+    with f32 on 2 held-out batches; ms a batch in f32, bf16 and int8
+    (Executor forward, host clock to synchronize, mean of QUANT['reps']
+    after a warm-up); every int8 and int32 intermediate of one batch
+    through the entropy-calibrated graph bit for bit the port's on the
+    CPU, and the dequantized logits too."""
+    import torch
+    from incubator_mxnet_tpu_torch.contrib import quantization as qz
+    nd, gpu = mx.nd, mx.gpu(0)
+    ready = prep.result()
+    calib, held, quiet = ready["calib"], ready["held"], ready["quiet"]
+    fsym, fargs, faux = ready["folded"]
+    check(not faux and "BatchNorm" not in {
+        n._op.name for n in fsym._topo() if not n.is_variable()},
+        "18d: fold_batchnorm left %s" % sorted(faux))
+    bsz, img = QUANT["batch"], QUANT["image"]
+    n_cal = QUANT["calib_batches"] * QUANT["calib_batch"]
+
+    def timed(sym, values, dtype):
+        exe = sym.bind(gpu, dict(values), grad_req="null")
+        x = nd.array(held[0], ctx=gpu, dtype=dtype)
+        exe.forward(is_train=False, data=x)[0].asnumpy()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(QUANT["reps"]):
+            exe.forward(is_train=False, data=x)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / QUANT["reps"], exe
+
+    def top1(exe, dtype):
+        return [exe.forward(is_train=False, data=nd.array(
+            h, ctx=gpu, dtype=dtype))[0].asnumpy().astype(
+                np.float32).argmax(1) for h in held]
+
+    zero = {"data": nd.zeros((bsz, 3, img, img), ctx=gpu)}
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        f32_ms, f32_exe = timed(fsym, dict(fargs, **zero), "float32")
+        f32_top = top1(f32_exe, "float32")
+        del f32_exe
+        bf = {k: v.astype("bfloat16") for k, v in fargs.items()}
+        bf16_ms, bf_exe = timed(fsym, dict(bf, data=nd.zeros(
+            (bsz, 3, img, img), ctx=gpu, dtype="bfloat16")), "bfloat16")
+        bf16_top = top1(bf_exe, "bfloat16")
+        del bf_exe, bf
+    classes = len(np.unique(np.concatenate(f32_top)))
+    out = dict(bn_s=ready["bn_s"], fold_s=ready["fold_s"], f32_ms=f32_ms,
+               bf16_ms=bf16_ms, f32_classes=classes, modes={})
+    t0 = time.perf_counter()
+    naive = qz.quantize_model(
+        fsym, fargs, {}, calib_mode="naive", calib_data=mx.io.NDArrayIter(
+            data=calib, batch_size=QUANT["calib_batch"]),
+        num_calib_examples=n_cal, logger=quiet)
+    calibrated = {"naive": (naive, time.perf_counter() - t0),
+                  "entropy": (ready["entropy"], ready["entropy_s"])}
+    for mode in ("naive", "entropy"):
+        (qsym, qargs, _), calib_s = calibrated[mode]
+        census = {}
+        for node in qsym._topo():
+            if not node.is_variable():
+                census[node._op.name] = census.get(node._op.name, 0) + 1
+        check(census.get("_contrib_quantize") == 1 and
+              census.get("_contrib_dequantize") == 1 and
+              census.get("_contrib_quantized_elemwise_add", 0) > 0 and
+              census.get("_contrib_quantized_act", 0) > 0,
+              "18d %s: the int8 graph is not one chain: %s" % (mode, census))
+        int8_ms, q_exe = timed(qsym, dict(qargs, **zero), "float32")
+        q_top = top1(q_exe, "float32")
+        del q_exe
+        agree = float(np.mean([np.mean(a == b) for a, b in zip(q_top,
+                                                               f32_top)]))
+        bf_agree = float(np.mean([np.mean(a == b) for a, b in zip(
+            bf16_top, f32_top)]))
+        out["modes"][mode] = dict(calib_s=calib_s, census=census,
+                                  int8_ms=int8_ms, top1_agreement=agree)
+        print("int8 18d %s: census %s; calibration %.1f s on the card%s; "
+              "top-1 agreement with f32 on %d held-out images (f32 predicts "
+              "%d classes) %.4f (bf16 %.4f) | %s"
+              % (mode, json.dumps(census, sort_keys=True), calib_s,
+                 " (on a host thread beside phases 16-17)"
+                 if mode == "entropy" else "", bsz * QUANT["held_out"],
+                 classes, agree, bf_agree, card), flush=True)
+        if mode != "entropy":
+            continue
+        # one batch op by op on the card and on the CPU: every code equal
+        values = dict(qargs, data=nd.array(held[-1], ctx=gpu))
+        card_vals = _walk_graph(mx, qsym, values, gpu)
+        cpu_vals = _walk_graph(mx, qsym, values, mx.cpu())
+        ints = unequal = 0
+        for key, v in card_vals.items():
+            g, c = v.asnumpy(), cpu_vals[key].asnumpy()
+            ints += g.dtype.kind in "iu"
+            unequal += not np.array_equal(g, c)
+        last = (list(qsym._topo())[-1]._name, 0)
+        logit_err = _max_rel(card_vals[last].asnumpy(),
+                             cpu_vals[last].asnumpy())
+        n_vals = len(card_vals)
+        del card_vals, cpu_vals
+        check(unequal == 0 and ints > 100 and logit_err == 0.0,
+              "18d %s: %d of %d intermediates differ from the CPU (%d "
+              "integer), logits %.3e" % (mode, unequal, n_vals, ints,
+                                         logit_err))
+        out["modes"][mode].update(intermediates=ints, logit_err=logit_err)
+        print("int8 18d %s: %d int8/int32 intermediates of one batch of %d "
+              "(every output of every node, op by op) bit for bit the "
+              "CPU's, logits %.1e | %s" % (mode, ints, bsz, logit_err, card),
+              flush=True)
+        gc.collect()
+    print("int8 18d: ResNet-50 v1 batch %d x %d x %d through the "
+          "Executor, ms a batch (mean of %d): f32 %.3f, bf16 %.3f, int8 "
+          "%.3f (naive) / %.3f (entropy); BatchNorm statistics %.1f s, "
+          "fold_batchnorm %.2f s | %s"
+          % (bsz, img, img, QUANT["reps"], f32_ms, bf16_ms,
+             out["modes"]["naive"]["int8_ms"],
+             out["modes"]["entropy"]["int8_ms"], out["bn_s"], out["fold_s"],
+             card), flush=True)
+    return out
+
+
+def detection_phase(mx, card, prep):
+    """Phase 18 (18a-18d; ``prep``, an :class:`Int8Prep`, 18d's
+    calibration); returns their numbers."""
+    import torch
+    t0 = time.perf_counter()
+    seconds = {}
+    det = faster_rcnn(mx, card)
+    seconds["18a"] = time.perf_counter() - t0
+    rois, feat = det.pop("rois"), det.pop("feat")
+    out = dict(faster_rcnn=det, rfcn=rfcn_heads(mx, card, rois, feat))
+    seconds["18b"] = time.perf_counter() - t0 - sum(seconds.values())
+    out["sampling"] = sampling_ops(mx, card)
+    seconds["18c"] = time.perf_counter() - t0 - sum(seconds.values())
+    del rois, feat
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["int8"] = int8_resnet(mx, card, prep)
+    seconds["18d"] = time.perf_counter() - t0 - sum(seconds.values())
+    out["seconds"] = time.perf_counter() - t0
+    print("det: phase 18 in %.1f s (%s) | %s" % (
+        out["seconds"], ", ".join("%s %.1f s" % kv for kv in seconds.items()),
+        card), flush=True)
+    return out
+
+
+
+class PhaseClock(object):
+    """Seconds of each phase of ``main``, printed as each one ends."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.label, self.t0 = "1", time.perf_counter()
+
+    def mark(self, label):
+        """End the running phase (print its seconds) and start ``label``
+        (None: none)."""
+        now = time.perf_counter()
+        if self.label is not None:
+            self.seconds[self.label] = round(now - self.t0, 1)
+            print("smoke: phase %s took %.1f s" % (self.label,
+                                                  now - self.t0), flush=True)
+        self.label, self.t0 = label, now
+
+
 def main():
     import torch
     t_run = time.perf_counter()
+    clock = PhaseClock()
     # phase 1: device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke runs only on a "
@@ -12478,6 +13278,7 @@ def main():
     from incubator_mxnet_tpu_torch.convert import load_numpy_params
     import numpy as np
 
+    clock.mark('2')
     # phase 2: build
     t0 = time.perf_counter()
     built = cuda_build.build_all()
@@ -12503,6 +13304,7 @@ def main():
         check(count > 0, "no HGMMA in the %s route's kernel: it does not run "
               "on the tensor cores" % route)
 
+    clock.mark('3')
     # phase 3: each kernel against its plain version on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -12609,6 +13411,7 @@ def main():
     # flash attention's backward against autograd through the plain version
     backward_errs = check_backward(gen, dev, card)
 
+    clock.mark('4a')
     # phase 4a: small LMs on the card against the same weights on the CPU,
     # each route's path: its launch count zeroed just before, read after
     small_launches = {}
@@ -12671,6 +13474,7 @@ def main():
         del cpu_net, gpu_net
         gc.collect()   # Blocks hold reference cycles: free the card's copy
 
+    clock.mark('4b')
     # phase 4b: the full-width LM serving 4 requests
     cfg = LM_CONFIG
     batch, n_requests = 8, 4
@@ -12741,26 +13545,33 @@ def main():
                    {"flash_attention_fwd": "flash_fwd"}, gemm_flops,
                    card)
 
+    clock.mark('4f')
     # phase 4f: the serving runtime on the same net (Server, CUDA graphs)
     runtime = serve_runtime(mx, net, card, rs)
+    clock.mark('11b')
     # phase 11b's LM: 4b's request under mx.engine.bulk, on the same net
     bulk_lm = bulk_lm_serving(mx, card, net, requests[0], first_logits)
+    clock.mark('14d')
     # phase 14d's serving half: the same request hybridized (CachedOp)
     hybrid_lm = hybrid_lm_serving(mx, card, net, requests[0], first_logits,
                                   request_ms)
     del net, requests, first_logits
     gc.collect()
 
+    clock.mark('4e')
     # phase 4e: the same LM at head dim 512 (8 heads), route A
     wide_lm = serve_wide_lm(mx, card, rs, request_ms)
 
+    clock.mark('4d')
     # phase 4d: training through DataParallelTrainer, small and full width
     small_train_launches = train_small_lm(mx, card)
     train = train_full_lm(mx, card)
 
+    clock.mark('rtc')
     # phase rtc: runtime-compiled user kernels, and the head trained by them
     rtc_entries = rtc_phase(mx, dev, card)
 
+    clock.mark('5')
     # phase 5: kernel timing at the serving shape, then at D = 256
     (b, h, sq, sk, d), causal = ATTENTION_CASES[-1]
     qkv = [torch.randn(b, h, s_, d, generator=gen, device=dev).to(
@@ -12848,16 +13659,19 @@ def main():
     backward = time_backward(gen, dev, card)
     serving = case_key(*ATTENTION_CASES[-1], "bfloat16")
 
+    clock.mark('6')
     # phase 6: ResNet-50 v1 (no hand kernel on its path): the small net on
     # the card against the CPU, serving at full width, bench.py's training
     resnet = dict(small=resnet_small(mx, card), serve=resnet_serve(mx, card),
                   train=resnet_train(mx, card))
 
+    clock.mark('7')
     # phase 7: the array surface on the card against the CPU, and
     # ResNet-50 v1 trained, checkpointed, resumed and served from its file
     arrays = dict(sweep=array_sweep(mx, card),
                   checkpoint=checkpoint_cycle(mx, card))
 
+    clock.mark('8')
     # phase 8: the rest of the zoo and of the op library (no hand kernel)
     t8 = time.perf_counter()
     zoo = dict(parity=zoo_parity(mx, card), serve=zoo_serve(mx, card),
@@ -12866,17 +13680,20 @@ def main():
     zoo["seconds"] = time.perf_counter() - t8
     print("zoo: phase 8 in %.1f s | %s" % (zoo["seconds"], card), flush=True)
 
+    clock.mark('9')
     # phase 9: the symbolic path and the Module API; 9c runs kernel B1 (its
     # forward and backward) through the Executor
     symbolic = symbolic_phase(mx, card)
     sym_launches = symbolic["attention"]["launches"]
 
+    clock.mark('10')
     # phase 10: the single-card KVStore, BASELINE configs 1 and 2 through
     # common.py's wiring, the LM through a store-backed Trainer (kernel B1,
     # forward and backward), and the profiler on the card
     store = store_phase(mx, card, request_ms)
     store_launches = store["lm"]["launches"]
 
+    clock.mark('11')
     # phase 11: engine bulking (recorded segments replayed as CUDA graphs;
     # B1's forward and backward inside them) and the rest of the
     # Module/Symbol surface
@@ -12884,17 +13701,20 @@ def main():
     bulk["lm_serving"] = bulk_lm
     bulk_rows = bulk["training"]["lm"]["trace"]["rows"]
 
+    clock.mark('12')
     # phase 12: the data plane feeding the card (RecordIO, ImageRecordIter
     # into ResNet-50, gluon.data, a DataLoader into the LM: kernel B1)
     data = data_phase(mx, card, resnet["train"],
                       store["config2"]["resnet50 Gluon"])
     data_launches = data["lm"]["launches"]
 
+    clock.mark('13')
     # phase 13: the RNN family (the fused RNN op over cuDNN, CTCLoss,
     # gluon.rnn, mx.rnn); 13f runs kernel B1 under an LSTM encoder
     rnn = rnn_phase(mx, card)
     rnn_launches = rnn["encoder"]["launches"]
 
+    clock.mark('14')
     # phase 14: Gluon hybridize() as CUDA graphs (benchmark_score.py's
     # path, train_imagenet.py --gluon-trainer, word_lm.py's loop, the LM:
     # kernel B1's forward and backward inside the graphs) and the SSD ops
@@ -12904,10 +13724,16 @@ def main():
     hybrid_rows = hybrid["lm_train"]["trace_rows"]
     hybrid_release(mx)
 
+    clock.mark('15')
     # phase 15: sparse storage and BASELINE config 5 (no hand kernel), then
     # C11's contract: a failed capture leaves mx.random usable
     sparse = sparse_phase(mx, card)
 
+    # 18d's preparation and entropy calibration on a host thread, while
+    # the main process waits on the ranks of phases 16-17
+    int8_prep = Int8Prep(mx)
+
+    clock.mark('16')
     # phase 16: several devices and processes: the dist stores across two
     # ranks on the card and one rank a card (16a), BASELINE config 2 across
     # two ranks (16b), the LM across two ranks through DataParallelTrainer
@@ -12916,6 +13742,7 @@ def main():
     dist = dist_phase(mx, card, train["peak_memory_bytes"], train["n_params"])
     dist_launches = dist["lm"]["launches"]
 
+    clock.mark('17')
     # phase 17: the rest of item 7 across two ranks sharing the card: the
     # axis collectives (17a), ring attention in the LM over {"dp": 1, "sp":
     # 2} (17b: its witness runs kernel B1's bf16 forward and backward),
@@ -12923,6 +13750,14 @@ def main():
     # ExpertParallelMoE over {"ep": 2} (17d), 17e on 2+ cards
     par = parallel_phase(mx, card, train["peak_memory_bytes"])
     par_launches = par["launches"]
+
+    # phase 18: the rest of the op registry (no hand kernel): Faster R-CNN
+    # with ROIPooling and ROIAlign (18a), R-FCN with deformable convolution
+    # (18b), FlowNetC's correlation and the samplers (18c), a calibrated
+    # INT8 ResNet-50 (18d)
+    clock.mark("18")
+    det = detection_phase(mx, card, int8_prep)
+    clock.mark(None)
 
     def entry(name, source, design, launches_, err, t,
               replaces="incubator_mxnet_tpu/ops/attention.py:56", **extra):
@@ -12956,6 +13791,10 @@ def main():
     print("dist: summary " + json.dumps(dict(dist, card=card), default=str),
           flush=True)
     print("par: summary " + json.dumps(dict(par, card=card), default=str),
+          flush=True)
+    print("det: summary " + json.dumps(dict(det, card=card), default=str),
+          flush=True)
+    print("smoke: seconds by phase " + json.dumps(clock.seconds),
           flush=True)
     print("smoke: the whole run took %.1f s | %s"
           % (time.perf_counter() - t_run, card), flush=True)

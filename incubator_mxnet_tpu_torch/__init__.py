@@ -67,6 +67,7 @@ from . import visualization  # noqa: F401
 from . import visualization as viz  # noqa: F401  alias, as in mxnet
 from . import profiler  # noqa: F401
 from . import test_utils  # noqa: F401
+from . import contrib  # noqa: F401
 
 # settings read at import (MXTPU_PROFILER_AUTOSTART, MXTPU_SEED)
 if config.get_bool("PROFILER_AUTOSTART"):

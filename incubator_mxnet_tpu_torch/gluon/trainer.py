@@ -57,7 +57,7 @@ class Trainer(object):
             self._params.append(param)
         if compression_params is not None:
             raise MXNetError("gradient compression is not ported yet "
-                             "(ROADMAP item 11)")
+                             "(ROADMAP item 12)")
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = optimizer_params.get("rescale_grad", 1.0)
         self._contexts = self._check_contexts()

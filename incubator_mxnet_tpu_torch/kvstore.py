@@ -221,7 +221,8 @@ class KVStore(object):
 
     def set_gradient_compression(self, compression_params):
         raise MXNetError("gradient compression is not ported yet (ROADMAP "
-                         "item 11)")
+                         "item 12: parallel/compression.py and the "
+                         "compressed wires)")
 
     def save_optimizer_states(self, fname, dump_optimizer=False):
         """Write the store's updater states (with the optimizer when

@@ -10,3 +10,4 @@ from . import random_ops  # noqa: F401
 from . import linalg  # noqa: F401
 from . import rnn  # noqa: F401
 from . import vision  # noqa: F401
+from . import quantization  # noqa: F401

@@ -8,7 +8,7 @@ Meshes over contexts or over the ranks of a job (``make_mesh``,
 schedule), ``ExpertParallelMoE`` (expert parallelism), and ``dist``: the
 bootstrap of a job ``tools/launch.py`` starts, its collectives and the
 ``dist_*`` KVStores, with ``ps``, the host parameter service of
-``dist_async``.  Gradient compression waits for ROADMAP item 11.
+``dist_async``.  Gradient compression waits for ROADMAP item 12.
 """
 from .mesh import (Mesh, make_mesh, data_parallel_mesh, use_mesh,  # noqa: F401
                    current_mesh)

@@ -28,8 +28,8 @@ order from the same ``enumerate`` over parameters, so every rank issues the
 same collectives in the same order.  A row-sparse value travels as its ids
 and rows, padded to the largest count, and is summed over the union of the
 ids.  The JAX build's lockstep auditor, elastic membership, flight
-recorder, heartbeat skew and knob mailbox wait for ROADMAP item 12, its
-compressed wires for item 11.
+recorder, heartbeat skew, knob mailbox and compressed wires wait for
+ROADMAP item 12.
 
 A mesh of ranks may name its axes (``worker_mesh(axes={"dp": 1, "sp":
 2})``, rank r at flat position r, row-major).  :class:`RankAxis` is this

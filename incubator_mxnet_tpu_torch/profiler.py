@@ -19,14 +19,30 @@ span opened at the start of the session.  :func:`dump` writes it all as
 one chrome trace (times in microseconds of ``perf_counter``);
 :func:`dumps` aggregates the spans by name.
 
-``sync=True`` waits for the card inside each op's span, so a span covers
-its kernels' device time and the kernel rows fall inside it; without it a
-span is the host time of the dispatch and its kernels run later.  When the
+``sync=True`` waits for the card inside each op's span, at its start and
+at its end, so a span covers its kernels' device time and the kernel rows
+fall inside it; without it a span is the host time of the dispatch and its
+kernels run later.  torch keeps two clocks in one trace: its CPU rows
+(``record_function``, ATen ops) come from an approximate clock calibrated
+at the session's start, while CUPTI stamps the kernels and the CUDA
+runtime calls.  The two drift apart by up to milliseconds within a session
+on some hosts, so each wait of a synchronized span also leaves a mark
+(:func:`_clock_mark`: ``item()`` of a one-element card tensor), whose ATen
+row lies inside the span on torch's clock and owns a copy and a stream
+synchronize stamped by CUPTI; the span takes the times of those (from its
+first mark's first call to its last mark's last).  CUPTI's device rows
+drift from its host rows too, so the marks' copies also map the kernels
+and copies onto the host rows' clock (:func:`_align_device_rows`): a
+synchronized span, its launches and its kernels then share one clock.  Each span's ``args["clock"]``
+says which clock its times are on: ``cupti``, ``torch`` or ``host``
+(``perf_counter``, for a name whose ``record_function`` rows the trace did
+not match one to one).  When the
 profiler is off, :func:`op_span` returns None after one flag check.  During
 a ``pause`` no span opens, while torch's session records on.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import os
@@ -100,6 +116,10 @@ def _start_session():
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+        if torch.cuda.is_initialized():
+            # the mark tensor made outside the session's spans
+            dev = torch.cuda.current_device()
+            _marks.setdefault(dev, torch.zeros(1, device="cuda:%d" % dev))
     session = profile(activities=activities)
     session.start()
     _P.session, _P.session_spans = session, []
@@ -108,9 +128,8 @@ def _start_session():
 
 
 def _stop_session():
-    """Close the torch session and merge its trace into the events: torch's
-    rows move onto the perf_counter clock by the anchor, and each span of
-    the session takes the times of its record_function row."""
+    """Close the torch session and merge its trace into the events
+    (:func:`_merge_trace`)."""
     session, spans, anchor = _P.session, _P.session_spans, _P.anchor_us
     _P.session, _P.session_spans = None, []
     if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -125,16 +144,124 @@ def _stop_session():
             rows = json.load(f).get("traceEvents", [])
     finally:
         os.remove(path)
+    kept = _merge_trace(rows, spans, anchor)
+    with _lock:
+        _P.events.extend(kept)
+
+
+_MARK_OP = "aten::_local_scalar_dense"
+_marks = {}                 # device index -> the one-element mark tensor
+
+
+def _clock_mark():
+    """Wait for the card and mark CUPTI's clock in the trace (a
+    synchronized span calls it as it opens and as it closes)."""
+    torch.cuda.synchronize()
+    dev = torch.cuda.current_device()
+    mark = _marks.get(dev)
+    if mark is None:
+        mark = _marks[dev] = torch.zeros(1, device="cuda:%d" % dev)
+    mark.item()
+
+
+def _owned_marks(rows):
+    """{id(record_function row): [mark rows]}: each ``_MARK_OP`` row under
+    the innermost ``user_annotation`` row of its thread that contains it
+    (both on torch's clock), in time order."""
+    by_tid = {}
+    for r in rows:
+        if r.get("ph") != "X":
+            continue
+        if r.get("cat") == "user_annotation":
+            by_tid.setdefault(r.get("tid"), []).append(
+                (r["ts"], 0, -r["dur"], r))
+        elif r.get("cat") == "cpu_op" and r.get("name") == _MARK_OP:
+            by_tid.setdefault(r.get("tid"), []).append((r["ts"], 1, 0, r))
+    owned = {}
+    for events in by_tid.values():
+        # by start; at one start the outer (longer) annotation first
+        events.sort(key=lambda e: e[:3])
+        stack = []
+        for ts, is_mark, _, r in events:
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] <= ts:
+                stack.pop()
+            if is_mark:
+                if stack:
+                    owned.setdefault(id(stack[-1]), []).append(r)
+            else:
+                stack.append(r)
+    return owned
+
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset", "gpu_user_annotation")
+
+
+def _align_device_rows(rows, calls):
+    """Move CUPTI's device rows (kernels, copies) onto the clock of its
+    host rows (the CUDA calls), in place.  CUPTI stamps a kernel on the
+    card's clock and converts it to the host's, and on some hosts that
+    conversion drifts: a kernel's row can begin hundreds of microseconds
+    before the call that launched it.  Each mark's copy is a knot: it runs on an idle
+    card right after its ``cudaMemcpyAsync`` starts, so its device start
+    maps onto that call's start; between knots the map is linear, past the
+    ends it keeps the nearest knot's offset.  The marks bracket a
+    synchronized span's work on both clocks, so its kernels land between
+    its marks' calls."""
+    copies = {}
+    for r in rows:
+        if r.get("cat") == "cpu_op" and r.get("name") == _MARK_OP:
+            for c in calls.get((r.get("args") or {}).get("External id"), []):
+                if c.get("name", "").startswith("cudaMemcpy"):
+                    copies[(c.get("args") or {}).get("correlation")] = c
+    knots = sorted((r["ts"], copies[cid]["ts"]) for r in rows
+                   if r.get("cat") == "gpu_memcpy" and
+                   (cid := (r.get("args") or {}).get("correlation"))
+                   in copies)
+    mono = []
+    for dev, host in knots:
+        if not mono or (dev > mono[-1][0] and host > mono[-1][1]):
+            mono.append((dev, host))
+    if not mono:
+        return
+    devs = [d for d, _ in mono]
+
+    def to_host(t):
+        i = bisect.bisect_right(devs, t)
+        if i == 0 or i == len(mono):
+            d, h = mono[max(i - 1, 0)]
+            return t + (h - d)
+        (d0, h0), (d1, h1) = mono[i - 1], mono[i]
+        return h0 + (t - d0) * (h1 - h0) / (d1 - d0)
+
+    for r in rows:
+        if r.get("ph") == "X" and r.get("cat") in _DEVICE_CATS:
+            start, end = to_host(r["ts"]), to_host(r["ts"] + r["dur"])
+            r["ts"], r["dur"] = start, max(end - start, 0.0)
+
+
+def _merge_trace(rows, spans, anchor):
+    """Move torch's ``rows`` onto the perf_counter clock by the anchor
+    span's row and give each span of ``spans`` its times: a synchronized
+    span those of its marks' CUDA calls (CUPTI's clock), any other the
+    times of its ``record_function`` row (torch's CPU clock), a name whose
+    rows do not pair one to one its host times.  Returns the rows to keep
+    beside the spans."""
     anchor_rows = [r for r in rows if r.get("name") == _ANCHOR]
     if not anchor_rows:
         raise RuntimeError("the torch.profiler trace has no anchor span")
     shift = anchor_rows[0]["ts"] - anchor
-    by_key = {}
+    by_key, calls = {}, {}
     for r in rows:
         if r.get("ph") != "M" and "ts" in r:
             r["ts"] = r["ts"] - shift
         if r.get("cat") == "user_annotation":
             by_key.setdefault((r.get("tid"), r["name"]), []).append(r)
+        elif r.get("cat") in ("cuda_runtime", "cuda_driver"):
+            eid = (r.get("args") or {}).get("External id")
+            if eid is not None:
+                calls.setdefault(eid, []).append(r)
+    _align_device_rows(rows, calls)
+    owned = _owned_marks(rows)
     mine = {}
     for ev in spans:
         mine.setdefault((ev["tid"], ev["name"]), []).append(ev)
@@ -142,15 +269,28 @@ def _stop_session():
     for key, evs in mine.items():
         found = by_key.get(key, [])
         if len(found) != len(evs):
-            continue        # keep the host clock's times for this name
+            for ev in evs:
+                ev["args"]["clock"] = "host"
+            continue
         for ev, r in zip(sorted(evs, key=lambda e: e["ts"]),
                          sorted(found, key=lambda r: r["ts"])):
-            ev["ts"], ev["dur"] = r["ts"], r["dur"]
             taken.add(id(r))
-    kept = [r for r in rows if id(r) not in taken
+            marks = owned.get(id(r), [])
+            first = last = []
+            if ev["args"].get("device_time") and len(marks) >= 2:
+                first = calls.get((marks[0].get("args") or {}).get(
+                    "External id"), [])
+                last = calls.get((marks[-1].get("args") or {}).get(
+                    "External id"), [])
+            if first and last:
+                ev["ts"] = min(c["ts"] for c in first)
+                ev["dur"] = max(c["ts"] + c["dur"] for c in last) - ev["ts"]
+                ev["args"]["clock"] = "cupti"
+            else:
+                ev["ts"], ev["dur"] = r["ts"], r["dur"]
+                ev["args"]["clock"] = "torch"
+    return [r for r in rows if id(r) not in taken
             and r.get("name") != _ANCHOR]
-    with _lock:
-        _P.events.extend(kept)
 
 
 def set_state(state="stop"):
@@ -204,12 +344,15 @@ class _OpSpan(object):
         self.begin = _now_us()
         self.rf = torch.autograd.profiler.record_function(self.name)
         self.rf.__enter__()
+        if _P.sync and torch.cuda.is_available() and \
+                torch.cuda.is_initialized():
+            _clock_mark()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         sync = _P.sync
         if sync and torch.cuda.is_available() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
+            _clock_mark()
         self.rf.__exit__(None, None, None)
         end = _now_us()
         args = {"device_time": sync}

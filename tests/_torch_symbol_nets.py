@@ -59,6 +59,59 @@ NETS = {
 }
 
 
+# example/image-classification/symbols/resnet.py: depth -> (bottleneck,
+# units per stage)
+RESNET_SPECS = {18: (False, (2, 2, 2, 2)), 50: (True, (3, 4, 6, 3))}
+
+
+def _conv_bn(m, data, num_filter, kernel, stride, pad, name, act=True):
+    c = m.sym.Convolution(data, kernel=kernel, stride=stride, pad=pad,
+                          num_filter=num_filter, no_bias=True,
+                          name=name + "_conv")
+    b = m.sym.BatchNorm(c, fix_gamma=False, eps=2e-5, momentum=0.9,
+                        name=name + "_bn")
+    return m.sym.Activation(b, act_type="relu", name=name + "_relu") \
+        if act else b
+
+
+def resnet(m, num_classes=10, num_layers=18, thumbnail=True):
+    """example/image-classification/symbols/resnet.py's ``get_symbol``
+    (post-activation v1 units: conv-BN-relu, the add, then relu) over
+    ``m.sym``, ending in SoftmaxOutput; its ``fc1_output`` is the logits."""
+    bottle_neck, units = RESNET_SPECS[num_layers]
+    filters = (256, 512, 1024, 2048) if bottle_neck else (64, 128, 256, 512)
+    data = m.sym.var("data")
+    if thumbnail:
+        x = _conv_bn(m, data, 64, (3, 3), (1, 1), (1, 1), "stem")
+    else:
+        x = _conv_bn(m, data, 64, (7, 7), (2, 2), (3, 3), "stem")
+        x = m.sym.Pooling(x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                          pool_type="max", name="stem_pool")
+    for s, (n_units, f) in enumerate(zip(units, filters)):
+        for u in range(n_units):
+            stride = (1, 1) if (s == 0 or u > 0) else (2, 2)
+            name = "stage%d_unit%d" % (s + 1, u + 1)
+            if bottle_neck:
+                plan = [(f // 4, (1, 1), (1, 1), (0, 0)),
+                        (f // 4, (3, 3), stride, (1, 1)),
+                        (f, (1, 1), (1, 1), (0, 0))]
+            else:
+                plan = [(f, (3, 3), stride, (1, 1)),
+                        (f, (3, 3), (1, 1), (1, 1))]
+            y = x
+            for i, (nf, k, st, pad) in enumerate(plan):
+                y = _conv_bn(m, y, nf, k, st, pad, "%s_c%d" % (name, i + 1),
+                             act=(i + 1 < len(plan)))
+            sc = x if u > 0 else _conv_bn(m, x, f, (1, 1), stride, (0, 0),
+                                          name + "_sc", act=False)
+            x = m.sym.Activation(y + sc, act_type="relu", name=name + "_out")
+    x = m.sym.Pooling(x, global_pool=True, pool_type="avg", kernel=(7, 7),
+                      name="pool_final")
+    x = m.sym.Flatten(x, name="flat")
+    x = m.sym.FullyConnected(x, num_hidden=num_classes, name="fc1")
+    return m.sym.SoftmaxOutput(x, name="softmax")
+
+
 def values(sym, shapes, seed, labels=None):
     """Seeded f32 values for every argument and auxiliary state of
     ``sym`` (inputs included, by ``shapes``): (args, aux) numpy dicts.

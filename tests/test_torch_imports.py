@@ -182,6 +182,14 @@ def test_port_imports_with_jax_blocked():
             "    a = mx.nd.contrib.MultiBoxPrior(mx.nd.ones((1, 2, 2, 2)))\n"
             "    assert mx.nd.box_nms(mx.nd.ones((1, 3, 6))).shape == (1, 3, 6)\n"
             "    assert a.shape == (1, 4, 4) and vops._nms_fixed\n"
+            "    from incubator_mxnet_tpu_torch.ops import quantization as qops\n"
+            "    from incubator_mxnet_tpu_torch.contrib import quantization\n"
+            "    q = mx.nd.contrib.quantize(mx.nd.ones((2, 2)), mx.nd.array([0.]),\n"
+            "                               mx.nd.array([1.]), out_type='int8')\n"
+            "    assert q[0].dtype == 'int8' and qops.quantizable('Pooling', {})\n"
+            "    assert mx.nd.ROIPooling(mx.nd.ones((1, 2, 4, 4)),\n"
+            "        mx.nd.array([[0, 0, 0, 3, 3]]), pooled_size=(2, 2)).shape \\\n"
+            "        == (1, 2, 2, 2) and mx.contrib.quantization.quantize_model\n"
             "print(mx.current_context(), float(x.asnumpy().sum()))\n"
             "assert not [m for m in sys.modules if m.startswith('jax')\n"
             "            and sys.modules[m] is not None]\n")

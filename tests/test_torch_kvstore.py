@@ -242,11 +242,11 @@ def test_identity_and_raising_paths():
                            row_ids=tmx.nd.array([0]))
     with pytest.raises(ValueError, match="row_ids"):
         kv.row_sparse_pull(0, out=tmx.nd.ones(SHAPE))
-    with pytest.raises(MXNetError, match="item 11"):
+    with pytest.raises(MXNetError, match="item 12"):
         kv.set_gradient_compression({"type": "2bit"})
     with pytest.raises(MXNetError, match="set_optimizer"):
         kv.save_optimizer_states("unused")
-    with pytest.raises(MXNetError, match="item 11"):
+    with pytest.raises(MXNetError, match="item 12"):
         tmx.gluon.Trainer([], "sgd", compression_params={"type": "2bit"})
 
 

@@ -307,13 +307,8 @@ LATER_NAMES = {
     "gluon.nn": {"SymbolBlock": 5},
     "optimizer": {"fused_bucket_kind": 12, "fused_bucket_update": 12,
                   "fused_lr_wd": 12, "fused_state_arity": 12},
-    "nd.contrib": {"DeformableConvolution": 9, "DeformablePSROIPooling": 9,
-                   "MultiProposal": 9, "PSROIPooling": 9, "Proposal": 9,
-                   "ROIAlign": 9, "dequantize": 11, "quantize": 11,
-                   "quantized_act": 11, "quantized_conv": 11,
-                   "quantized_elemwise_add": 11, "quantized_flatten": 11,
-                   "quantized_fully_connected": 11,
-                   "quantized_pooling": 11, "requantize": 11},
+    # none since items 9b and 11a
+    "nd.contrib": {},
 }
 NAMESPACES = ("gluon.nn", "gluon.loss", "initializer", "optimizer", "random",
               "nd.random", "nd.linalg", "nd.contrib",

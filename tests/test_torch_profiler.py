@@ -8,6 +8,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import incubator_mxnet_tpu as jmx
 import incubator_mxnet_tpu_torch as tmx
@@ -248,3 +249,94 @@ def test_memory_table_and_continuous_dump(tmp_path):
     assert fname.exists()
     assert profiler.device_memory() == []
     assert not [e for e in _events(str(fname)) if e.get("cat") == "memory"]
+
+
+def test_synchronized_spans_take_cuptis_clock():
+    """torch's CPU rows and CUPTI's kernel and runtime rows drift apart
+    by up to milliseconds within a session on some hosts (the card's 10e
+    check saw kernels up to 3.6 ms before their span), and Kineto gives a
+    ``cudaDeviceSynchronize`` no "External id".  So a span with
+    ``sync=True`` takes its times from the CUDA calls of its own marks
+    (``aten::_local_scalar_dense`` rows inside it on torch's clock, not
+    those of a span nested in it), from the first mark's first call to the
+    last mark's last; an unsynchronized span keeps its record_function
+    row's times, and a name whose rows do not pair one to one keeps the
+    host clock."""
+    def row(cat, name, ts, dur, eid=None, tid=1):
+        args = {} if eid is None else {"External id": eid}
+        return {"name": name, "ph": "X", "ts": ts, "dur": dur, "tid": tid,
+                "cat": cat, "args": args}
+
+    def mark(ts, eid):
+        return row("cpu_op", profiler._MARK_OP, ts, 2.0, eid)
+
+    def call(name, ts, dur, eid, corr=None):
+        r = row("cuda_runtime", name, ts, dur, eid)
+        r["args"]["correlation"] = corr
+        return r
+
+    def device(cat, name, ts, dur, corr):
+        return {"name": name, "ph": "X", "ts": ts, "dur": dur, "tid": 9,
+                "cat": cat, "args": {"correlation": corr}}
+
+    def span(name, ts, synced):
+        return {"name": name, "cat": "operator", "ph": "X", "ts": ts,
+                "dur": 5.0, "tid": 1, "args": {"device_time": synced}}
+
+    rows = [row("user_annotation", profiler._ANCHOR, 1000.0, 1.0),
+            # "attn" with its two marks and an inner span "inner" with its
+            # own two marks; CUPTI's rows lie 50 us off torch's clock
+            row("user_annotation", "attn", 1100.0, 40.0, 11),
+            mark(1101.0, 21), call("cudaMemcpyAsync", 1051.0, 1.0, 21, 31),
+            call("cudaStreamSynchronize", 1052.0, 2.0, 21),
+            # the card's rows 200 us behind CUPTI's host rows: the marks'
+            # copies, and a kernel launched at 1071 that ran between them
+            device("gpu_memcpy", "Memcpy DtoH", 851.5, 0.5, 31),
+            call("cudaLaunchKernel", 1071.0, 1.0, 11, 41),
+            device("kernel", "attn_kernel", 872.0, 5.0, 41),
+            device("gpu_memcpy", "Memcpy DtoH", 885.5, 0.5, 34),
+            row("user_annotation", "inner", 1110.0, 10.0, 12),
+            mark(1111.0, 22), call("cudaMemcpyAsync", 1061.0, 1.0, 22),
+            mark(1118.0, 23), call("cudaMemcpyAsync", 1068.0, 1.0, 23),
+            mark(1135.0, 24), call("cudaMemcpyAsync", 1085.0, 1.0, 24, 34),
+            call("cudaStreamSynchronize", 1086.0, 3.0, 24),
+            row("user_annotation", "dot", 1200.0, 10.0, 13),
+            row("user_annotation", "gone", 1300.0, 10.0, 14)]
+    spans = [span("attn", 190.0, True), span("inner", 205.0, True),
+             span("dot", 290.0, False), span("gone", 380.0, False),
+             span("gone", 390.0, False)]
+    kept = profiler._merge_trace(rows, spans, anchor=100.0)
+    attn, inner, dot, gone = spans[0], spans[1], spans[2], spans[3]
+    # the anchor row at 1000 is 100 on the host clock: shift 900
+    assert attn["args"]["clock"] == "cupti"
+    assert (attn["ts"], attn["dur"]) == (151.0, 38.0)
+    assert inner["args"]["clock"] == "cupti"
+    assert (inner["ts"], inner["dur"]) == (161.0, 8.0)
+    assert dot["args"]["clock"] == "torch"
+    assert (dot["ts"], dot["dur"]) == (300.0, 10.0)
+    assert gone["args"]["clock"] == "host" and gone["ts"] == 380.0
+    names = [r["name"] for r in kept]
+    assert profiler._ANCHOR not in names and "attn" not in names
+    assert "gone" in names and names.count(profiler._MARK_OP) == 4
+    # the kernel and the copies now on the host rows' clock, the kernel
+    # after its launch and inside its span
+    kernel = next(r for r in kept if r["name"] == "attn_kernel")
+    assert 171.0 < kernel["ts"] and kernel["ts"] + kernel["dur"] <= \
+        attn["ts"] + attn["dur"]
+    copies = sorted(r["ts"] for r in kept if r["name"] == "Memcpy DtoH")
+    assert copies == [151.0, 185.0]
+
+
+def test_sync_span_marks_the_clock_at_both_ends(monkeypatch):
+    """In sync mode a span waits for the card and marks the clock as it
+    opens and as it closes (a stubbed card counts the marks)."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(profiler, "_clock_mark", lambda: calls.append(1))
+    monkeypatch.setattr(profiler._P, "sync", True)
+    monkeypatch.setattr(profiler._P, "on", True)
+    monkeypatch.setattr(profiler._P, "session", None)
+    with profiler.op_span("dot"):
+        assert len(calls) == 1
+    assert len(calls) == 2

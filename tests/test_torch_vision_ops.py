@@ -304,30 +304,79 @@ def test_a_padded_row_claims_no_anchor():
 
 SSD_NAMES = {"MultiBoxPrior", "MultiBoxTarget", "MultiBoxDetection",
              "box_nms"}
-# the rest of the JAX build's ops/vision.py: ROADMAP item 9b
-LATER_VISION = {"ROIPooling", "ROIAlign", "_contrib_ROIAlign", "Proposal",
-                "_contrib_Proposal", "MultiProposal", "_contrib_MultiProposal",
-                "PSROIPooling", "_contrib_PSROIPooling",
-                "DeformableConvolution", "_contrib_DeformableConvolution",
-                "DeformablePSROIPooling", "_contrib_DeformablePSROIPooling",
-                "BilinearSampler", "GridGenerator", "SpatialTransformer",
-                "Correlation", "Pad", "pad", "Crop"}
+# what the JAX build's ops/vision.py registers and the port does not: none
+# since item 9b
+LATER_VISION = set()
+# the modules whose every registered name the port carries with the same
+# registration
+CHECKED_MODULES = ("incubator_mxnet_tpu.ops.vision",
+                   "incubator_mxnet_tpu.ops.quantization")
+
+
+def _contract(op):
+    """What a registration promises: names, arities, output counts,
+    gradients, the symbolic hooks and the parameters' defaults."""
+    return dict(
+        name=op.name, num_inputs=op.num_inputs, num_outputs=op.num_outputs,
+        num_visible_outputs=op.num_visible_outputs,
+        differentiable=op.differentiable, needs_rng=bool(op.needs_rng),
+        takes_is_train=op.takes_is_train,
+        nograd_inputs=tuple(op.nograd_inputs),
+        mutate_inputs=tuple(op.mutate_inputs),
+        input_names=None if op.input_names is None else tuple(
+            op.input_names),
+        aux_input_names=tuple(op.aux_input_names),
+        fargnames=op.fargnames is not None,
+        finfer_params=op.finfer_params is not None,
+        fvisible=op.fvisible is not None,
+        fnum_outputs=op.fnum_outputs is not None,
+        defaults=dict(op._defaults))
 
 
 def test_every_ssd_name_is_registered():
-    """The eight SSD names are on the same Operator as in the JAX build;
-    what the JAX build's ops/vision.py registers besides waits for item
-    9b."""
+    """Every name that the JAX build's ops/vision.py and ops/quantization.py
+    register (the SSD ops, items 9b and 11a) is in the port, each on the
+    Operator the JAX build puts it on, with the same registration: arity,
+    output counts, gradients, input names, symbolic hooks and parameter
+    defaults.  Each is deferrable (static shapes), so bulking and
+    hybridize() capture it."""
     from incubator_mxnet_tpu.ops import registry as jreg
     from incubator_mxnet_tpu_torch.ops import registry as treg
     names = {n for n, o in jreg._REGISTRY.items()
-             if o.fcompute.__module__ == "incubator_mxnet_tpu.ops.vision"}
+             if o.fcompute.__module__ in CHECKED_MODULES}
     ssd = SSD_NAMES | {"_contrib_" + n for n in SSD_NAMES}
     assert ssd <= names
-    missing = names - set(treg._REGISTRY)
-    assert missing == names - ssd
-    assert missing <= LATER_VISION, sorted(missing - LATER_VISION)
-    for n in ssd:
+    assert len(names) == 35        # 8 SSD, 18 of item 9b, 9 of item 11a
+    assert names - set(treg._REGISTRY) == LATER_VISION
+    for n in names:
         j, t = jreg._REGISTRY[n], treg._REGISTRY[n]
-        assert t.name == j.name and not t.differentiable, n
+        assert _contract(t) == _contract(j), n
         assert t.deferrable, n
+        for other in names:
+            if jreg._REGISTRY[other] is j:
+                assert treg._REGISTRY[other] is t, (n, other)
+    for n in ssd:
+        assert not treg._REGISTRY[n].differentiable, n
+    # the fargnames, finfer_params and fnum_outputs answer as the JAX
+    # build's
+    for n, params in [("_contrib_DeformableConvolution", {"no_bias": True}),
+                      ("_contrib_DeformableConvolution", {}),
+                      ("_contrib_DeformablePSROIPooling", {"no_trans": True}),
+                      ("_contrib_DeformablePSROIPooling", {}),
+                      ("_contrib_quantized_conv", {"no_bias": False}),
+                      ("_contrib_quantized_fully_connected", {})]:
+        j, t = jreg._REGISTRY[n], treg._REGISTRY[n]
+        assert t.arg_names(params) == j.arg_names(params), n
+    for n, shape, params in [
+            ("_contrib_DeformableConvolution", (2, 8, 5, 5),
+             {"num_filter": 4, "num_group": 2, "kernel": (3, 3)}),
+            ("_contrib_quantized_conv", (2, 8, 5, 5),
+             {"num_filter": 4, "kernel": (3, 3)}),
+            ("_contrib_quantized_fully_connected", (2, 3, 4),
+             {"num_hidden": 5})]:
+        assert treg._REGISTRY[n].finfer_params(shape, params) == \
+            jreg._REGISTRY[n].finfer_params(shape, params), n
+    for flag in (True, False):
+        p = {"output_score": flag}
+        assert treg._REGISTRY["Proposal"].fnum_outputs(p) == \
+            jreg._REGISTRY["Proposal"].fnum_outputs(p)
